@@ -1,0 +1,109 @@
+"""Checkers: validate that a history is correct.
+
+The `Checker` protocol and the linearizability checker, which runs the
+deep-overlap kernel on the card (or its plain version on a CPU device
+the caller names) instead of knossos.  Every checker returns a dict
+with at least a "valid?" key: True, False or "unknown"."""
+
+from __future__ import annotations
+
+from jepsen_tpu_torch.errors import Unsupported
+from jepsen_tpu_torch.history import History
+from jepsen_tpu_torch.ops import planner, wgl_cpu, wgl_seg
+
+
+class Checker:
+    """`test` is the test map (may be None for pure checkers); `opts`
+    carries e.g. :subdirectory for artifact output."""
+
+    def check(self, test, history, opts=None) -> dict:
+        raise NotImplementedError
+
+
+class Linearizable(Checker):
+    """algorithm: 'device' (or 'auto', the same here) checks on
+    `device`, the card by default; 'cpu' runs the exact CPU oracle
+    because the caller asks for it.  A model without a device spec
+    raises Unsupported under 'device'/'auto'.
+
+    Keyword options: max_states, max_open_bits, localize (the device
+    check); max_configs, time_limit (the CPU oracle)."""
+
+    _SEG_KEYS = ("max_states", "max_open_bits", "localize")
+    _CPU_KEYS = ("max_configs", "time_limit")
+
+    def __init__(self, model=None, algorithm: str = "auto", device=None,
+                 **kw):
+        if model is None:
+            raise ValueError(
+                "The linearizable checker requires a model. It received: "
+                "None instead.")
+        if algorithm == "competition":
+            raise Unsupported(f"competition mode: {planner.ITEM_CPU_AUTO}")
+        if algorithm not in ("auto", "device", "cpu"):
+            raise ValueError(f"unknown algorithm {algorithm!r}")
+        unknown = set(kw) - set(self._SEG_KEYS) - set(self._CPU_KEYS)
+        if unknown:
+            raise TypeError(f"unknown linearizable checker option(s): "
+                            f"{sorted(unknown)}")
+        self.model = model
+        self.algorithm = algorithm
+        self.device = device
+        self.kw = kw
+
+    def check(self, test, history, opts=None):
+        if self.algorithm == "cpu":
+            a = wgl_cpu.check(self.model, history,
+                              **{k: v for k, v in self.kw.items()
+                                 if k in self._CPU_KEYS})
+        else:
+            a = wgl_seg.check(self.model, history, device=self.device,
+                              **{k: v for k, v in self.kw.items()
+                                 if k in self._SEG_KEYS})
+        if (a.get("valid?") is False and "final-paths" not in a
+                and not a.get("localized")
+                and a.get("op_index") is not None):
+            # artifact parity: device verdicts name a witness but carry
+            # no configs or final-paths; rebuild both from the CPU oracle
+            # on the prefix through the witness's COMPLETION (cut at its
+            # invocation and the call looks crashed)
+            try:
+                hist = History(history)
+                wit = next((o for o in hist
+                            if o.index == a["op_index"]), None)
+                cutoff = a["op_index"]
+                if wit is not None:
+                    for o in hist:
+                        if (o.index is not None
+                                and o.index > a["op_index"]
+                                and o.process == wit.process
+                                and not o.is_invoke):
+                            cutoff = o.index
+                            break
+                prefix = History(
+                    [o for o in hist
+                     if o.index is not None and o.index <= cutoff])
+                oracle = wgl_cpu.check(self.model, prefix, time_limit=15,
+                                       max_configs=500_000)
+                for key in ("configs", "final-paths"):
+                    if key in oracle and key not in a:
+                        a[key] = oracle[key]
+            except ValueError as e:
+                a["final-paths-error"] = str(e)
+        # writing every config "can take hours": keep the first ten; the
+        # config-explosion verdict sets 'configs' to a count
+        if isinstance(a.get("configs"), list):
+            a["configs"] = a["configs"][:10]
+        if isinstance(a.get("final-paths"), list):
+            a["final-paths"] = a["final-paths"][:10]
+        return a
+
+
+def linearizable(opts_or_model=None, **kw) -> Checker:
+    """linearizable({'model': m, 'algorithm': ...}) or
+    linearizable(model, ...)."""
+    if isinstance(opts_or_model, dict):
+        o = dict(opts_or_model)
+        return Linearizable(o.pop("model", None), o.pop("algorithm", "auto"),
+                            **o, **kw)
+    return Linearizable(opts_or_model, **kw)

@@ -1,0 +1,408 @@
+"""Host-side planning of the deep-overlap path: the scope gate, the fused
+history scan, state enumeration, the transition decomposition and the
+table packers.  Copies of the numpy code in `jepsen_tpu.ops.planner`
+(kept byte-identical, and tested so), with the state enumeration's
+jitted vmap replaced by the model's torch `step` over a written-out
+[states x ops] batch on the CPU.
+
+Routing here is one rule: a history the deep kernel can check exactly
+goes to it, and every other shape raises `Unsupported` naming the
+ROADMAP item that will cover it."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from jepsen_tpu_torch.errors import Unsupported
+from jepsen_tpu_torch.history import History
+
+# ROADMAP items that own the shapes this slice refuses.
+ITEM_CRASH = "ROADMAP P3 (crash tiers)"
+ITEM_SERIAL = ("ROADMAP P5 (serial wgl / wgl_batch and candidate-table "
+               "engines)")
+ITEM_CPU_AUTO = ("ROADMAP P6 (competition mode and auto routing to the "
+                 "CPU oracle)")
+
+#: Overlap depth one [Sn, 512]-word plane covers; past it the plane is
+#: a stack of DEEP_SPLIT_MAX base-sized sub-planes (R = 15/16).
+DEEP_R_BASE = 14
+DEEP_SPLIT_MAX = 4
+DEEP_SN_MAX = 32
+
+
+def deep_split_planes(R: int) -> int:
+    """Sub-plane count of the word-split plane at overlap depth R
+    (1 = a single plane).  The CUDA kernel keeps one flat plane of
+    2^R / 32 words per state row; this count is kept for the result's
+    provenance keys, which the reference reports."""
+    return 1 << max(0, int(R) - DEEP_R_BASE)
+
+
+def deep_r_max() -> int:
+    """The deepest overlap one device checks: the base plane plus the
+    word-split stack."""
+    return DEEP_R_BASE + (DEEP_SPLIT_MAX.bit_length() - 1)
+
+
+def deep_gate(R: int, Sn: int, U: int, decomposed: bool) -> Optional[str]:
+    """Why the deep kernel cannot check this shape exactly, or None:
+    it takes decomposable models with Sn <= 32 at any R <= deep_r_max().
+    Which device runs it is `backend.resolve_device`'s decision: the
+    card, or the CPU (the plain version) only when the caller names
+    it; no env knob widens or narrows either."""
+    if not decomposed:
+        return ("model transitions are not diagonal + rank-1 "
+                f"decomposable: {ITEM_SERIAL}")
+    if not 0 < R <= deep_r_max():
+        return (f"overlap depth R={R} is outside 1..{deep_r_max()}: "
+                f"{ITEM_SERIAL}")
+    if Sn > DEEP_SN_MAX:
+        return (f"{Sn} model states exceed the deep kernel's "
+                f"{DEEP_SN_MAX}: {ITEM_SERIAL}")
+    if U > 32767:
+        return f"{U} distinct ops exceed the u16 wire: {ITEM_SERIAL}"
+    return None
+
+
+class _FastKey:
+    """One scanned history: rets[r] = (slot, [(open_slot, open_uop),
+    ...]) per return event, the open set at that return (target
+    included); `cuts[r]` marks returns after which no call is open;
+    `positions[r]` is the op position of return r in history.ops, which
+    names the failing call of an invalid verdict exactly."""
+
+    __slots__ = ("rets", "max_open", "n_calls", "cuts", "positions")
+
+    def __init__(self, rets, max_open, n_calls, cuts, positions):
+        self.rets = rets
+        self.max_open = max_open
+        self.n_calls = n_calls
+        self.cuts = cuts
+        self.positions = positions
+
+    @property
+    def n_rets(self):
+        return len(self.rets)
+
+
+def _fast_scan(history, spec, seen: dict, rows: list,
+               max_open_bits: int) -> _FastKey:
+    """Pairing + slot assignment + op interning in one pass over the
+    ops.  Raises Unsupported for a history outside the slice (crashed
+    calls, overlap past max_open_bits, ops the model cannot encode) and
+    ValueError for a malformed one (a process invoked twice).  The
+    shared seen/rows interning is touched only on success."""
+    ops = history.ops if isinstance(history, History) else \
+        History(history).ops
+    f_codes = spec.f_codes
+
+    # Pass 1: completion for each invocation position.
+    open_by_process: dict = {}
+    fate: dict = {}
+    n_client = 0
+    for pos, o in enumerate(ops):
+        p = o.process
+        if not (type(p) is int and p >= 0):
+            continue
+        n_client += 1
+        if o.type == "invoke":
+            if p in open_by_process:
+                raise ValueError(f"process {p} double-invoked at {pos}")
+            open_by_process[p] = pos
+        else:
+            ip = open_by_process.pop(p, None)
+            if ip is not None:
+                fate[ip] = o
+    if open_by_process:
+        raise Unsupported(f"history has calls that never return: "
+                          f"{ITEM_CRASH}")
+    if n_client == 0:
+        return _FastKey([], 0, 0, cuts=np.zeros(0, np.int32),
+                        positions=np.zeros(0, np.int32))
+
+    # Pass 2: slots + interning + return records.
+    new_seen: dict = {}
+    new_rows: list = []
+    free: list = []
+    next_slot = 0
+    slot_of: dict = {}
+    uop_of: dict = {}
+    open_list: list = []
+    rets: list = []
+    cuts: list = []
+    positions: list = []
+    max_open = 0
+    n_calls = 0
+    INT32 = 2 ** 31
+    for pos, o in enumerate(ops):
+        p = o.process
+        if not (type(p) is int and p >= 0):
+            continue
+        t = o.type
+        if t == "invoke":
+            comp = fate[pos]
+            if comp.type == "info":
+                raise Unsupported(f"history has crashed (:info) calls: "
+                                  f"{ITEM_CRASH}")
+            if comp.type == "fail":
+                continue             # the pair never happened: dropped
+            v = o.value if o.value is not None else comp.value
+            fc = f_codes.get(o.f, -1)
+            if fc < 0:
+                raise Unsupported(f"model has no f-code for {o.f!r}: "
+                                  f"{ITEM_SERIAL}")
+            # isinstance (not exact-type) checks, so int subclasses
+            # encode by value as the oracle compares them
+            if isinstance(v, bool):
+                av, bv, okv = int(v), 0, True
+            elif isinstance(v, int):
+                av, bv, okv = v, 0, True
+            elif isinstance(v, (list, tuple)) and len(v) == 2 \
+                    and isinstance(v[0], int) and isinstance(v[1], int) \
+                    and not isinstance(v[0], bool) \
+                    and not isinstance(v[1], bool):
+                av, bv, okv = v[0], v[1], True
+            else:
+                av, bv, okv = 0, 0, False
+            if not (-INT32 <= av < INT32 and -INT32 <= bv < INT32):
+                raise Unsupported(f"op value {v!r} exceeds the int32 "
+                                  f"device range: {ITEM_SERIAL}")
+            key = (fc, av, bv, okv)
+            u = seen.get(key)
+            if u is None:
+                u = new_seen.get(key)
+            if u is None:
+                u = new_seen[key] = len(rows) + len(new_rows)
+                new_rows.append(key)
+            s = free.pop() if free else next_slot
+            if s == next_slot:
+                next_slot += 1
+            slot_of[p] = s
+            uop_of[p] = u
+            open_list.append(p)
+            if len(open_list) > max_open:
+                max_open = len(open_list)
+                if max_open > max_open_bits:
+                    raise Unsupported(
+                        f"more than max_open_bits={max_open_bits} "
+                        f"simultaneously-open calls: {ITEM_SERIAL}")
+            n_calls += 1
+        elif t == "ok":
+            s = slot_of.get(p)
+            if s is None:
+                continue
+            rets.append((s, [(slot_of[q], uop_of[q])
+                             for q in open_list]))
+            positions.append(pos)
+            open_list.remove(p)
+            del slot_of[p]
+            del uop_of[p]
+            free.append(s)
+            cuts.append(1 if not open_list else 0)
+
+    seen.update(new_seen)
+    rows.extend(new_rows)
+    return _FastKey(rets, max_open, n_calls,
+                    cuts=np.asarray(cuts, np.int32),
+                    positions=np.asarray(positions, np.int32))
+
+
+def _fk_arrays(fk: _FastKey):
+    """Flat (ret_slots, cand_counts, cand_slots, cand_uops) arrays."""
+    rs = np.fromiter((r[0] for r in fk.rets), np.int32,
+                     count=len(fk.rets))
+    counts = np.fromiter((len(r[1]) for r in fk.rets), np.int32,
+                         count=len(fk.rets))
+    cs = np.fromiter((s for _, cands in fk.rets for s, _ in cands),
+                     np.int32)
+    cu = np.fromiter((u for _, cands in fk.rets for _, u in cands),
+                     np.int32)
+    return rs, counts, cs, cu
+
+
+def _enumerate_states(spec, init_state: np.ndarray, uops: np.ndarray,
+                      max_states: int):
+    """Close {init} under every distinct op's legal transition.  Returns
+    (states int32[Sn, S], legal bool[U, Sn], next int32[U, Sn]).  The
+    model step runs on CPU tensors: the state space is tiny."""
+    U = uops.shape[0]
+    cols = torch.from_numpy(np.ascontiguousarray(uops, np.int32))
+    f, a, b, ok = cols[:, 0], cols[:, 1], cols[:, 2], cols[:, 3] != 0
+
+    def expand(states: np.ndarray):
+        # [n, S] -> ([U, n, S] states', [U, n] legal), op-major
+        n, S = states.shape
+        st = torch.from_numpy(states).repeat(U, 1)
+        st2, legal = spec.step(st, f.repeat_interleave(n),
+                               a.repeat_interleave(n),
+                               b.repeat_interleave(n),
+                               ok.repeat_interleave(n))
+        return (st2.reshape(U, n, S).numpy(),
+                legal.reshape(U, n).numpy())
+
+    table: dict[bytes, int] = {}
+    states: list[np.ndarray] = []
+
+    def intern(row: np.ndarray) -> int:
+        key = row.tobytes()
+        idx = table.get(key)
+        if idx is None:
+            idx = table[key] = len(states)
+            states.append(row)
+        return idx
+
+    intern(np.asarray(init_state, np.int32))
+    frontier = 0
+    while frontier < len(states):
+        if len(states) > max_states:
+            raise Unsupported(
+                f"model state space exceeds max_states={max_states}: "
+                f"{ITEM_SERIAL}")
+        batch = np.stack(states[frontier:], 0)
+        frontier = len(states)
+        st2, legal = expand(batch)
+        for u in range(U):
+            for j in range(st2.shape[1]):
+                if legal[u, j]:
+                    intern(st2[u, j].astype(np.int32))
+
+    state_arr = np.stack(states, 0).astype(np.int32)
+    Sn = state_arr.shape[0]
+    st2, legal = expand(state_arr)
+    next_state = np.zeros((U, Sn), np.int32)
+    for u in range(U):
+        for s in range(Sn):
+            if legal[u, s]:
+                next_state[u, s] = table[
+                    st2[u, s].astype(np.int32).tobytes()]
+    return state_arr, legal.astype(bool), next_state
+
+
+def _decompose(legal: np.ndarray, next_state: np.ndarray):
+    """Diagonal + rank-1 decomposition: decomposable iff each op's
+    state-changing transitions all target one state.  Returns
+    (diag_w, const_w, const_t0) or (None, None, None)."""
+    U, Sn = legal.shape
+    diag_w = np.zeros((U, Sn), np.float32)
+    const_w = np.zeros((U, Sn), np.float32)
+    const_t0 = np.zeros(U, np.int32)
+    for u in range(U):
+        targets = set()
+        for s in range(Sn):
+            if not legal[u, s]:
+                continue
+            if next_state[u, s] == s:
+                diag_w[u, s] = 1.0
+            else:
+                const_w[u, s] = 1.0
+                targets.add(int(next_state[u, s]))
+        if len(targets) > 1:
+            return None, None, None
+        if targets:
+            const_t0[u] = targets.pop()
+    return diag_w, const_w, const_t0
+
+
+def _next_pow2(x: int) -> int:
+    b = 1
+    while b < x:
+        b *= 2
+    return b
+
+
+def _pad_len(x: int) -> int:
+    """Event-axis padding: pow2 below 64, 64-multiples above."""
+    return _next_pow2(x) if x <= 64 else ((x + 63) // 64) * 64
+
+
+def _pack_uop_tables(legal: np.ndarray, next_state: np.ndarray,
+                     diag_w, const_w, const_t0):
+    """[U]-indexed transition tables: for a decomposable model the
+    diagonal and rank-1 state bitmasks and the rank-1 target; otherwise
+    the legal bitmask and the nibble-packed next states."""
+    U, Sn = legal.shape
+    pow2 = (1 << np.arange(Sn, dtype=np.uint64)).astype(np.uint64)
+    if diag_w is not None:
+        aux1 = ((diag_w > 0).astype(np.uint64) * pow2).sum(1)
+        aux2 = ((const_w > 0).astype(np.uint64) * pow2).sum(1)
+        t0 = const_t0.astype(np.int32)
+    else:
+        aux1 = (legal.astype(np.uint64) * pow2).sum(1)
+        nib = (1 << (4 * np.arange(Sn, dtype=np.uint64))).astype(np.uint64)
+        aux2 = (next_state.astype(np.uint64) * nib).sum(1)
+        t0 = np.zeros(U, np.int32)
+    return (aux1.astype(np.uint32), aux2.astype(np.uint32), t0)
+
+
+def _pack_regs(batch, Kp: int, R: int, U: int, I: int):
+    """Delta-encode the batch: per return, only the calls invoked since
+    the previous return (derived from consecutive candidate snapshots:
+    between two returns a slot hosts at most one new occupant, so a
+    changed (slot -> uop) cell IS the new invoke).  Bursts beyond I
+    spill into virtual rows (ret -1) BEFORE their return's row.
+    Returns (ret_t [L', K], islot_t, iuop_t [L', K, I], L')."""
+    rs_parts, cnt_parts, cs_parts, cu_parts, nr_parts = [], [], [], [], []
+    for _, fk in batch:
+        rs, counts, cs, cu = _fk_arrays(fk)
+        rs_parts.append(rs)
+        cnt_parts.append(counts)
+        cs_parts.append(cs)
+        cu_parts.append(cu)
+        nr_parts.append(len(rs))
+    rs_all = np.concatenate(rs_parts)
+    cnt_all = np.concatenate(cnt_parts)
+    cs_all = np.concatenate(cs_parts).astype(np.int64)
+    cu_all = np.concatenate(cu_parts)
+    nr_all = np.asarray(nr_parts, np.int64)
+    NR = len(rs_all)
+    ret_key = np.repeat(np.arange(len(batch)), nr_all)
+    key_start = np.concatenate([[0], np.cumsum(nr_all)[:-1]])
+    first_ret = key_start
+
+    # dense snapshot matrix M[r, slot] = uop at return r, -1 empty
+    M = np.full((NR, R), -1, np.int64)
+    rowidx = np.repeat(np.arange(NR), cnt_all)
+    M[rowidx, cs_all] = cu_all
+    # previous snapshot with the returning slot freed
+    Oprev = np.full_like(M, -1)
+    Oprev[1:] = M[:-1]
+    idx = np.arange(1, NR)
+    Oprev[idx, rs_all[:-1].astype(np.int64)] = -1
+    Oprev[first_ret] = -1
+    D = (M != -1) & (M != Oprev)
+    c = D.sum(1).astype(np.int64)               # deltas per return
+
+    # row layout with virtual spill rows
+    e = np.maximum(0, (c + I - 1) // I - 1)     # virtual rows per return
+    ecum = np.cumsum(e)
+    ebase = np.concatenate([[0], ecum])[key_start]
+    r_local = np.arange(NR) - key_start[ret_key]
+    rho = r_local + (ecum - ebase[ret_key])     # local row of return r
+    rows_per_key = np.zeros(len(batch), np.int64)
+    np.maximum.at(rows_per_key, ret_key, rho + 1)
+    Lp = _pad_len(int(rows_per_key.max()))
+
+    ret_slot = np.full((Kp, Lp), -1, np.int8)
+    ret_slot[ret_key, rho] = rs_all.astype(np.int8)
+
+    # scatter delta entries into (row, col)
+    ent_ret, ent_slot = np.nonzero(D)           # ordered by (ret, slot)
+    ent_uop = M[ent_ret, ent_slot]
+    starts = np.cumsum(c) - c
+    j = np.arange(len(ent_ret)) - starts[ent_ret]
+    from_end = c[ent_ret] - 1 - j
+    row = rho[ent_ret] - from_end // I
+    col = from_end % I
+    uop_dtype = np.int8 if U <= 127 else np.int16
+    inv_slot = np.full((Kp, Lp, I), -1, np.int8)
+    inv_uop = np.full((Kp, Lp, I), -1, uop_dtype)
+    inv_slot[ret_key[ent_ret], row, col] = ent_slot.astype(np.int8)
+    inv_uop[ret_key[ent_ret], row, col] = ent_uop.astype(uop_dtype)
+
+    ret_t = np.ascontiguousarray(ret_slot.T)
+    islot_t = np.ascontiguousarray(inv_slot.transpose(1, 0, 2))
+    iuop_t = np.ascontiguousarray(inv_uop.transpose(1, 0, 2))
+    return ret_t, islot_t, iuop_t, Lp
