@@ -11,8 +11,10 @@ exits non-zero:
                CPU copies of the same inputs) on small histories at
                R = 7, 10, 14, 15, 16 with up to 32 model states, one
                valid and one planted-invalid each, R = 16 at 32 states
-               included (the global-memory plane); the R = 7 verdicts
-               also against the exact CPU oracle;
+               included (the global-memory plane): verdict, first dead
+               row and plane words touched; kernel time (CUDA events)
+               and bound per case; the R = 7 verdicts also against the
+               exact CPU oracle;
   4. main    - the deep-overlap envelope at full size: 16 etcd-shaped
                register histories of 20,000 calls (concurrency 16, vmax
                9, read/read/write/cas) per depth max_open 8/10/12/14,
@@ -20,7 +22,15 @@ exits non-zero:
                stale reads at 90% depth (through Linearizable, and in
                one grid of mixed depths) whose exact witness must come
                back; the kernel's launch count must grow;
-  5. timing  - the kernel, its plain version and the bound on one
+  5. grid    - the main path's grids rebuilt on the host exactly as
+               check_pipeline built them (one aux table, mixed depths
+               under one plane stride), launched once more: every CTA's
+               verdict must equal the main path's, and chosen CTAs
+               (depth 8, 10, 12, both depths 13 and 14 of the depth-14
+               grid, and the planted histories of the mixed grid) must
+               equal the plain version on CPU copies of the same device
+               inputs, in worker processes;
+  6. timing  - the kernel, its plain version and the bound on one
                main-path history, as the JSON kernel line.
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with
@@ -30,10 +40,13 @@ is missing."""
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import random
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -197,9 +210,9 @@ def phase_build():
 
 def tables_for(h, max_open_bits=16):
     """The port's host path for one history: scan, states, tables, wire.
-    Returns (cbuf u8, G, aux i32, R, Sn, UP, I, fk, ret_t)."""
+    Returns (cbuf u8, G, aux i32, R, Sn, UP, fk, ret_t)."""
     from jepsen_tpu_torch.models import CASRegister
-    from jepsen_tpu_torch.ops import planner, wgl_deep
+    from jepsen_tpu_torch.ops import deep_kernel, planner, wgl_deep
     model = CASRegister()
     spec = model.device_spec()
     seen, rows = {}, []
@@ -209,21 +222,20 @@ def tables_for(h, max_open_bits=16):
         spec, np.asarray(spec.encode(model), np.int32), uops, 64)
     dec = planner._decompose(legal, nxt)
     R = int(fk.max_open)
-    I = min(2, R)
-    ret_t, islot_t, iuop_t, _ = planner._pack_regs([(0, fk)], 1, R,
-                                                   len(rows), I)
+    ret_t, islot_t, iuop_t, _ = planner._pack_regs(
+        [(0, fk)], 1, R, len(rows), deep_kernel.I)
     cbuf, G = wgl_deep.pack_events_compact(ret_t, islot_t, iuop_t)
     UP = wgl_deep._pad_u(len(rows))
     aux = wgl_deep.pack_aux(*planner._pack_uop_tables(legal, nxt, *dec),
-                            UP).view(np.int32).ravel()
-    return cbuf, G, aux, R, states.shape[0], UP, I, fk, ret_t
+                            UP).view(np.int32)
+    return cbuf, G, aux, R, states.shape[0], UP, fk, ret_t
 
 
 def walk_inputs(t, device):
     """deep_walk's tensors (on `device`) and shape arguments for one
     history from tables_for."""
     from jepsen_tpu_torch.ops import deep_kernel, wgl_deep
-    cbuf, G, aux, R, Sn, UP, I = t[:7]
+    cbuf, G, aux, R, Sn, UP = t[:6]
     dev = torch.device(device)
     args = (torch.from_numpy(cbuf).to(dev),
             torch.zeros(1, dtype=torch.int64, device=dev),
@@ -231,7 +243,7 @@ def walk_inputs(t, device):
                        device=dev),
             torch.full((1,), R, dtype=torch.int32, device=dev),
             torch.from_numpy(aux).to(dev))
-    return args, dict(R=R, SnP=wgl_deep._snp(Sn), I=I, UP=UP)
+    return args, dict(R=R, SnP=wgl_deep._snp(Sn), UP=UP)
 
 
 def run_walk(t, device, work=None):
@@ -241,11 +253,27 @@ def run_walk(t, device, work=None):
     return tuple(int(x) for x in out[0].cpu())
 
 
+def timed_walk(t):
+    """One kernel launch on inputs already on the card: ((alive, first
+    dead row), plane words touched, kernel ms by CUDA events)."""
+    from jepsen_tpu_torch.ops import deep_kernel
+    args, kw = walk_inputs(t, "cuda")
+    work = torch.zeros(1, dtype=torch.int64, device="cuda")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    out = deep_kernel.deep_walk(*args, work=work, **kw)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return (tuple(int(x) for x in out[0].cpu()), int(work.item()),
+            ev[0].elapsed_time(ev[1]))
+
+
 def abs_err(a, b):
     return max(abs(x - y) for x, y in zip(a, b))
 
 
-def phase_kernel():
+def phase_kernel(clock_hz):
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops import deep_kernel, wgl_cpu, wgl_deep
     cases = [(7, 30), (10, 30), (14, 30), (15, 30), (16, 30), (16, 9)]
@@ -262,25 +290,28 @@ def phase_kernel():
             if t[3] != R:
                 raise SystemExit(f"[kernel] built R={t[3]}, wanted {R}")
             snp = wgl_deep._snp(t[4])
-            t0 = time.perf_counter()
-            card = run_walk(t, "cuda")
+            card, words, ms = timed_walk(t)
+            work_plain = torch.zeros(1, dtype=torch.int64)
             t1 = time.perf_counter()
-            plain = run_walk(t, "cpu")
-            t2 = time.perf_counter()
-            glob = not deep_kernel.plane_in_shared(R, snp, t[6])
+            plain = run_walk(t, "cpu", work=work_plain)
+            plain_s = time.perf_counter() - t1
+            glob = not deep_kernel.plane_in_shared(R, snp)
             seen_global_plane |= glob
             err = max(err, abs_err(card, plain))
-            ok = card == plain and card[0] == (0 if bad else 1)
+            ok = (card == plain and words == int(work_plain.item())
+                  and card[0] == (0 if bad else 1))
             oracle = ""
             if R == 7:
                 o = wgl_cpu.check(CASRegister(), h)
                 ok &= o["valid?"] is (not bad)
                 oracle = f" oracle={o['valid?']}"
-            log(f"[kernel] R={R} Sn={t[4]} SnP={snp} rows={len(t[8])} "
+            b = bound_ms(words, t[0].nbytes + t[2].nbytes, clock_hz)
+            log(f"[kernel] R={R} Sn={t[4]} SnP={snp} rows={len(t[7])} "
                 f"{'invalid' if bad else 'valid'} plane="
                 f"{'global' if glob else 'shared'} kernel={card} "
-                f"plain={plain}{oracle} kernel_s={t1 - t0:.3f} "
-                f"plain_s={t2 - t1:.3f} {'OK' if ok else 'MISMATCH'}")
+                f"plain={plain}{oracle} words={words} kernel_ms={ms:.3f} "
+                f"bound_ms={b:.4f} plain_s={plain_s:.3f} "
+                f"{'OK' if ok else 'MISMATCH'}")
             if not ok:
                 raise SystemExit("[kernel] kernel and plain version "
                                  "disagree")
@@ -289,7 +320,7 @@ def phase_kernel():
     return err
 
 
-def phase_main(clock_hz):
+def phase_main():
     from jepsen_tpu_torch.checker import Linearizable
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops import deep_kernel, wgl_deep
@@ -305,6 +336,7 @@ def phase_main(clock_hz):
             raise SystemExit(f"[main] no plantable read at depth {mo}")
     model = CASRegister()
     checker = Linearizable(model, max_open_bits=16)
+    verdicts = {}
     deep_kernel.LAUNCHES = 0
     for mo in depths:
         hs = batches[mo]
@@ -312,6 +344,7 @@ def phase_main(clock_hz):
         t = time.perf_counter()
         res = wgl_deep.check_pipeline(model, hs, stats=st)
         wall = time.perf_counter() - t
+        verdicts[mo] = res
         bad = [i for i, r in enumerate(res) if r["valid?"] is not True]
         if bad or any(r["engine"] != "wgl_deep" for r in res):
             raise SystemExit(f"[main] depth {mo}: histories {bad} not "
@@ -342,6 +375,8 @@ def phase_main(clock_hz):
     t = time.perf_counter()
     rm = wgl_deep.check_pipeline(model, mixed)
     dt_mixed = time.perf_counter() - t
+    batches["mixed"] = mixed
+    verdicts["mixed"] = rm
     checks = [("Linearizable", 8, r8, planted[8][1], dt),
               ("check_pipeline mixed", 8, rm[1], planted[8][1], dt_mixed),
               ("check_pipeline mixed", 14, rm[3], planted[14][1],
@@ -360,7 +395,78 @@ def phase_main(clock_hz):
     log(f"[main] kernel launches on the main path: {launches}")
     if launches <= 0:
         raise SystemExit("[main] the main path launched no kernel")
-    return batches, launches
+    return batches, verdicts, launches
+
+
+def plain_job(cbuf, aux, L2, R, SnP, UP):
+    """The plain version on one CTA's wire, in a worker process:
+    ((alive, first dead row), plane words touched, seconds)."""
+    from jepsen_tpu_torch.ops import deep_kernel
+    torch.set_num_threads(1)
+    work: dict = {}
+    t = time.perf_counter()
+    out = deep_kernel.walk_plain(torch.from_numpy(cbuf),
+                                 torch.from_numpy(aux), L2=L2, R=R, SnP=SnP,
+                                 UP=UP, work=work)
+    return tuple(out), work.get("words", 0), time.perf_counter() - t
+
+
+def phase_grid(batches, verdicts):
+    """The main path's grids, rebuilt by the same host half
+    (wgl_deep.pack_pipeline), launched once more with the plane-word
+    count on: every CTA's verdict must equal the main path's, and the
+    chosen CTAs must equal the plain version on CPU copies of the very
+    tensors the grid read."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import deep_kernel, wgl_deep
+    model = CASRegister()
+    jobs = []
+    ctx = multiprocessing.get_context("spawn")
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    t_all = time.perf_counter()
+    with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        for name, hs in batches.items():
+            _, grid, pend = wgl_deep.pack_pipeline(model, hs)
+            wire = grid.to_device(torch.device("cuda"))
+            n = len(pend)
+            work = torch.zeros(n, dtype=torch.int64, device="cuda")
+            out = deep_kernel.deep_walk(*wire, work=work,
+                                        **grid.shape()).cpu()
+            words = work.cpu().tolist()
+            for k, (i, *_rest) in enumerate(pend):
+                if bool(out[k, 0]) is not verdicts[name][i]["valid?"]:
+                    raise SystemExit(f"[grid] {name}: CTA {k} disagrees "
+                                     f"with the main path's verdict")
+            depth = grid.depth
+            if name == 14:
+                picks = [depth.index(r) for r in sorted(set(depth))]
+            elif name == "mixed":
+                picks = [1, 3]            # the planted histories
+            else:
+                picks = [0]
+            cbuf, offs, rows, _, aux = (x.cpu().numpy() for x in wire)
+            shape = grid.shape()
+            for k in picks:
+                o, L2 = int(offs[k]), int(rows[k])
+                size = L2 * (1 + 3 * deep_kernel.I)
+                fut = pool.submit(plain_job, cbuf[o:o + size].copy(), aux,
+                                  L2, depth[k], shape["SnP"], shape["UP"])
+                jobs.append((name, k, depth[k], shape["R"],
+                             tuple(int(x) for x in out[k]), words[k], fut))
+        err = 0
+        for name, k, Rh, R, card, words, fut in jobs:
+            plain, pwords, secs = fut.result()
+            err = max(err, abs_err(card, plain))
+            ok = card == plain and words == pwords
+            log(f"[grid] {name}: CTA {k} depth {Rh} in a grid of stride "
+                f"R={R}: kernel={card} plain={plain} words {words}/"
+                f"{pwords} plain_s={secs:.1f} {'OK' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit("[grid] a main-path CTA disagrees with "
+                                 "the plain version")
+    log(f"[grid] {len(jobs)} CTAs held against the plain version in "
+        f"{time.perf_counter() - t_all:.1f} s ({workers} workers)")
+    return err
 
 
 def bound_ms(words, in_bytes, clock_hz):
@@ -375,8 +481,8 @@ def phase_timing(batches, clock_hz):
     """The kernel, its plain version and the bound on one main-path
     history (depth 8), plus kernel time and bound per depth batch."""
     from jepsen_tpu_torch.ops import deep_kernel
-    for mo, hs in batches.items():
-        ts = [tables_for(h) for h in hs]
+    for mo in (8, 10, 12, 14):
+        ts = [tables_for(h) for h in batches[mo]]
         # each history alone, one launch after another, with its own
         # tables: the per-history kernel time and plane traffic
         ins = [walk_inputs(t, "cuda") for t in ts]
@@ -422,7 +528,7 @@ def phase_timing(batches, clock_hz):
     b = bound_ms(int(work_card.item()), t[0].nbytes + t[2].nbytes,
                  clock_hz)
     log(f"[timing] one depth-8 history ({len(batches[8][0])} ops, "
-        f"{len(t[8])} rows): kernel {ms:.3f} ms (mean of {reps} "
+        f"{len(t[7])} rows): kernel {ms:.3f} ms (mean of {reps} "
         f"launches), plain (CPU) {plain_ms:.1f} ms, bound {b:.4f} ms "
         f"from {int(work_card.item())} plane words")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b,
@@ -432,8 +538,9 @@ def phase_timing(batches, clock_hz):
 def main() -> int:
     smi, clock_hz = phase_device()
     phase_build()
-    err = phase_kernel()
-    batches, launches = phase_main(clock_hz)
+    err = phase_kernel(clock_hz)
+    batches, verdicts, launches = phase_main()
+    err = max(err, phase_grid(batches, verdicts))
     one = phase_timing(batches, clock_hz)
     kern = {"name": "wgl_deep", "route": "cuda",
             "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",

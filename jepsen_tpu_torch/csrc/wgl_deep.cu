@@ -45,6 +45,10 @@
 #define EB 512
 #define FULL 0xFFFFFFFFu
 
+// Invoke columns per event row of the wire (the reference's I; I = 2
+// carries every depth, R = 1 with its second column empty).
+constexpr int I = 2;
+
 // Intra-word "lacks bit b" patterns: bit i set iff mask index i has bit
 // b clear.
 __constant__ uint32_t c_intra[5] = {0x55555555u, 0x33333333u,
@@ -162,7 +166,7 @@ wgl_deep_kernel(const uint8_t *__restrict__ cbuf,
                 const int32_t *__restrict__ nrows,
                 const int32_t *__restrict__ depth,
                 const uint32_t *__restrict__ aux, int UP, int R, int SnP,
-                int I, uint32_t *__restrict__ gplane,
+                uint32_t *__restrict__ gplane,
                 int32_t *__restrict__ out, long long *__restrict__ work) {
     extern __shared__ uint32_t smem[];
     __shared__ uint32_t a1r[32], a2r[32];
@@ -302,7 +306,7 @@ wgl_deep_kernel(const uint8_t *__restrict__ cbuf,
 extern "C" int wgl_deep_launch(const void *cbuf, const void *offs,
                                const void *nrows, const void *depth,
                                const void *aux, int UP,
-                               int n_hist, int R, int SnP, int I,
+                               int n_hist, int R, int SnP,
                                void *gplane, void *out, void *work,
                                int threads,
                                int smem_bytes, void *stream) {
@@ -314,7 +318,7 @@ extern "C" int wgl_deep_launch(const void *cbuf, const void *offs,
                       (cudaStream_t)stream>>>(
         (const uint8_t *)cbuf, (const int64_t *)offs,
         (const int32_t *)nrows, (const int32_t *)depth,
-        (const uint32_t *)aux, UP, R, SnP, I,
+        (const uint32_t *)aux, UP, R, SnP,
         (uint32_t *)gplane, (int32_t *)out, (long long *)work);
     return (int)cudaGetLastError();
 }

@@ -33,6 +33,7 @@ import torch
 LAUNCHES = 0
 
 EB = 512                        # event rows staged per block step
+I = 2                           # invoke columns per event row of the wire
 SMEM_PER_BLOCK = 232_448        # bytes of shared memory one block may use
 _STATIC_SMEM = 1024             # the kernel's static shared arrays
 _INTRA = (0x55555555, 0x33333333, 0x0F0F0F0F, 0x00FF00FF, 0x0000FFFF)
@@ -49,14 +50,14 @@ def plane_words(R: int, SnP: int) -> int:
     return SnP * max(1, (1 << R) >> 5)
 
 
-def stage_bytes(I: int) -> int:
+def stage_bytes() -> int:
     """Shared memory of one staged event block: ret, islot and the
     gathered (a1, a2, t0) of each new invoke, as 32-bit words."""
     return EB * (1 + 4 * I) * 4
 
 
-def plane_in_shared(R: int, SnP: int, I: int) -> bool:
-    return (plane_words(R, SnP) * 4 + stage_bytes(I) + _STATIC_SMEM
+def plane_in_shared(R: int, SnP: int) -> bool:
+    return (plane_words(R, SnP) * 4 + stage_bytes() + _STATIC_SMEM
             <= SMEM_PER_BLOCK)
 
 
@@ -105,7 +106,7 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             fn = lib.wgl_deep_launch
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -123,13 +124,13 @@ def _check(t: torch.Tensor, name: str, dtype, dev: torch.device):
 
 def deep_walk(cbuf: torch.Tensor, offs: torch.Tensor,
               nrows: torch.Tensor, depth: torch.Tensor, aux: torch.Tensor,
-              *, R: int, SnP: int, I: int, UP: int,
+              *, R: int, SnP: int, UP: int,
               work: torch.Tensor | None = None) -> torch.Tensor:
     """(alive, first dead row | -1) as i32[n, 2] for the n histories
-    whose compact wires lie in `cbuf` at byte offsets `offs` (int64),
-    each `nrows` (int32) rows long and of overlap depth `depth` (int32,
-    1 <= depth <= R; R sizes the plane), under one aux table (int32 view
-    of diag[UP] ++ const[UP] ++ t0[UP] ++ intra[16]).  The caller
+    whose compact wires (I = 2 invoke columns) lie in `cbuf` at byte
+    offsets `offs` (int64), each `nrows` (int32) rows long and of
+    overlap depth `depth` (int32, 1 <= depth <= R; R sizes the plane),
+    under one aux table (int32 view of diag[UP] ++ const[UP] ++ t0[UP]).  The caller
     checks the depths on the host: a depth past R traps the kernel,
     which the next synchronisation raises.  `work`, an optional
     int64[n], receives the plane words each history's passes touch (the
@@ -149,10 +150,10 @@ def deep_walk(cbuf: torch.Tensor, offs: torch.Tensor,
         if work.numel() != n:
             raise ValueError("work must hold one count per history")
     if nrows.numel() != n or depth.numel() != n \
-            or aux.numel() != 3 * UP + 16:
+            or aux.numel() != 3 * UP:
         raise ValueError("offs/nrows/depth/aux sizes disagree")
-    if not (1 <= R <= 16 and SnP in (8, 16, 32) and I in (1, 2)):
-        raise ValueError(f"unsupported kernel shape R={R} SnP={SnP} I={I}")
+    if not (1 <= R <= 16 and SnP in (8, 16, 32)):
+        raise ValueError(f"unsupported kernel shape R={R} SnP={SnP}")
     if dev.type == "cpu":
         out = torch.empty((n, 2), dtype=torch.int32)
         for h, (o, L2, Rh) in enumerate(zip(offs.tolist(), nrows.tolist(),
@@ -163,7 +164,7 @@ def deep_walk(cbuf: torch.Tensor, offs: torch.Tensor,
                                  f"[{o}, {o + size}) out of range")
             count: dict = {}
             out[h] = torch.tensor(walk_plain(cbuf[o:o + size], aux, L2=L2,
-                                             R=Rh, SnP=SnP, I=I, UP=UP,
+                                             R=Rh, SnP=SnP, UP=UP,
                                              work=count))
             if work is not None:
                 work[h] = count.get("words", 0)
@@ -174,23 +175,23 @@ def deep_walk(cbuf: torch.Tensor, offs: torch.Tensor,
     if n == 0:
         return out
     lib = _load()
-    if plane_in_shared(R, SnP, I):
+    if plane_in_shared(R, SnP):
         gplane = None
-        smem = plane_words(R, SnP) * 4 + stage_bytes(I)
+        smem = plane_words(R, SnP) * 4 + stage_bytes()
     else:
         gplane = torch.empty(n * plane_words(R, SnP), dtype=torch.int32,
                              device=dev)
-        smem = stage_bytes(I)
+        smem = stage_bytes()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.wgl_deep_launch(
         cbuf.data_ptr(), offs.data_ptr(), nrows.data_ptr(),
-        depth.data_ptr(), aux.data_ptr(), UP, n, R, SnP, I,
+        depth.data_ptr(), aux.data_ptr(), UP, n, R, SnP,
         None if gplane is None else gplane.data_ptr(), out.data_ptr(),
         None if work is None else work.data_ptr(), threads_for(R), smem,
         stream)
     if err != 0:
         raise RuntimeError(f"wgl_deep kernel launch failed: cudaError {err}"
-                           f" (R={R} SnP={SnP} I={I} n={n} smem={smem})")
+                           f" (R={R} SnP={SnP} n={n} smem={smem})")
     LAUNCHES += 1
     return out
 
@@ -217,7 +218,7 @@ def _shift_words(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def walk_plain(cbuf: torch.Tensor, aux: torch.Tensor, *, L2: int, R: int,
-               SnP: int, I: int, UP: int, work: dict | None = None):
+               SnP: int, UP: int, work: dict | None = None):
     """One history's walk over its compact wire, on cbuf's device, as
     (alive, first dead row | -1).  The plane is int64[SnP, NW] holding
     32-bit words, word w of row s holding masks w*32 .. w*32+31 of

@@ -28,8 +28,6 @@ from jepsen_tpu_torch.backend import resolve_device
 from jepsen_tpu_torch.errors import Unsupported
 from jepsen_tpu_torch.ops import deep_kernel, planner
 
-_INTRA = (0x55555555, 0x33333333, 0x0F0F0F0F, 0x00FF00FF, 0x0000FFFF)
-_FULL = 0xFFFFFFFF
 EB = deep_kernel.EB
 
 WHY = ("deep-overlap kernel: crash-free, decomposable model with Sn <= 32 "
@@ -55,8 +53,10 @@ def pack_events_compact(ret_t: np.ndarray, islot_t: np.ndarray,
                         iuop_t: np.ndarray) -> tuple[np.ndarray, int]:
     """The u8 compact wire of one history's event rows: ret+1 u8[L2]
     (0 = no return) ++ islot+1 u8[L2*I] ++ iuop u16-LE bytes[2*L2*I],
-    with L2 = G * EB rows.  Padding uops are clamped to 0: the kernel
-    reads a row's uop only where its islot >= 0."""
+    with L2 = G * EB rows and I = islot_t.shape[2] (the kernel reads
+    I = 2; `_widen` brings I = 1 tables there).  Padding uops are
+    clamped to 0: the kernel reads a row's uop only where its
+    islot >= 0."""
     Lp = ret_t.shape[0]
     I = islot_t.shape[2]
     G = _pad_g((Lp + EB - 1) // EB)
@@ -74,17 +74,14 @@ def pack_events_compact(ret_t: np.ndarray, islot_t: np.ndarray,
 
 def pack_aux(a1t: np.ndarray, a2t: np.ndarray, t0t: np.ndarray,
              UP: int) -> np.ndarray:
-    """[U] uop tables -> u32[1, 3*UP+16]: diag ++ const ++ t0 ++ the
-    intra-word lacks-bit patterns (the reference's layout, byte for
-    byte; the kernel keeps the patterns in constant memory and reads
-    only the first 3*UP words)."""
+    """[U] uop tables -> u32[3*UP]: diag ++ const ++ t0, the first
+    3*UP words of the reference's aux layout (the kernel keeps the
+    lacks-bit patterns the reference appends in constant memory)."""
     U = a1t.shape[0]
-    aux = np.zeros((1, 3 * UP + 16), np.uint32)
-    aux[0, :U] = a1t
-    aux[0, UP:UP + U] = a2t
-    aux[0, 2 * UP:2 * UP + U] = t0t.astype(np.uint32)
-    for b in range(16):
-        aux[0, 3 * UP + b] = _INTRA[b] if b < 5 else _FULL
+    aux = np.zeros(3 * UP, np.uint32)
+    aux[:U] = a1t
+    aux[UP:UP + U] = a2t
+    aux[2 * UP:2 * UP + U] = t0t.astype(np.uint32)
     return aux
 
 
@@ -99,19 +96,32 @@ def _as_numpy(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-class _Grid:
-    """The histories of one kernel grid: their compact wires (one I),
-    each with its own overlap depth, under one aux table.  The depths
-    are checked here, on the host, before any pointer reaches the
-    kernel."""
+def _widen(islot_t: np.ndarray, iuop_t: np.ndarray):
+    """Register tables with I = 1 (the reference's I = min(2, R) at
+    R = 1) as I = 2 tables whose second invoke column is empty."""
+    if islot_t.shape[2] == deep_kernel.I:
+        return islot_t, iuop_t
+    if islot_t.shape[2] != 1:
+        raise ValueError(f"register tables with I = {islot_t.shape[2]}")
+    return (np.concatenate([islot_t, np.full_like(islot_t, -1)], axis=2),
+            np.concatenate([iuop_t, np.zeros_like(iuop_t)], axis=2))
 
-    def __init__(self, I: int):
-        self.I = I
+
+class _Grid:
+    """The histories of one kernel grid: their compact wires, each with
+    its own overlap depth, under one aux table (`set_tables`).  The
+    depths are checked here, on the host, before any pointer reaches
+    the kernel."""
+
+    def __init__(self):
         self.bufs: list = []
         self.offs: list = []
         self.rows: list = []
         self.depth: list = []
         self.size = 0
+        self.aux = None
+        self.UP = 0
+        self.Sn = 0
 
     @property
     def R(self) -> int:
@@ -126,19 +136,25 @@ class _Grid:
         self.bufs.append(cbuf)
         self.size += cbuf.nbytes
 
+    def set_tables(self, a1t, a2t, t0t, Sn: int):
+        self.UP = _pad_u(a1t.shape[0])
+        self.aux = pack_aux(_as_numpy(a1t), _as_numpy(a2t), _as_numpy(t0t),
+                            self.UP)
+        self.Sn = Sn
+
+    def shape(self) -> dict:
+        """deep_walk's shape arguments for this grid."""
+        return dict(R=self.R, SnP=_snp(self.Sn), UP=self.UP)
+
     def to_device(self, dev: torch.device):
-        """(cbuf, offs, nrows, depth) on `dev`: copies that finish
-        before the host goes on, so launch after every copy."""
+        """deep_walk's tensors (cbuf, offs, nrows, depth, aux) on `dev`:
+        copies that finish before the host goes on, so launch after
+        every copy."""
         return (torch.from_numpy(np.concatenate(self.bufs)).to(dev),
                 torch.tensor(self.offs, dtype=torch.int64, device=dev),
                 torch.tensor(self.rows, dtype=torch.int32, device=dev),
-                torch.tensor(self.depth, dtype=torch.int32, device=dev))
-
-
-def _aux_tensor(a1t, a2t, t0t, dev: torch.device):
-    UP = _pad_u(a1t.shape[0])
-    aux = pack_aux(_as_numpy(a1t), _as_numpy(a2t), _as_numpy(t0t), UP)
-    return torch.from_numpy(aux.view(np.int32).ravel()).to(dev), UP
+                torch.tensor(self.depth, dtype=torch.int32, device=dev),
+                torch.from_numpy(self.aux.view(np.int32)).to(dev))
 
 
 def check_tables(ret_t, islot_t, iuop_t, a1t, a2t, t0t, R: int, Sn: int,
@@ -151,13 +167,11 @@ def check_tables(ret_t, islot_t, iuop_t, a1t, a2t, t0t, R: int, Sn: int,
     t1 = time.monotonic()
     ret_t, islot_t, iuop_t = (_as_numpy(x) for x in (ret_t, islot_t,
                                                       iuop_t))
-    I = islot_t.shape[2]
-    cbuf, G = pack_events_compact(ret_t, islot_t, iuop_t)
-    grid = _Grid(I)
+    cbuf, G = pack_events_compact(ret_t, *_widen(islot_t, iuop_t))
+    grid = _Grid()
     grid.add(cbuf, G, R)
-    aux, UP = _aux_tensor(a1t, a2t, t0t, dev)
-    out = deep_kernel.deep_walk(*grid.to_device(dev), aux, R=R,
-                                SnP=_snp(Sn), I=I, UP=UP).cpu()
+    grid.set_tables(a1t, a2t, t0t, Sn)
+    out = deep_kernel.deep_walk(*grid.to_device(dev), **grid.shape()).cpu()
     alive = bool(out[0, 0])
     res = {"valid?": alive,
            "failed_row": None if alive else int(out[0, 1]),
@@ -195,37 +209,32 @@ def _unsupported(e: Unsupported, i: int) -> dict[str, Any]:
             "error": e.to_dict()}
 
 
-def check_pipeline(model, histories, *, max_open_bits=None,
-                   max_states: int = 64, stats=None,
-                   device=None) -> list:
-    """Check many histories at once: scan and pack every history on the
-    host, copy all wires, launch one grid (one CTA per history, each at
-    its own overlap depth) on the current stream, and synchronise once
-    for all verdicts.
-
-    A history outside the slice does not poison the batch: its entry is
-    {"valid?": "unknown", "cause": "unsupported", "error": {...}} with
-    the Unsupported message naming the ROADMAP item, and the others
-    keep their verdicts.  As in the reference pipeline, once the shared
-    alphabet's state space fails (too many states, undecomposable),
-    every later history is out of scope too.
-
-    `stats`, when given a dict, receives host seconds per stage (scan,
-    tables, pack, copy, launch, sync, assemble) and, on a CUDA device,
-    `kernel_ms`, the grid's device time (CUDA events)."""
-    dev = resolve_device(device)
-    spec = model.device_spec()
-    if spec is None:
-        raise Unsupported(f"model {model!r} has no device spec: "
-                          f"{planner.ITEM_CPU_AUTO}")
-    stats = {} if stats is None else stats
+def _laps(stats: dict):
+    """A function that adds the seconds since its last call to
+    stats[key]."""
     clock = [time.perf_counter()]
 
     def lap(key):
         now = time.perf_counter()
         stats[key] = stats.get(key, 0.0) + now - clock[0]
         clock[0] = now
+    return lap
 
+
+def pack_pipeline(model, histories, *, max_open_bits=None,
+                  max_states: int = 64, stats=None, device=None):
+    """The host half of `check_pipeline`: scan, gate and pack every
+    history into one grid.  Returns (results, grid, pend): `results`
+    holds the entries already decided on the host (empty or out-of-scope
+    histories) and None for the rest; `grid` is the `_Grid` to launch;
+    pend[k] = (i, fk, ret_t, ops, R, Sn) describes the grid's k-th CTA,
+    history i."""
+    dev = resolve_device(device)
+    spec = model.device_spec()
+    if spec is None:
+        raise Unsupported(f"model {model!r} has no device spec: "
+                          f"{planner.ITEM_CPU_AUTO}")
+    lap = _laps({} if stats is None else stats)
     if max_open_bits is None:
         max_open_bits = planner.deep_r_max()
     results: list = [None] * len(histories)
@@ -234,18 +243,9 @@ def check_pipeline(model, histories, *, max_open_bits=None,
     U_at = -1
     Sn = 0
     tables = None
-    # the newest uop tables an in-scope history was gated with: interning
-    # only appends uops and enumeration only adds states, so this version
-    # covers every earlier in-scope history's ops with the same
-    # transitions (state indices may differ, but the walk only tests
-    # legality and targets, and init is index 0 in every version), and
-    # unreached states stay empty rows: one aux table serves the batch
-    # with unchanged (alive, first dead row)
     batch_tables = None
     pend: list = []
-    # one I for the grid: I = 2 packs an R = 1 history as exactly as the
-    # reference's I = 1 (its second invoke column stays empty)
-    grid = _Grid(2)
+    grid = _Grid()
     init = np.asarray(spec.encode(model), np.int32)
     for i, h in enumerate(histories):
         ops = h.ops
@@ -282,17 +282,53 @@ def check_pipeline(model, histories, *, max_open_bits=None,
         if why is not None:
             results[i] = _unsupported(Unsupported(why), i)
             continue
-        batch_tables = (tables, Sn)
+        # the grid runs under the newest uop tables an in-scope history
+        # was gated with: interning only appends uops and enumeration
+        # only adds states, so this version covers every earlier
+        # in-scope history's ops with the same transitions (state
+        # indices may differ, but the walk only tests legality and
+        # targets, and init is index 0 in every version), and unreached
+        # states stay empty rows: one aux table serves the batch with
+        # unchanged (alive, first dead row)
+        batch_tables = (*tables, Sn)
+        # every wire has I = 2 invoke columns: an R = 1 history packs as
+        # exactly as under the reference's I = 1 (the second stays empty)
         ret_t, islot_t, iuop_t, _ = planner._pack_regs(
-            [(0, fk)], 1, R, len(rows), grid.I)
+            [(0, fk)], 1, R, len(rows), deep_kernel.I)
         cbuf, G = pack_events_compact(ret_t, islot_t, iuop_t)
         grid.add(cbuf, G, R)
         pend.append((i, fk, ret_t, ops, R, Sn))
         lap("pack")
-
     if pend:
-        (a1t, a2t, t0t), Sn_b = batch_tables
-        aux, UP = _aux_tensor(a1t, a2t, t0t, dev)
+        grid.set_tables(*batch_tables)
+    return results, grid, pend
+
+
+def check_pipeline(model, histories, *, max_open_bits=None,
+                   max_states: int = 64, stats=None,
+                   device=None) -> list:
+    """Check many histories at once: scan and pack every history on the
+    host (`pack_pipeline`), copy all wires, launch one grid (one CTA per
+    history, each at its own overlap depth) on the current stream, and
+    synchronise once for all verdicts.
+
+    A history outside the slice does not poison the batch: its entry is
+    {"valid?": "unknown", "cause": "unsupported", "error": {...}} with
+    the Unsupported message naming the ROADMAP item, and the others
+    keep their verdicts.  As in the reference pipeline, once the shared
+    alphabet's state space fails (too many states, undecomposable),
+    every later history is out of scope too.
+
+    `stats`, when given a dict, receives host seconds per stage (scan,
+    tables, pack, copy, launch, sync, assemble) and, on a CUDA device,
+    `kernel_ms`, the grid's device time (CUDA events)."""
+    dev = resolve_device(device)
+    stats = {} if stats is None else stats
+    results, grid, pend = pack_pipeline(
+        model, histories, max_open_bits=max_open_bits,
+        max_states=max_states, stats=stats, device=dev)
+    lap = _laps(stats)
+    if pend:
         wire = grid.to_device(dev)
         lap("copy")
         timed = dev.type == "cuda"
@@ -300,8 +336,7 @@ def check_pipeline(model, histories, *, max_open_bits=None,
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
             ev0.record()
-        out = deep_kernel.deep_walk(*wire, aux, R=grid.R, SnP=_snp(Sn_b),
-                                    I=grid.I, UP=UP)
+        out = deep_kernel.deep_walk(*wire, **grid.shape())
         if timed:
             ev1.record()
         lap("launch")

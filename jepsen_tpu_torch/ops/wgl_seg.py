@@ -19,15 +19,14 @@ import numpy as np
 from jepsen_tpu_torch.backend import resolve_device
 from jepsen_tpu_torch.errors import Unsupported
 from jepsen_tpu_torch.history import History
-from jepsen_tpu_torch.ops import planner, wgl_cpu, wgl_deep
+from jepsen_tpu_torch.ops import deep_kernel, planner, wgl_cpu, wgl_deep
 
 
 def _check_deep(model, ops, fk, legal, next_state, diag_w, const_w,
                 const_t0, *, R, Sn, localize, device, t0):
     """One history on the deep kernel; a knossos-shaped result."""
-    I = min(2, R)
     ret_t, islot_t, iuop_t, _ = planner._pack_regs(
-        [(0, fk)], 1, R, int(legal.shape[0]), I)
+        [(0, fk)], 1, R, int(legal.shape[0]), deep_kernel.I)
     a1t, a2t, t0t = planner._pack_uop_tables(
         legal, next_state, diag_w, const_w, const_t0)
     t_plan = time.monotonic() - t0

@@ -85,8 +85,8 @@ def test_plain_counts_work(verdicts):
     aux = wgl_deep.pack_aux(*tables[3:], wgl_deep._pad_u(len(tables[3])))
     work = {}
     alive, row = deep_kernel.walk_plain(
-        torch.from_numpy(cbuf), torch.from_numpy(aux.view(np.int32).ravel()),
-        L2=G * deep_kernel.EB, R=R, SnP=8, I=2,
+        torch.from_numpy(cbuf), torch.from_numpy(aux.view(np.int32)),
+        L2=G * deep_kernel.EB, R=R, SnP=8,
         UP=wgl_deep._pad_u(len(tables[3])), work=work)
     assert (alive, row) == (0, verdicts["r8-bad"][0]["failed_row"])
     assert work["words"] > 0 and work["rounds"] > 0
@@ -158,36 +158,52 @@ def test_pipeline_state_space_failure_marks_the_rest():
 
 
 def test_wrapper_checks_inputs():
-    cbuf = torch.zeros(512 * 4, dtype=torch.uint8)
+    cbuf = torch.zeros(512 * (1 + 3 * deep_kernel.I), dtype=torch.uint8)
     offs = torch.zeros(1, dtype=torch.int64)
     rows = torch.full((1,), 512, dtype=torch.int32)
-    aux = torch.zeros(3 * 8 + 16, dtype=torch.int32)
+    aux = torch.zeros(3 * 8, dtype=torch.int32)
     depth = torch.ones(1, dtype=torch.int32)
     out = deep_kernel.deep_walk(cbuf, offs, rows, depth, aux, R=1, SnP=8,
-                                I=1, UP=8)
+                                UP=8)
     assert out.tolist() == [[1, -1]]
     with pytest.raises(ValueError, match="uint8"):
         deep_kernel.deep_walk(cbuf.to(torch.int32), offs, rows, depth, aux,
-                              R=1, SnP=8, I=1, UP=8)
+                              R=1, SnP=8, UP=8)
     with pytest.raises(ValueError, match="sizes"):
         deep_kernel.deep_walk(cbuf, offs, rows, depth, aux[:-1], R=1,
-                              SnP=8, I=1, UP=8)
+                              SnP=8, UP=8)
     with pytest.raises(ValueError, match="shape"):
         deep_kernel.deep_walk(cbuf, offs, rows, depth, aux, R=17, SnP=8,
-                              I=1, UP=8)
+                              UP=8)
     with pytest.raises(ValueError, match="depth 2"):
         deep_kernel.deep_walk(cbuf, offs, rows, depth + 1, aux, R=1,
-                              SnP=8, I=1, UP=8)
+                              SnP=8, UP=8)
     with pytest.raises(ValueError, match="out of range"):
         deep_kernel.deep_walk(cbuf[:-1], offs, rows, depth, aux, R=1,
-                              SnP=8, I=1, UP=8)
+                              SnP=8, UP=8)
+
+
+def test_check_tables_widens_single_invoke_tables():
+    # at R = 1 the reference packs I = min(2, R) = 1 invoke column; the
+    # port's one wire layout has two, the second left empty
+    for last in (1, 2):
+        h = RefHistory([invoke_op(0, "write", 1), ok_op(0, "write", 1),
+                        invoke_op(0, "read", None),
+                        ok_op(0, "read", last)]).index()
+        tables, R, Sn = ref_tables(h)
+        assert R == 1 and tables[1].shape[2] == 1
+        ref = ref_deep.check_tables(*tables, R, Sn)
+        got = wgl_deep.check_tables(*convert.tables_to_device(*tables),
+                                    R, Sn, device="cpu")
+        assert got["valid?"] is ref["valid?"] is (last == 1)
+        assert got["failed_row"] == ref["failed_row"]
 
 
 def test_plane_placement():
-    assert deep_kernel.plane_in_shared(14, 32, 2)
-    assert deep_kernel.plane_in_shared(16, 16, 2)
-    assert deep_kernel.plane_in_shared(15, 32, 2)
-    assert not deep_kernel.plane_in_shared(16, 32, 2)
+    assert deep_kernel.plane_in_shared(14, 32)
+    assert deep_kernel.plane_in_shared(16, 16)
+    assert deep_kernel.plane_in_shared(15, 32)
+    assert not deep_kernel.plane_in_shared(16, 32)
     assert [deep_kernel.threads_for(r) for r in (3, 8, 10, 12, 14, 16)] \
         == [32, 32, 32, 128, 512, 1024]
 
