@@ -6,32 +6,38 @@ Phases, each printing what it measured on its own line; any failure
 exits non-zero:
 
   1. device  - the card, and nvidia-smi's name and power limit;
-  2. build   - nvcc builds csrc/wgl_deep.cu for sm_90a (timed);
-  3. kernel  - the deep kernel against its plain PyTorch version (on
-               CPU copies of the same inputs) on small histories at
-               R = 7, 10, 14, 15, 16 with up to 32 model states, one
-               valid and one planted-invalid each, R = 16 at 32 states
-               included (the global-memory plane): verdict, first dead
-               row and plane words touched; kernel time (CUDA events)
-               and bound per case; the R = 7 verdicts also against the
-               exact CPU oracle;
+  2. build   - nvcc builds csrc/wgl_deep.cu for sm_90a (timed); ptxas
+               registers and spill bytes of each kernel instantiation
+               (warp arm <SnP>, block arm <SnP>); a warp-arm spill fails;
+  3. kernel  - each arm against the plain PyTorch version (on CPU
+               copies of the same inputs) on 600-call histories at its
+               edges and plane sizes: warp arm R = 3, 5, 8, 10 (twice),
+               block arm R = 11 (twice), 12, 14, 15, 16 (twice), with
+               SnP 8, 16 and 32 on each arm (vmax picks the model's
+               states) and the global-memory plane at R = 16, SnP = 32;
+               one valid and one planted-invalid history each: verdict,
+               first dead row and plane words touched; kernel time (CUDA
+               events) and bound per case; the R = 3 verdicts also
+               against the exact CPU oracle;
   4. main    - the deep-overlap envelope at full size: 16 etcd-shaped
                register histories of 20,000 calls (concurrency 16, vmax
                9, read/read/write/cas) per depth max_open 8/10/12/14,
                through check_pipeline and Linearizable, plus planted
                stale reads at 90% depth (through Linearizable, and in
                one grid of mixed depths) whose exact witness must come
-               back; the kernel's launch count must grow;
+               back; the kernel launches of each arm are counted;
   5. grid    - the main path's grids rebuilt on the host exactly as
                check_pipeline built them (one aux table, mixed depths
                under one plane stride), launched once more: every CTA's
-               verdict must equal the main path's, and chosen CTAs
-               (depth 8, 10, 12, both depths 13 and 14 of the depth-14
-               grid, and the planted histories of the mixed grid) must
-               equal the plain version on CPU copies of the same device
-               inputs, in worker processes;
-  6. timing  - the kernel, its plain version and the bound on one
-               main-path history, as the JSON kernel line.
+               verdict must equal the main path's, the mixed grid must
+               launch both arms, and chosen CTAs (depth 8, 10, 12, both
+               depths 13 and 14 of the depth-14 grid, and the planted
+               histories of the mixed grid) must equal the plain version
+               on CPU copies of the same device inputs, in worker
+               processes;
+  6. timing  - per arm, the kernel, its plain version and the bound on
+               one main-path history (depth 8 on the warp arm, depth 12
+               on the block arm), as the JSON kernel line.
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with
 no result line when torch.cuda.is_available() is false or the package
@@ -43,6 +49,7 @@ import json
 import multiprocessing
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -203,9 +210,38 @@ def phase_build():
     deep_kernel._load()
     dt = time.perf_counter() - t
     ptxas = lib.parent / (lib.stem + ".ptxas.txt")
-    regs = [ln.strip() for ln in ptxas.read_text().splitlines()
-            if "registers" in ln or "spill" in ln] if ptxas.exists() else []
-    log(f"[build] {lib.name} in {dt:.2f} s; ptxas: {' | '.join(regs)}")
+    kernels = ptxas_kernels(ptxas.read_text() if ptxas.exists() else "")
+    if not kernels:
+        raise SystemExit("[build] ptxas reported no kernel")
+    log(f"[build] {lib.name} in {dt:.2f} s; ptxas: " + " | ".join(
+        f"{k}: {v['regs']} registers, spill {v['spill']} bytes"
+        for k, v in kernels.items()))
+    spilled = [k for k, v in kernels.items()
+               if k.startswith("wgl_warp") and v["spill"]]
+    if spilled:
+        raise SystemExit(f"[build] the register plane spills: {spilled}")
+
+
+def ptxas_kernels(text):
+    """{kernel<SnP>: {"regs": n, "spill": store + load bytes}} from
+    `nvcc -Xptxas -v` output."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"entry function '_Z\d+(\w+?)ILi(\d+)E", ln)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+            out[name] = {"regs": None, "spill": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[name]["spill"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["regs"] = int(m.group(1))
+    return out
 
 
 def tables_for(h, max_open_bits=16):
@@ -273,13 +309,21 @@ def abs_err(a, b):
     return max(abs(x - y) for x, y in zip(a, b))
 
 
+# (R, vmax) of phase 3: each arm at its edges and at SnP 8, 16 and 32
+# (vmax 6 / 9 / 30 give 8 / 11 / 32 model states)
+KERNEL_CASES = [(3, 6), (5, 30), (8, 9), (10, 30), (10, 6),
+                (11, 30), (11, 6), (12, 9), (14, 6), (15, 30), (16, 9),
+                (16, 30)]
+
+
 def phase_kernel(clock_hz):
+    """Each case on the card and in the plain version; returns the
+    largest disagreement per arm."""
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops import deep_kernel, wgl_cpu, wgl_deep
-    cases = [(7, 30), (10, 30), (14, 30), (15, 30), (16, 30), (16, 9)]
-    seen_global_plane = False
-    err = 0
-    for R, vmax in cases:
+    seen = set()
+    err = {"warp": 0, "block": 0}
+    for R, vmax in KERNEL_CASES:
         for bad in (False, True):
             h = make_history(600, R + 4, seed=1000 + 10 * R + vmax,
                              vmax=vmax, max_open=R, burst=R)
@@ -290,33 +334,36 @@ def phase_kernel(clock_hz):
             if t[3] != R:
                 raise SystemExit(f"[kernel] built R={t[3]}, wanted {R}")
             snp = wgl_deep._snp(t[4])
+            arm = deep_kernel.arm_of(R)
+            plane = deep_kernel.launch_plan(arm, R, snp)["plane"]
+            seen.add((arm, snp))
+            seen.add(plane)
             card, words, ms = timed_walk(t)
             work_plain = torch.zeros(1, dtype=torch.int64)
             t1 = time.perf_counter()
             plain = run_walk(t, "cpu", work=work_plain)
             plain_s = time.perf_counter() - t1
-            glob = not deep_kernel.plane_in_shared(R, snp)
-            seen_global_plane |= glob
-            err = max(err, abs_err(card, plain))
+            err[arm] = max(err[arm], abs_err(card, plain))
             ok = (card == plain and words == int(work_plain.item())
                   and card[0] == (0 if bad else 1))
             oracle = ""
-            if R == 7:
+            if R == 3:
                 o = wgl_cpu.check(CASRegister(), h)
                 ok &= o["valid?"] is (not bad)
                 oracle = f" oracle={o['valid?']}"
             b = bound_ms(words, t[0].nbytes + t[2].nbytes, clock_hz)
-            log(f"[kernel] R={R} Sn={t[4]} SnP={snp} rows={len(t[7])} "
-                f"{'invalid' if bad else 'valid'} plane="
-                f"{'global' if glob else 'shared'} kernel={card} "
-                f"plain={plain}{oracle} words={words} kernel_ms={ms:.3f} "
-                f"bound_ms={b:.4f} plain_s={plain_s:.3f} "
-                f"{'OK' if ok else 'MISMATCH'}")
+            log(f"[kernel] {arm} R={R} Sn={t[4]} SnP={snp} rows="
+                f"{len(t[7])} {'invalid' if bad else 'valid'} plane="
+                f"{plane} kernel={card} plain={plain}{oracle} "
+                f"words={words} kernel_ms={ms:.3f} bound_ms={b:.4f} "
+                f"plain_s={plain_s:.3f} {'OK' if ok else 'MISMATCH'}")
             if not ok:
                 raise SystemExit("[kernel] kernel and plain version "
                                  "disagree")
-    if not seen_global_plane:
-        raise SystemExit("[kernel] the global-memory plane was not run")
+    want = {(a, s) for a in ("warp", "block") for s in (8, 16, 32)}
+    want |= {"registers", "shared", "global"}
+    if not want <= seen:
+        raise SystemExit(f"[kernel] not run: {sorted(map(str, want - seen))}")
     return err
 
 
@@ -338,6 +385,8 @@ def phase_main():
     checker = Linearizable(model, max_open_bits=16)
     verdicts = {}
     deep_kernel.LAUNCHES = 0
+    for arm in deep_kernel.ARM_LAUNCHES:
+        deep_kernel.ARM_LAUNCHES[arm] = 0
     for mo in depths:
         hs = batches[mo]
         st = {}
@@ -391,10 +440,11 @@ def phase_main():
             raise SystemExit("[main] planted witness not reported")
     if not (rm[0]["valid?"] is True and rm[2]["valid?"] is True):
         raise SystemExit("[main] mixed-depth grid judged a valid history")
-    launches = deep_kernel.LAUNCHES
-    log(f"[main] kernel launches on the main path: {launches}")
-    if launches <= 0:
-        raise SystemExit("[main] the main path launched no kernel")
+    launches = dict(deep_kernel.ARM_LAUNCHES)
+    log(f"[main] kernel launches on the main path: "
+        f"{deep_kernel.LAUNCHES} ({launches})")
+    if min(launches.values()) <= 0:
+        raise SystemExit("[main] the main path left an arm unlaunched")
     return batches, verdicts, launches
 
 
@@ -430,9 +480,21 @@ def phase_grid(batches, verdicts):
             wire = grid.to_device(torch.device("cuda"))
             n = len(pend)
             work = torch.zeros(n, dtype=torch.int64, device="cuda")
+            before = dict(deep_kernel.ARM_LAUNCHES)
             out = deep_kernel.deep_walk(*wire, work=work,
                                         **grid.shape()).cpu()
             words = work.cpu().tolist()
+            arms = {a: deep_kernel.ARM_LAUNCHES[a] - before[a]
+                    for a in before}
+            log(f"[grid] {name}: {n} CTAs, depths {sorted(set(grid.depth))}"
+                f", launches per arm {arms}")
+            want = {deep_kernel.arm_of(d) for d in grid.depth}
+            if {a for a, c in arms.items() if c} != want:
+                raise SystemExit(f"[grid] {name}: launched {arms}, wanted "
+                                 f"the arms {sorted(want)}")
+            if name == "mixed" and want != {"warp", "block"}:
+                raise SystemExit("[grid] the mixed grid does not hold "
+                                 "both arms")
             for k, (i, *_rest) in enumerate(pend):
                 if bool(out[k, 0]) is not verdicts[name][i]["valid?"]:
                     raise SystemExit(f"[grid] {name}: CTA {k} disagrees "
@@ -453,12 +515,14 @@ def phase_grid(batches, verdicts):
                                   L2, depth[k], shape["SnP"], shape["UP"])
                 jobs.append((name, k, depth[k], shape["R"],
                              tuple(int(x) for x in out[k]), words[k], fut))
-        err = 0
+        err = {"warp": 0, "block": 0}
         for name, k, Rh, R, card, words, fut in jobs:
             plain, pwords, secs = fut.result()
-            err = max(err, abs_err(card, plain))
+            arm = deep_kernel.arm_of(Rh)
+            err[arm] = max(err[arm], abs_err(card, plain))
             ok = card == plain and words == pwords
-            log(f"[grid] {name}: CTA {k} depth {Rh} in a grid of stride "
+            log(f"[grid] {name}: CTA {k} depth {Rh} ({arm} arm) in a grid "
+                f"of stride "
                 f"R={R}: kernel={card} plain={plain} words {words}/"
                 f"{pwords} plain_s={secs:.1f} {'OK' if ok else 'MISMATCH'}")
             if not ok:
@@ -478,8 +542,9 @@ def bound_ms(words, in_bytes, clock_hz):
 
 
 def phase_timing(batches, clock_hz):
-    """The kernel, its plain version and the bound on one main-path
-    history (depth 8), plus kernel time and bound per depth batch."""
+    """Kernel time and bound per depth batch, then per arm the kernel,
+    its plain version and the bound on one main-path history (depth 8
+    on the warp arm, depth 12 on the block arm)."""
     from jepsen_tpu_torch.ops import deep_kernel
     for mo in (8, 10, 12, 14):
         ts = [tables_for(h) for h in batches[mo]]
@@ -503,36 +568,50 @@ def phase_timing(batches, clock_hz):
             f"{serial_ms:.3f} ms in sequence ({serial_ms / 16:.3f} ms "
             f"each); plane words touched max {max(words)} -> bound "
             f"{b:.3f} ms per history")
-    # one history at depth 8: kernel vs plain vs bound, same inputs
-    t = tables_for(batches[8][0])
-    work_card = torch.zeros(1, dtype=torch.int64, device="cuda")
-    card = run_walk(t, "cuda", work=work_card)
-    args, kw = walk_inputs(t, "cuda")
-    reps = 5
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    torch.cuda.synchronize()
-    ev[0].record()
-    for _ in range(reps):
-        deep_kernel.deep_walk(*args, **kw)
-    ev[1].record()
-    torch.cuda.synchronize()
-    ms = ev[0].elapsed_time(ev[1]) / reps
-    work_plain = torch.zeros(1, dtype=torch.int64)
-    tp = time.perf_counter()
-    plain = run_walk(t, "cpu", work=work_plain)
-    plain_ms = 1e3 * (time.perf_counter() - tp)
-    if card != plain or int(work_card.item()) != int(work_plain.item()):
-        raise SystemExit(f"[timing] kernel {card} / {int(work_card.item())}"
-                         f" words vs plain {plain} / "
-                         f"{int(work_plain.item())} words")
-    b = bound_ms(int(work_card.item()), t[0].nbytes + t[2].nbytes,
-                 clock_hz)
-    log(f"[timing] one depth-8 history ({len(batches[8][0])} ops, "
-        f"{len(t[7])} rows): kernel {ms:.3f} ms (mean of {reps} "
-        f"launches), plain (CPU) {plain_ms:.1f} ms, bound {b:.4f} ms "
-        f"from {int(work_card.item())} plane words")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b,
-                err=abs_err(card, plain))
+    # one main-path history per arm: kernel vs plain vs bound, same
+    # inputs; the plain walks run in worker processes meanwhile
+    picks = {"warp": batches[8][0], "block": batches[12][0]}
+    res = {}
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(picks), mp_context=ctx) as pool:
+        ts, futs = {}, {}
+        for arm, h in picks.items():
+            t = ts[arm] = tables_for(h)
+            if deep_kernel.arm_of(t[3]) != arm:
+                raise SystemExit(f"[timing] depth {t[3]} is not {arm}")
+            futs[arm] = pool.submit(plain_job, t[0], t[2],
+                                    t[1] * deep_kernel.EB, t[3],
+                                    walk_inputs(t, "cpu")[1]["SnP"], t[5])
+        for arm, t in ts.items():
+            work_card = torch.zeros(1, dtype=torch.int64, device="cuda")
+            card = run_walk(t, "cuda", work=work_card)
+            words = int(work_card.item())
+            args, kw = walk_inputs(t, "cuda")
+            reps = 5
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            for _ in range(reps):
+                deep_kernel.deep_walk(*args, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms = ev[0].elapsed_time(ev[1]) / reps
+            b = bound_ms(words, t[0].nbytes + t[2].nbytes, clock_hz)
+            res[arm] = dict(card=card, words=words, ms=ms, bound_ms=b)
+        for arm, t in ts.items():
+            plain, pwords, secs = futs[arm].result()
+            r = res[arm]
+            if r["card"] != plain or r["words"] != pwords:
+                raise SystemExit(f"[timing] {arm}: kernel {r['card']} / "
+                                 f"{r['words']} words vs plain {plain} / "
+                                 f"{pwords} words")
+            r.update(plain_ms=1e3 * secs, err=abs_err(r["card"], plain))
+            log(f"[timing] {arm} arm, one depth-{t[3]} history "
+                f"({len(picks[arm])} ops, {len(t[7])} rows): kernel "
+                f"{r['ms']:.3f} ms (mean of {reps} launches), plain (CPU, "
+                f"one thread) {r['plain_ms']:.1f} ms, bound "
+                f"{r['bound_ms']:.4f} ms from {r['words']} plane words")
+    return res
 
 
 def main() -> int:
@@ -540,18 +619,19 @@ def main() -> int:
     phase_build()
     err = phase_kernel(clock_hz)
     batches, verdicts, launches = phase_main()
-    err = max(err, phase_grid(batches, verdicts))
+    grid_err = phase_grid(batches, verdicts)
     one = phase_timing(batches, clock_hz)
-    kern = {"name": "wgl_deep", "route": "cuda",
-            "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",
-            "replaces": "jepsen_tpu/ops/wgl_deep.py:358",
-            "launches": launches,
-            "max_abs_err": max(err, one["err"]),
-            "ms": one["ms"], "plain_ms": one["plain_ms"],
-            "bound_ms": one["bound_ms"], "bound_by": "bytes",
-            "library_ms": None}
+    kernels = [{"name": f"wgl_deep_{arm}", "route": "cuda",
+                "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",
+                "replaces": "jepsen_tpu/ops/wgl_deep.py:358",
+                "launches": launches[arm],
+                "max_abs_err": max(err[arm], grid_err[arm],
+                                   one[arm]["err"]),
+                "ms": one[arm]["ms"], "plain_ms": one[arm]["plain_ms"],
+                "bound_ms": one[arm]["bound_ms"], "bound_by": "bytes",
+                "library_ms": None} for arm in ("warp", "block")]
     print(smi)
-    print(json.dumps({"kernels": [kern]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,21 +1,28 @@
-"""The deep-overlap event walk: the CUDA kernel's wrapper and its plain
+"""The deep-overlap event walk: the CUDA kernel's wrappers and its plain
 PyTorch version.
 
 Replaces `jepsen_tpu/ops/wgl_deep.py::_build` (the Pallas kernel,
 `pallas_call` at :358) and its compact-wire prologue `_build_c`.  The
-kernel (`jepsen_tpu_torch/csrc/wgl_deep.cu`) runs one CTA per history
-of a batch over the u8 compact wire and returns (alive, first dead row)
-per history.  On this card it is bound by one SM's shared-memory
-bandwidth: each closure round streams the 2^R-mask plane once per open
-slot, while the event stream is a few bytes per row.  The design keeps
-the plane in shared memory wherever it fits (all but R = 16 at 32
-states), stages event rows with their transition words gathered, and
-reduces every decision block-wide through warp shuffles; the source
-note says more.
+kernel (`jepsen_tpu_torch/csrc/wgl_deep.cu`) walks the histories of a
+batch over the u8 compact wire and returns (alive, first dead row) per
+history, in two arms chosen per history by `arm_of`:
 
-The wrapper takes the plain version only for tensors on the CPU.  For
-a CUDA tensor it launches the kernel or raises; the build at first use
-raises when `nvcc` fails.  `LAUNCHES` counts kernel launches."""
+- the warp arm (depth <= WARP_MAX_R): one warp per history with the
+  plane in registers; bound by the latency of a row's chain of passes,
+  which shuffles and warp reductions keep free of barriers;
+- the block arm (deeper): one CTA per history, each thread owning whole
+  word columns of the plane, held in registers where the register file
+  allows (`block_plane`), else in shared memory (global at R = 16 with
+  32 states); bound by the plane's bytes through one SM, with one
+  barrier per cross-warp slot and one per block sum.
+
+`deep_walk` splits a grid by arm into at most two launches on the
+current stream, each CTA writing its history's row of the output, so
+results stay in the batch's order; the source note says more.  The
+wrapper takes the plain version only for tensors on the CPU.  For a
+CUDA tensor it launches the kernels or raises; the build at first use
+raises when `nvcc` fails.  `LAUNCHES` counts kernel launches, and
+`ARM_LAUNCHES` counts them per arm."""
 
 from __future__ import annotations
 
@@ -31,11 +38,19 @@ import torch
 
 #: Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
+#: The same launches by arm.
+ARM_LAUNCHES = {"warp": 0, "block": 0}
+
+#: Deepest history the warp arm walks (csrc/wgl_deep.cu WARP_MAX_R): at
+#: R = 10 a lane holds at most 32 plane words; PERF.md records the
+#: phase-3 times on the card that keep the boundary here.
+WARP_MAX_R = 10
 
 EB = 512                        # event rows staged per block step
+WEB = 256                       # event rows staged per warp step
 I = 2                           # invoke columns per event row of the wire
 SMEM_PER_BLOCK = 232_448        # bytes of shared memory one block may use
-_STATIC_SMEM = 1024             # the kernel's static shared arrays
+_STATIC_SMEM = 1024             # the block kernel's static shared arrays
 _INTRA = (0x55555555, 0x33333333, 0x0F0F0F0F, 0x00FF00FF, 0x0000FFFF)
 _FULL = 0xFFFFFFFF
 
@@ -50,10 +65,10 @@ def plane_words(R: int, SnP: int) -> int:
     return SnP * max(1, (1 << R) >> 5)
 
 
-def stage_bytes() -> int:
-    """Shared memory of one staged event block: ret, islot and the
+def stage_bytes(rows: int = EB) -> int:
+    """Shared memory of `rows` staged event rows: ret, islot and the
     gathered (a1, a2, t0) of each new invoke, as 32-bit words."""
-    return EB * (1 + 4 * I) * 4
+    return rows * (1 + 4 * I) * 4
 
 
 def plane_in_shared(R: int, SnP: int) -> bool:
@@ -62,8 +77,52 @@ def plane_in_shared(R: int, SnP: int) -> bool:
 
 
 def threads_for(R: int) -> int:
-    """One thread per plane word column, 32 to 1024."""
+    """Block arm: one thread per plane word column, 32 to 1024."""
     return min(1024, max(32, (1 << R) >> 5))
+
+
+def arm_of(depth: int) -> str:
+    """The arm that walks a history of this overlap depth."""
+    return "warp" if depth <= WARP_MAX_R else "block"
+
+
+def block_plane(R: int, SnP: int) -> str:
+    """Where the block arm keeps the plane of a grid whose deepest
+    history has depth R: in registers (one column of SnP words per
+    thread) while the threads' share of the register file allows it
+    (64 a thread at 1024 threads, 128 at 512), else in shared memory,
+    and in global memory where shared memory is too small."""
+    if R <= 14 or (R == 15 and SnP <= 16):
+        return "registers"
+    return "shared" if plane_in_shared(R, SnP) else "global"
+
+
+def launch_plan(arm: str, R: int, SnP: int) -> dict:
+    """How one arm launches a grid whose deepest history has depth R:
+    threads per CTA, dynamic and static shared bytes, where the plane
+    lives and the plane words each thread holds in registers (None for
+    a plane in memory)."""
+    if arm == "warp":
+        return dict(arm=arm, threads=32, smem=0, static_smem=stage_bytes(WEB),
+                    plane="registers",
+                    lane_words=max(1, plane_words(R, SnP) // 32))
+    threads = threads_for(R)
+    plane = block_plane(R, SnP)
+    smem = stage_bytes() + {"registers": SnP * threads * 4,
+                            "shared": plane_words(R, SnP) * 4,
+                            "global": 0}[plane]
+    return dict(arm=arm, threads=threads, smem=smem,
+                static_smem=_STATIC_SMEM, plane=plane,
+                lane_words=SnP if plane == "registers" else None)
+
+
+def split_by_arm(depths) -> list[tuple[str, list[int]]]:
+    """The sub-grids of a grid: (arm, history indices in batch order)
+    for each arm that has a history, warp arm first."""
+    parts: dict = {"warp": [], "block": []}
+    for h, d in enumerate(depths):
+        parts[arm_of(d)].append(h)
+    return [(arm, idx) for arm, idx in parts.items() if idx]
 
 
 def _nvcc() -> str:
@@ -102,14 +161,16 @@ def build() -> Path:
 
 def _load():
     global _lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            fn = lib.wgl_deep_launch
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
+            lib.wgl_deep_warp_launch.argtypes = (
+                [ptr] * 6 + [i32] * 3 + [ptr] * 3)
+            lib.wgl_deep_block_launch.argtypes = (
+                [ptr] * 6 + [i32] * 5 + [ptr] * 3 + [i32] * 2 + [ptr])
+            lib.wgl_deep_warp_launch.restype = i32
+            lib.wgl_deep_block_launch.restype = i32
             _lib = lib
     return _lib
 
@@ -130,13 +191,12 @@ def deep_walk(cbuf: torch.Tensor, offs: torch.Tensor,
     whose compact wires (I = 2 invoke columns) lie in `cbuf` at byte
     offsets `offs` (int64), each `nrows` (int32) rows long and of
     overlap depth `depth` (int32, 1 <= depth <= R; R sizes the plane),
-    under one aux table (int32 view of diag[UP] ++ const[UP] ++ t0[UP]).  The caller
-    checks the depths on the host: a depth past R traps the kernel,
-    which the next synchronisation raises.  `work`, an optional
-    int64[n], receives the plane words each history's passes touch (the
-    bound model of PERF.md).  CUDA tensors launch the kernel on the
-    current stream without synchronising; CPU tensors run the plain
-    version."""
+    under one aux table (int32 view of diag[UP] ++ const[UP] ++ t0[UP]).
+    `work`, an optional int64[n], receives the plane words each
+    history's passes touch (the bound model of PERF.md).  CUDA tensors
+    launch one grid per arm present (`split_by_arm`) on the current
+    stream without synchronising between them (reading the depths to
+    the host syncs once before); CPU tensors run the plain version."""
     global LAUNCHES
     dev = cbuf.device
     _check(cbuf, "cbuf", torch.uint8, dev)
@@ -154,14 +214,19 @@ def deep_walk(cbuf: torch.Tensor, offs: torch.Tensor,
         raise ValueError("offs/nrows/depth/aux sizes disagree")
     if not (1 <= R <= 16 and SnP in (8, 16, 32)):
         raise ValueError(f"unsupported kernel shape R={R} SnP={SnP}")
+    depths = depth.tolist()
+    for h, Rh in enumerate(depths):
+        if not 1 <= Rh <= R:
+            raise ValueError(f"history {h}: depth {Rh} outside 1..{R}")
     if dev.type == "cpu":
         out = torch.empty((n, 2), dtype=torch.int32)
-        for h, (o, L2, Rh) in enumerate(zip(offs.tolist(), nrows.tolist(),
-                                            depth.tolist())):
+        offs_l, rows_l = offs.tolist(), nrows.tolist()
+        for h in (h for _, idx in split_by_arm(depths) for h in idx):
+            o, L2, Rh = offs_l[h], rows_l[h], depths[h]
             size = L2 * (1 + 3 * I)
-            if not (1 <= Rh <= R and o + size <= cbuf.numel()):
-                raise ValueError(f"history {h}: depth {Rh} or wire "
-                                 f"[{o}, {o + size}) out of range")
+            if o + size > cbuf.numel():
+                raise ValueError(f"history {h}: wire [{o}, {o + size}) out "
+                                 f"of range")
             count: dict = {}
             out[h] = torch.tensor(walk_plain(cbuf[o:o + size], aux, L2=L2,
                                              R=Rh, SnP=SnP, UP=UP,
@@ -175,24 +240,35 @@ def deep_walk(cbuf: torch.Tensor, offs: torch.Tensor,
     if n == 0:
         return out
     lib = _load()
-    if plane_in_shared(R, SnP):
-        gplane = None
-        smem = plane_words(R, SnP) * 4 + stage_bytes()
-    else:
-        gplane = torch.empty(n * plane_words(R, SnP), dtype=torch.int32,
-                             device=dev)
-        smem = stage_bytes()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.wgl_deep_launch(
-        cbuf.data_ptr(), offs.data_ptr(), nrows.data_ptr(),
-        depth.data_ptr(), aux.data_ptr(), UP, n, R, SnP,
-        None if gplane is None else gplane.data_ptr(), out.data_ptr(),
-        None if work is None else work.data_ptr(), threads_for(R), smem,
-        stream)
-    if err != 0:
-        raise RuntimeError(f"wgl_deep kernel launch failed: cudaError {err}"
-                           f" (R={R} SnP={SnP} n={n} smem={smem})")
-    LAUNCHES += 1
+    work_ptr = None if work is None else work.data_ptr()
+    for arm, idx in split_by_arm(depths):
+        Rb = max(depths[h] for h in idx)
+        plan = launch_plan(arm, Rb, SnP)
+        hidx = None if len(idx) == n else \
+            torch.tensor(idx, dtype=torch.int32, device=dev)
+        ptrs = (cbuf.data_ptr(), offs.data_ptr(), nrows.data_ptr(),
+                depth.data_ptr(), None if hidx is None else hidx.data_ptr(),
+                aux.data_ptr())
+        if arm == "warp":
+            err = lib.wgl_deep_warp_launch(*ptrs, UP, len(idx), SnP,
+                                           out.data_ptr(), work_ptr, stream)
+        else:
+            gplane = None if plan["plane"] != "global" else torch.empty(
+                len(idx) * plane_words(Rb, SnP), dtype=torch.int32,
+                device=dev)
+            err = lib.wgl_deep_block_launch(
+                *ptrs, UP, len(idx), Rb, SnP,
+                int(plan["plane"] == "registers"),
+                None if gplane is None else gplane.data_ptr(),
+                out.data_ptr(), work_ptr, plan["threads"], plan["smem"],
+                stream)
+        if err != 0:
+            raise RuntimeError(f"wgl_deep {arm} launch failed: cudaError "
+                               f"{err} (R={R} SnP={SnP} n={len(idx)} "
+                               f"plan={plan})")
+        LAUNCHES += 1
+        ARM_LAUNCHES[arm] += 1
     return out
 
 

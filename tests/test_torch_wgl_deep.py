@@ -216,3 +216,20 @@ def test_kernel_matches_plain_on_card(verdicts):
         card = wgl_deep.check_tables(*tables, R, 5, device="cuda")
         assert card["valid?"] is got["valid?"], name
         assert card["failed_row"] == got["failed_row"], name
+    # both arms in one grid: depth 7 (warp arm), 11 and 14 (block arm)
+    hs = [convert.history_from_dicts(h.to_dicts()) for h in (
+        deep_history(90, 12, seed=31, max_open=8),
+        burst_history(11, seed=3),
+        corrupt(burst_history(14, seed=4), 0.5))]
+    _, grid, _ = wgl_deep.pack_pipeline(models.CASRegister(), hs,
+                                        device="cpu")
+    before = dict(deep_kernel.ARM_LAUNCHES)
+    walks = []
+    for dev in ("cuda", "cpu"):
+        wire = grid.to_device(torch.device(dev))
+        work = torch.zeros(len(hs), dtype=torch.int64, device=dev)
+        out = deep_kernel.deep_walk(*wire, work=work, **grid.shape())
+        walks.append((out.cpu().tolist(), work.cpu().tolist()))
+    assert walks[0] == walks[1]
+    assert [row[0] for row in walks[0][0]] == [1, 1, 0]
+    assert all(deep_kernel.ARM_LAUNCHES[a] == before[a] + 1 for a in before)
