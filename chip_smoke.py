@@ -2,42 +2,52 @@
 
     python3 chip_smoke.py
 
-Phases, each printing what it measured on its own line; any failure
-exits non-zero:
+Phases, each printing what it measured on lines tagged with its name;
+any failure exits non-zero:
 
-  1. device  - the card, and nvidia-smi's name and power limit;
-  2. build   - nvcc builds csrc/wgl_deep.cu for sm_90a (timed); ptxas
-               registers and spill bytes of each kernel instantiation
-               (warp arm <SnP>, block arm <SnP>); a warp-arm spill fails;
-  3. kernel  - each arm against the plain PyTorch version (on CPU
+  device     - the card, and nvidia-smi's name and power limit;
+  build      - one nvcc per source (csrc/wgl_deep.cu, csrc/wgl_regs.cu),
+               started together, for sm_90a (timed); ptxas registers and
+               spill bytes of each kernel instantiation; a spill in the
+               deep kernel's warp arm fails;
+  kernel     - each deep arm against the plain PyTorch version (on CPU
                copies of the same inputs) on 600-call histories at its
                edges and plane sizes: warp arm R = 3, 5, 8, 10 (twice),
                block arm R = 11 (twice), 12, 14, 15, 16 (twice), with
-               SnP 8, 16 and 32 on each arm (vmax picks the model's
-               states) and the global-memory plane at R = 16, SnP = 32;
-               one valid and one planted-invalid history each: verdict,
-               first dead row and plane words touched; kernel time (CUDA
-               events) and bound per case; the R = 3 verdicts also
-               against the exact CPU oracle;
-  4. main    - the deep-overlap envelope at full size: 16 etcd-shaped
+               SnP 8, 16 and 32 on each arm and the global-memory plane
+               at R = 16, SnP = 32; one valid and one planted-invalid
+               history each: verdict, first dead row and plane words;
+               kernel time (CUDA events) and bound per case; the R = 3
+               verdicts also against the exact CPU oracle;
+  seg-kernel - the segment kernel against its plain version on CPU
+               copies of the same inputs: 400-call histories at
+               R = 1..6 x SnP 8/16/32, valid and planted-invalid, at
+               rounds R and 2, and one with more than 255 uop ids:
+               transfer matrices, plane words, the exact verdict;
+  main       - the deep-overlap envelope at full size: 16 etcd-shaped
                register histories of 20,000 calls (concurrency 16, vmax
                9, read/read/write/cas) per depth max_open 8/10/12/14,
-               through check_pipeline and Linearizable, plus planted
-               stale reads at 90% depth (through Linearizable, and in
-               one grid of mixed depths) whose exact witness must come
-               back; the kernel launches of each arm are counted;
-  5. grid    - the main path's grids rebuilt on the host exactly as
-               check_pipeline built them (one aux table, mixed depths
-               under one plane stride), launched once more: every CTA's
-               verdict must equal the main path's, the mixed grid must
-               launch both arms, and chosen CTAs (depth 8, 10, 12, both
-               depths 13 and 14 of the depth-14 grid, and the planted
-               histories of the mixed grid) must equal the plain version
-               on CPU copies of the same device inputs, in worker
+               through wgl_deep.check_pipeline and Linearizable, plus
+               planted stale reads at 90% depth whose exact witness must
+               come back; the deep kernel's launches per arm are counted;
+  grid       - the envelope's grids rebuilt as check_pipeline built them
+               and launched again: every CTA's verdict must equal the
+               main path's, the mixed grid must launch both arms, and
+               chosen CTAs must equal the plain version, in worker
                processes;
-  6. timing  - per arm, the kernel, its plain version and the bound on
-               one main-path history (depth 8 on the warp arm, depth 12
-               on the block arm), as the JSON kernel line.
+  timing     - per deep arm, the kernel, its plain version and the bound
+               on one envelope history (depth 8 warp, depth 12 block);
+  seg-main   - the north-star batch: 24 register histories of 100,000
+               calls (concurrency 5, vmax 9) through wgl_seg.check_pipeline
+               (all valid, engine wgl_seg), one through Linearizable, and
+               a planted stale read through both whose exact witness must
+               come back; the segment kernel's launches are counted;
+  seg-grid / seg-timing
+             - the batch's first group rebuilt as the pipeline built it:
+               chosen segment lanes against the plain version; then the
+               group launch and check()'s launch on one history, each
+               against its plain version and its bound, and the
+               composition's time, for the JSON kernel line.
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with
 no result line when torch.cuda.is_available() is false or the package
@@ -71,12 +81,15 @@ def log(*a):
 # violation planter (the shapes the JAX package's bench prices)
 # ---------------------------------------------------------------------------
 
-def make_history(n_ops, concurrency, seed, vmax=9, max_open=0, burst=0):
+def make_history(n_ops, concurrency, seed, vmax=9, max_open=0, burst=0,
+                 cas_hits=False):
     """A register workload (read/read/write/cas) executed against a
     sequential in-memory register with process interleaving, bounded to
     `max_open` simultaneously-open calls; `n_ops` counts calls.  With
     `burst`, that many writes open together at the end, so the overlap
-    depth is at least `burst`."""
+    depth is at least `burst`.  With `cas_hits`, every cas names the
+    register's value as its old value and succeeds, so the distinct
+    (old, new) pairs run into the hundreds of uop ids."""
     from jepsen_tpu_torch.history import (History, fail_op, invoke_op,
                                           ok_op)
     rng = random.Random(seed)
@@ -104,6 +117,8 @@ def make_history(n_ops, concurrency, seed, vmax=9, max_open=0, burst=0):
             open_ops[p] = ok_op(p, "write", v)
         else:
             old, new = rng.randint(0, vmax), rng.randint(0, vmax)
+            if cas_hits and value is not None:
+                old = value
             ops.append(invoke_op(p, "cas", [old, new]))
             if value == old:
                 value = new
@@ -204,18 +219,28 @@ def phase_device():
 
 
 def phase_build():
-    from jepsen_tpu_torch.ops import deep_kernel
+    """Both kernels' nvcc at once, timed; ptxas registers and spills of
+    every instantiation; a warp-arm spill of the deep kernel fails."""
+    from jepsen_tpu_torch.ops import cuda_build, deep_kernel, regs_kernel
     t = time.perf_counter()
-    lib = deep_kernel.build()
+    libs = cuda_build.build("wgl_deep", "wgl_regs")
     deep_kernel._load()
+    cuda_build.load("wgl_regs", regs_kernel._declare)
     dt = time.perf_counter() - t
-    ptxas = lib.parent / (lib.stem + ".ptxas.txt")
-    kernels = ptxas_kernels(ptxas.read_text() if ptxas.exists() else "")
-    if not kernels:
-        raise SystemExit("[build] ptxas reported no kernel")
-    log(f"[build] {lib.name} in {dt:.2f} s; ptxas: " + " | ".join(
-        f"{k}: {v['regs']} registers, spill {v['spill']} bytes"
-        for k, v in kernels.items()))
+    kernels, entries = {}, []
+    for lib in libs.values():
+        report = cuda_build.ptxas_report(lib)
+        text = report.read_text() if report.exists() else ""
+        kernels.update(ptxas_kernels(text))
+        entries += [ln for ln in text.splitlines() if "entry function" in ln]
+    if not any(k.startswith("wgl_regs") for k in kernels) or \
+            not any(k.startswith("wgl_warp") for k in kernels):
+        raise SystemExit("[build] ptxas reported no kernel of a source: "
+                         + " | ".join(entries))
+    log(f"[build] {', '.join(p.name for p in libs.values())} in {dt:.2f} s "
+        f"(one nvcc per source, in parallel); ptxas: " + " | ".join(
+            f"{k}: {v['regs']} registers, spill {v['spill']} bytes"
+            for k, v in kernels.items()))
     spilled = [k for k, v in kernels.items()
                if k.startswith("wgl_warp") and v["spill"]]
     if spilled:
@@ -223,13 +248,14 @@ def phase_build():
 
 
 def ptxas_kernels(text):
-    """{kernel<SnP>: {"regs": n, "spill": store + load bytes}} from
-    `nvcc -Xptxas -v` output."""
+    """{kernel<template args>: {"regs": n, "spill": store + load bytes}}
+    from `nvcc -Xptxas -v` output."""
     out, name = {}, None
     for ln in text.splitlines():
-        m = re.search(r"entry function '_Z\d+(\w+?)ILi(\d+)E", ln)
+        m = re.search(r"entry function '_Z\d+(\w+?)I((?:Li\d+E)+)E", ln)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+            name = f"{m.group(1)}<{args}>"
             out[name] = {"regs": None, "spill": 0}
             continue
         if name is None:
@@ -614,13 +640,341 @@ def phase_timing(batches, clock_hz):
     return res
 
 
+# ---------------------------------------------------------------------------
+# The register-delta segment kernel (overlap depth <= 6)
+# ---------------------------------------------------------------------------
+
+INT32_LANES_PER_SM = 64             # H100: 64 INT32 lanes per SM a clock
+N_SM = 132
+SEG_N_OPS = 100_000                 # calls per north-star history
+SEG_BATCH = 24                      # histories of the pipelined batch
+DEV = "cuda"                        # the card the segment phases run on
+
+
+def seg_bound_ms(words, wire_bytes, clock_hz):
+    """The larger of the closure's integer operations over every INT32
+    lane of the card and the wire over device memory."""
+    from jepsen_tpu_torch.ops import regs_kernel
+    ops = regs_kernel.OPS_PER_WORD * words
+    return 1e3 * max(ops / (N_SM * INT32_LANES_PER_SM * clock_hz),
+                     wire_bytes / HBM_BYTES_PER_S)
+
+
+def seg_inputs(hs, target=256, I=None):
+    """The segment wire of histories scanned as check_pipeline scans a
+    group: one alphabet, depth R = the deepest, I invoke columns per row
+    (default min(2, R), check()'s; the pipeline packs 1).  Returns a dict
+    of host arrays and shape arguments, with each history's segment
+    count."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import planner, wgl_seg
+    model = CASRegister()
+    spec = model.device_spec()
+    seen, rows = {}, []
+    fks = [planner._fast_scan(h.ops, spec, seen, rows, 10) for h in hs]
+    states, legal, nxt, dec = wgl_seg._model_tables(spec, model, rows, 64)
+    R = max(fk.max_open for fk in fks)
+    grid = wgl_seg._SegGrid()
+    for fk in fks:
+        seg_ends = planner._segment_ends(fk.cuts, target)
+        grid.add(*wgl_seg._seg_tables(fk, seg_ends, R, len(rows),
+                                      min(2, R) if I is None else I))
+    aux, UP = wgl_seg._aux(planner._pack_uop_tables(legal, nxt, *dec))
+    cbuf, offs, nrows = grid.wire()
+    return dict(cbuf=cbuf, offs=offs, nrows=nrows, aux=aux, UP=UP, R=R,
+                Sn=states.shape[0], U=len(rows), seg_counts=grid.seg_counts)
+
+
+def seg_scan(inp, device, rounds, ks=None):
+    """regs_scan on `device` over the wire of `inp` (only segments `ks`,
+    when given): (T u8 numpy, work int64 numpy, bad, ms by CUDA events
+    or NaN on the CPU)."""
+    from jepsen_tpu_torch.ops import regs_kernel
+    dev = torch.device(device)
+    offs, nrows = inp["offs"], inp["nrows"]
+    if ks is not None:
+        offs, nrows = offs[ks], nrows[ks]
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (inp["cbuf"], offs, nrows, inp["aux"])]
+    work = torch.zeros(len(offs), dtype=torch.int64, device=dev)
+    kw = dict(R=inp["R"], Sn=inp["Sn"], UP=inp["UP"], J=inp["Sn"],
+              rounds=rounds, work=work)
+    ms = float("nan")
+    if dev.type == "cuda":
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        T, bad = regs_kernel.regs_scan(*args, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+    else:
+        T, bad = regs_kernel.regs_scan(*args, **kw)
+    return T.cpu().numpy(), work.cpu().numpy(), int(bad.cpu()[0]), ms
+
+
+def plain_seg_job(inp, rounds, ks=None):
+    """The plain version on CPU copies, in a worker process: (T, work,
+    seconds)."""
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    T, work, _, _ = seg_scan(inp, "cpu", rounds, ks)
+    return T, work, time.perf_counter() - t
+
+
+def wire_bytes(inp, K, Sn):
+    return (inp["cbuf"].nbytes + 12 * K + inp["aux"].nbytes
+            + K * Sn * Sn)
+
+
+# (R, vmax) of the segment kernel phase: R = 1..6, each at SnP 8, 16
+# and 32 (vmax 6 / 9 / 30 give 8 / 11 / 32 model states)
+SEG_KERNEL_CASES = [(R, v) for R in range(1, 7) for v in (6, 9, 30)]
+
+
+def phase_seg_kernel(clock_hz):
+    """The segment kernel against its plain version on CPU copies of the
+    same inputs, R = 1..6 x SnP 8/16/32 x (valid, planted-invalid) x
+    (rounds R, rounds 2), plus a uop table past 255 ids: transfer
+    matrices, plane words and the composed verdict.  Returns the
+    largest disagreement."""
+    from jepsen_tpu_torch.ops import regs_kernel
+    cases = []
+    for R, vmax in SEG_KERNEL_CASES:
+        for bad in (False, True):
+            h = make_history(400, R + 2, seed=2000 + 10 * R + vmax,
+                             vmax=vmax, max_open=R, burst=R)
+            if bad and plant_stale_read(h, 0.6, vmax) is None:
+                raise SystemExit(f"[seg-kernel] no plantable read at R={R}")
+            cases.append((R, vmax, bad, seg_inputs([h], target=64)))
+    wide = make_history(2500, 4, seed=77, vmax=30, max_open=5, burst=5,
+                        cas_hits=True)
+    cases.append((5, 30, False, seg_inputs([wide], target=64)))
+    if cases[-1][3]["U"] <= 255:
+        raise SystemExit("[seg-kernel] the wide case has no uop past 255")
+    ctx = multiprocessing.get_context("spawn")
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    err = 0
+    seen = set()
+    with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        jobs = []
+        for R, vmax, bad, inp in cases:
+            if inp["R"] != R:
+                raise SystemExit(f"[seg-kernel] built R={inp['R']}, "
+                                 f"wanted {R}")
+            for rounds in sorted({R, min(R, 2)}):
+                jobs.append((R, vmax, bad, inp, rounds,
+                             pool.submit(plain_seg_job, inp, rounds)))
+        for R, vmax, bad, inp, rounds, fut in jobs:
+            T, work, nbad, ms = seg_scan(inp, DEV, rounds)
+            pT, pwork, secs = fut.result()
+            K, Sn = T.shape[0], inp["Sn"]
+            vd = regs_kernel.compose(torch.from_numpy(T).to(DEV),
+                                     [K]).cpu()[0].tolist()
+            err = max(err, int(np.abs(T.astype(np.int64)
+                                      - pT.astype(np.int64)).max()))
+            ok = (np.array_equal(T, pT) and np.array_equal(work, pwork)
+                  and nbad == 0)
+            if rounds == R:             # exact: the verdict is the truth
+                ok &= vd[0] == (0 if bad else 1)
+            seen.add((R, regs_kernel.snp(Sn), rounds == R))
+            b = seg_bound_ms(int(work.sum()), wire_bytes(inp, K, Sn),
+                             clock_hz)
+            log(f"[seg-kernel] R={R} Sn={Sn} SnP={regs_kernel.snp(Sn)} "
+                f"U={inp['U']} K={K} rows={int(inp['nrows'].sum())} "
+                f"rounds={rounds} {'invalid' if bad else 'valid'} "
+                f"verdict={vd[:2]} words={int(work.sum())} "
+                f"kernel_ms={ms:.3f} bound_ms={b:.4f} plain_s={secs:.3f} "
+                f"{'OK' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit("[seg-kernel] kernel and plain version "
+                                 "disagree")
+    want = {(R, snp, ex) for R in range(1, 7) for snp in (8, 16, 32)
+            for ex in (True, R <= 2)}
+    if not want <= seen:
+        raise SystemExit(f"[seg-kernel] not run: {sorted(want - seen)}")
+    return err
+
+
+def phase_seg_main():
+    """The north-star shape through the segment route: SEG_BATCH register
+    histories of SEG_N_OPS calls, concurrency 5, vmax 9, through
+    check_pipeline (all valid, engine wgl_seg) and one of them through
+    Linearizable; then a planted stale read through both, whose exact
+    witness must come back.  The segment kernel's launch count is read
+    over this whole path."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import regs_kernel, wgl_seg
+    t = time.perf_counter()
+    hs = [make_history(SEG_N_OPS, 5, seed=7000 + s, vmax=9)
+          for s in range(SEG_BATCH)]
+    planted = make_history(SEG_N_OPS, 5, seed=6999, vmax=9)
+    wit = plant_stale_read(planted, 0.9, 9)
+    if wit is None:
+        raise SystemExit("[seg-main] no plantable read")
+    log(f"[seg-main] made {SEG_BATCH + 1} histories of {SEG_N_OPS} calls "
+        f"in {time.perf_counter() - t:.1f} s")
+    model = CASRegister()
+    checker = Linearizable(model)
+    regs_kernel.LAUNCHES = 0
+    st = {}
+    t = time.perf_counter()
+    res = wgl_seg.check_pipeline(model, hs, stats=st)
+    wall = time.perf_counter() - t
+    bad = [i for i, r in enumerate(res) if r["valid?"] is not True
+           or r["engine"] != "wgl_seg" or not r.get("pipelined")]
+    if bad:
+        raise SystemExit(f"[seg-main] histories {bad} not judged valid by "
+                         f"the pipelined segment kernel")
+    n_ops = sum(len(h) for h in hs)
+    dev_ms = st.get("kernel_ms", 0.0) + st.get("compose_ms", 0.0)
+    stages = ", ".join(f"{k} {st[k]:.3f} s" for k in (
+        "scan", "segment", "tables", "pack", "copy", "launch", "sync",
+        "assemble"))
+    log(f"[seg-main] check_pipeline {SEG_BATCH}x{len(hs[0])} ops "
+        f"(R={res[0]['dispatch']['R']}, states {res[0]['states']}, "
+        f"segments per history {min(r['segments'] for r in res)}.."
+        f"{max(r['segments'] for r in res)}): {n_ops / wall:.0f} ops/s, "
+        f"wall {wall:.3f} s, kernel {st.get('kernel_ms', 0.0):.3f} ms, "
+        f"compose (bmm) {st.get('compose_ms', 0.0):.3f} ms = "
+        f"{st.get('compose_ms', 0.0) / max(dev_ms, 1e-9):.3f} "
+        f"of the device time, host share {(wall - dev_ms / 1e3) / wall:.4f}"
+        f"; stages: {stages}")
+    t = time.perf_counter()
+    single = checker.check(None, hs[0])
+    single_s = time.perf_counter() - t
+    if single["valid?"] is not True or single["engine"] != "wgl_seg":
+        raise SystemExit(f"[seg-main] Linearizable: {single['valid?']} by "
+                         f"{single['engine']}")
+    log(f"[seg-main] Linearizable one history ({len(hs[0])} ops, "
+        f"{single['segments']} segments): {single_s:.3f} s, time_kernel_s "
+        f"{single['time_kernel_s']:.4f}")
+    t = time.perf_counter()
+    r1 = checker.check(None, planted)
+    dt1 = time.perf_counter() - t
+    t = time.perf_counter()
+    rp = wgl_seg.check_pipeline(model, [hs[1], planted])
+    dt2 = time.perf_counter() - t
+    for how, r, dt in (("Linearizable", r1, dt1),
+                       ("check_pipeline", rp[1], dt2)):
+        ok = (r["valid?"] is False and r.get("op_index") == wit
+              and r["engine"] == "wgl_seg")
+        log(f"[seg-main] planted stale read via {how}: valid?={r['valid?']} "
+            f"op_index={r.get('op_index')} planted={wit} dead_segment="
+            f"{r.get('dead_segment')} speculation={r.get('speculation')} "
+            f"final-paths={len(r.get('final-paths') or [])} in {dt:.3f} s "
+            f"{'OK' if ok else 'WRONG'}")
+        if not ok:
+            raise SystemExit("[seg-main] planted witness not reported")
+    if rp[0]["valid?"] is not True:
+        raise SystemExit("[seg-main] the planted batch judged a valid "
+                         "history invalid")
+    launches = regs_kernel.LAUNCHES
+    log(f"[seg-main] segment kernel launches on the main path: {launches}")
+    if launches <= 0:
+        raise SystemExit("[seg-main] the main path never launched the "
+                         "segment kernel")
+    return hs, launches
+
+
+def phase_seg_grid(hs, clock_hz):
+    """The main path's first group rebuilt as check_pipeline built it
+    (one alphabet, I = 1, speculative rounds) and launched once more:
+    every history's composed verdict must be valid, and chosen segment
+    lanes (first, middle and last of each history) must equal the plain
+    version on CPU copies of the same inputs.  Then the timing of the
+    main-path shapes: the group launch (rounds 2) and check()'s launch
+    on one history (rounds R), each against its plain version."""
+    from jepsen_tpu_torch.ops import regs_kernel, wgl_seg
+    grp = seg_inputs(hs[:wgl_seg.PIPE_GROUP], I=1)
+    rounds = min(grp["R"], wgl_seg.SPEC_ROUNDS)
+    one = seg_inputs(hs[:1])
+    K, Sn = len(grp["offs"]), grp["Sn"]
+    picks, lo = [], 0
+    for k in grp["seg_counts"]:
+        picks += [lo, lo + k // 2, lo + k - 1]
+        lo += k
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(3, mp_context=ctx) as pool:
+        f_picks = pool.submit(plain_seg_job, grp, rounds, picks)
+        f_grp = pool.submit(plain_seg_job, grp, rounds)
+        f_one = pool.submit(plain_seg_job, one, one["R"])
+        T, work, nbad, _ = seg_scan(grp, DEV, rounds)
+        vd = regs_kernel.compose(torch.from_numpy(T).to(DEV),
+                                 grp["seg_counts"]).cpu()
+        if nbad or not bool(vd[:, 0].all()):
+            raise SystemExit(f"[seg-grid] the rebuilt group: bad {nbad}, "
+                             f"verdicts {vd[:, :2].tolist()}")
+        timed = {}
+        for name, inp, rd in (("group", grp, rounds),
+                              ("single", one, one["R"])):
+            seg_scan(inp, DEV, rd)                    # warm
+            ms = [seg_scan(inp, DEV, rd)[3] for _ in range(5)]
+            Tn, wn, _, _ = seg_scan(inp, DEV, rd)
+            timed[name] = (sum(ms) / len(ms), Tn, wn)
+        # the composition alone, on the group's transfer matrices
+        Tg = torch.from_numpy(T).to(DEV)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(5):
+            regs_kernel.compose(Tg, grp["seg_counts"])
+        ev[1].record()
+        torch.cuda.synchronize()
+        compose_ms = ev[0].elapsed_time(ev[1]) / 5
+        pT, pwork, psecs = f_picks.result()
+        ok = np.array_equal(T[picks], pT) and np.array_equal(work[picks],
+                                                             pwork)
+        log(f"[seg-grid] group of {len(grp['seg_counts'])} histories, K={K} "
+            f"segments, R={grp['R']}, Sn={Sn}, rounds={rounds}: all "
+            f"verdicts valid; lanes of segments {picks} equal the plain "
+            f"version ({psecs:.1f} s): {'OK' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit("[seg-grid] a main-path lane disagrees with "
+                             "the plain version")
+        err = 0
+        res = {}
+        for name, fut in (("group", f_grp), ("single", f_one)):
+            inp = grp if name == "group" else one
+            ms, Tn, wn = timed[name]
+            pT, pwork, psecs = fut.result()
+            if not (np.array_equal(Tn, pT) and np.array_equal(wn, pwork)):
+                raise SystemExit(f"[seg-grid] {name}: kernel and plain "
+                                 f"version disagree")
+            err = max(err, int(np.abs(Tn.astype(np.int64)
+                                      - pT.astype(np.int64)).max()))
+            Kn = len(inp["offs"])
+            b = seg_bound_ms(int(wn.sum()), wire_bytes(inp, Kn, Sn),
+                             clock_hz)
+            res[name] = dict(ms=ms, plain_ms=1e3 * psecs, bound_ms=b,
+                             words=int(wn.sum()))
+            log(f"[seg-timing] {name} launch: K={Kn} segments, "
+                f"rows={int(inp['nrows'].sum())}, R={inp['R']}, rounds="
+                f"{rounds if name == 'group' else inp['R']}: kernel "
+                f"{ms:.3f} ms (mean of 5), plain (CPU, one thread) "
+                f"{1e3 * psecs:.1f} ms, bound {b:.4f} ms from "
+                f"{int(wn.sum())} plane words x "
+                f"{regs_kernel.OPS_PER_WORD} ops ({b / ms:.4f} of it)")
+        log(f"[seg-timing] composition of the group's {K} transfer "
+            f"matrices (torch.bmm levels): {compose_ms:.3f} ms, "
+            f"{compose_ms / (compose_ms + res['group']['ms']):.3f} of "
+            f"kernel + composition")
+    res["err"] = err
+    return res
+
+
+
 def main() -> int:
     smi, clock_hz = phase_device()
     phase_build()
     err = phase_kernel(clock_hz)
+    seg_err = phase_seg_kernel(clock_hz)
     batches, verdicts, launches = phase_main()
     grid_err = phase_grid(batches, verdicts)
     one = phase_timing(batches, clock_hz)
+    seg_hs, seg_launches = phase_seg_main()
+    seg = phase_seg_grid(seg_hs, clock_hz)
     kernels = [{"name": f"wgl_deep_{arm}", "route": "cuda",
                 "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",
                 "replaces": "jepsen_tpu/ops/wgl_deep.py:358",
@@ -630,6 +984,15 @@ def main() -> int:
                 "ms": one[arm]["ms"], "plain_ms": one[arm]["plain_ms"],
                 "bound_ms": one[arm]["bound_ms"], "bound_by": "bytes",
                 "library_ms": None} for arm in ("warp", "block")]
+    kernels.append({"name": "wgl_regs", "route": "cuda",
+                    "source": "jepsen_tpu_torch/csrc/wgl_regs.cu",
+                    "replaces": "jepsen_tpu/ops/wgl_seg.py:258",
+                    "launches": seg_launches,
+                    "max_abs_err": max(seg_err, seg["err"]),
+                    "ms": seg["group"]["ms"],
+                    "plain_ms": seg["group"]["plain_ms"],
+                    "bound_ms": seg["group"]["bound_ms"],
+                    "bound_by": "operations", "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 PyTorch and CUDA (NVIDIA H100).
 
 This slice checks linearizability of crash-free register-family
-histories with overlap depth up to 16 through one hand-written CUDA
-kernel (`ops/deep_kernel.py`, `csrc/wgl_deep.cu`).  Entry points run on
+histories with overlap depth up to 16 through two hand-written CUDA
+kernels: the register-delta segment kernel at depth <= 6
+(`ops/regs_kernel.py`, `csrc/wgl_regs.cu`) and the deep-overlap kernel
+at 7..16 (`ops/deep_kernel.py`, `csrc/wgl_deep.cu`).  Entry points run on
 the card unless the caller passes `device="cpu"`, which runs the
 kernel's plain PyTorch version."""
 

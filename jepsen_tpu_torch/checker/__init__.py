@@ -1,8 +1,9 @@
 """Checkers: validate that a history is correct.
 
-The `Checker` protocol and the linearizability checker, which runs the
-deep-overlap kernel on the card (or its plain version on a CPU device
-the caller names) instead of knossos.  Every checker returns a dict
+The `Checker` protocol and the linearizability checker, which runs
+`ops.wgl_seg.check` on the card (or the kernels' plain versions on a CPU
+device the caller names) instead of knossos: the register-delta segment
+kernel at overlap depth R <= 6, the deep-overlap kernel at 7..16.  Every checker returns a dict
 with at least a "valid?" key: True, False or "unknown"."""
 
 from __future__ import annotations

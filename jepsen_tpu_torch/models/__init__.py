@@ -47,6 +47,9 @@ class DeviceSpec:
                  a_ok bool[N]) -> (state' i32[N, S], legal bool[N])
     pure       : optional torch fn (f, a, b, a_ok) -> bool[N]: True where
                  the op never modifies state, for any state (reads)
+    decode     : optional np.int32[state_size] -> Model, the inverse of
+                 `encode`; the segment kernel's witness localization
+                 seeds the CPU oracle with decoded entry states
     """
 
     state_size: int
@@ -54,6 +57,7 @@ class DeviceSpec:
     encode: Callable[[Any], np.ndarray]
     step: Callable
     pure: Optional[Callable] = None
+    decode: Optional[Callable] = None
 
 
 class Model:
@@ -96,6 +100,11 @@ def _register_encode(m):
                     np.int32)
 
 
+def _register_value(state):
+    v = int(state[0])
+    return None if v == _NONE_CODE else v
+
+
 @dataclasses.dataclass(frozen=True)
 class CASRegister(Model):
     """A register supporting read/write/cas (knossos cas-register)."""
@@ -121,7 +130,8 @@ class CASRegister(Model):
 
     def device_spec(self):
         return DeviceSpec(1, dict(_REG_F), _register_encode,
-                          _register_step, pure=_register_pure)
+                          _register_step, pure=_register_pure,
+                          decode=lambda s: CASRegister(_register_value(s)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,7 +153,8 @@ class Register(Model):
 
     def device_spec(self):
         return DeviceSpec(1, dict(_REG_F), _register_encode,
-                          _register_step, pure=_register_pure)
+                          _register_step, pure=_register_pure,
+                          decode=lambda s: Register(_register_value(s)))
 
 
 # ---------------------------------------------------------------------------
@@ -181,4 +192,5 @@ class Mutex(Model):
     def device_spec(self):
         return DeviceSpec(1, dict(_MUTEX_F),
                           lambda m: np.array([int(m.locked)], np.int32),
-                          _mutex_step)
+                          _mutex_step,
+                          decode=lambda s: Mutex(bool(int(s[0]))))

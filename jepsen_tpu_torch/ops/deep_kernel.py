@@ -27,14 +27,11 @@ raises when `nvcc` fails.  `LAUNCHES` counts kernel launches, and
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 import torch
+
+from jepsen_tpu_torch.ops import cuda_build
 
 #: Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
@@ -53,11 +50,6 @@ SMEM_PER_BLOCK = 232_448        # bytes of shared memory one block may use
 _STATIC_SMEM = 1024             # the block kernel's static shared arrays
 _INTRA = (0x55555555, 0x33333333, 0x0F0F0F0F, 0x00FF00FF, 0x0000FFFF)
 _FULL = 0xFFFFFFFF
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD = Path(__file__).resolve().parent.parent / "_build"
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def plane_words(R: int, SnP: int) -> int:
@@ -125,54 +117,24 @@ def split_by_arm(depths) -> list[tuple[str, list[int]]]:
     return [(arm, idx) for arm, idx in parts.items() if idx]
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH, /usr/local/cuda/bin); the "
-                       "deep kernel is built from csrc/ at first use")
-
-
 def build() -> Path:
-    """Compile csrc/*.cu into a shared library with a plain C interface
-    (cached under _build/, keyed by a hash of the sources) and return
-    its path.  Raises RuntimeError with nvcc's output on failure."""
-    srcs = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256()
-    for s in srcs:
-        digest.update(s.name.encode())
-        digest.update(s.read_bytes())
-    lib = _BUILD / f"libwgl_deep_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp)] + [str(s) for s in srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    (_BUILD / (lib.stem + ".ptxas.txt")).write_text(proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    """Compile csrc/wgl_deep.cu (cached under _build/, keyed by a hash
+    of the source; `cuda_build`) and return the library's path.  Raises
+    RuntimeError with nvcc's output on failure."""
+    return cuda_build.build("wgl_deep")["wgl_deep"]
+
+
+def _declare(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.wgl_deep_warp_launch.argtypes = [ptr] * 6 + [i32] * 3 + [ptr] * 3
+    lib.wgl_deep_block_launch.argtypes = (
+        [ptr] * 6 + [i32] * 5 + [ptr] * 3 + [i32] * 2 + [ptr])
+    lib.wgl_deep_warp_launch.restype = i32
+    lib.wgl_deep_block_launch.restype = i32
 
 
 def _load():
-    global _lib
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.wgl_deep_warp_launch.argtypes = (
-                [ptr] * 6 + [i32] * 3 + [ptr] * 3)
-            lib.wgl_deep_block_launch.argtypes = (
-                [ptr] * 6 + [i32] * 5 + [ptr] * 3 + [i32] * 2 + [ptr])
-            lib.wgl_deep_warp_launch.restype = i32
-            lib.wgl_deep_block_launch.restype = i32
-            _lib = lib
-    return _lib
+    return cuda_build.load("wgl_deep", _declare)
 
 
 def _check(t: torch.Tensor, name: str, dtype, dev: torch.device):

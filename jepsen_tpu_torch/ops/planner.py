@@ -1,12 +1,14 @@
-"""Host-side planning of the deep-overlap path: the scope gate, the fused
-history scan, state enumeration, the transition decomposition and the
-table packers.  Copies of the numpy code in `jepsen_tpu.ops.planner`
-(kept byte-identical, and tested so), with the state enumeration's
+"""Host-side planning of the device path: the scope gates of both
+kernels, the fused history scan, quiescent-cut segmentation, state
+enumeration, the transition decomposition and the table packers.
+Copies of the numpy code in `jepsen_tpu.ops.planner` (kept
+byte-identical, and tested so), with the state enumeration's
 jitted vmap replaced by the model's torch `step` over a written-out
 [states x ops] batch on the CPU.
 
-Routing here is one rule: a history the deep kernel can check exactly
-goes to it, and every other shape raises `Unsupported` naming the
+Routing is the reference's: the register-delta segment kernel where
+`regs_gate` passes (R <= 6), the deep kernel where `deep_gate` passes
+(R 7..16), and every other shape raises `Unsupported` naming the
 ROADMAP item that will cover it."""
 
 from __future__ import annotations
@@ -62,6 +64,33 @@ def deep_gate(R: int, Sn: int, U: int, decomposed: bool) -> Optional[str]:
     if Sn > DEEP_SN_MAX:
         return (f"{Sn} model states exceed the deep kernel's "
                 f"{DEEP_SN_MAX}: {ITEM_SERIAL}")
+    if U > 32767:
+        return f"{U} distinct ops exceed the u16 wire: {ITEM_SERIAL}"
+    return None
+
+
+#: Deepest overlap the register-delta segment kernel takes (fixed
+#: closure rounds stay exact there, and a lane's plane is at most two
+#: words per state), and the most model states its masks hold.
+REGS_R_MAX = 6
+REGS_SN_MAX = 32
+
+
+def regs_gate(R: int, Sn: int, U: int, decomposed: bool) -> Optional[str]:
+    """Why the register-delta segment kernel cannot take this shape, or
+    None: the reference's `_regs_eligible` at its defaults (R <= 6, uop
+    ids in the u16 wire, a decomposed model with Sn <= 32).  The
+    reference's nibble form for undecomposed models (Sn <= 8) has no
+    model in this package and is not ported."""
+    if not decomposed:
+        return ("model transitions are not diagonal + rank-1 "
+                f"decomposable: {ITEM_SERIAL}")
+    if not 0 < R <= REGS_R_MAX:
+        return (f"overlap depth R={R} is outside the segment kernel's "
+                f"1..{REGS_R_MAX}")
+    if Sn > REGS_SN_MAX:
+        return (f"{Sn} model states exceed the segment kernel's "
+                f"{REGS_SN_MAX}: {ITEM_SERIAL}")
     if U > 32767:
         return f"{U} distinct ops exceed the u16 wire: {ITEM_SERIAL}"
     return None
@@ -208,6 +237,43 @@ def _fast_scan(history, spec, seen: dict, rows: list,
     return _FastKey(rets, max_open, n_calls,
                     cuts=np.asarray(cuts, np.int32),
                     positions=np.asarray(positions, np.int32))
+
+
+def _segment_ends(cut_flags: np.ndarray, target: int) -> list:
+    """Greedy quiescent-cut segmentation over returns: cut_flags[r]
+    marks quiescence after return r; a segment closes at the first
+    quiescent return >= `target` returns in, and the last cut always
+    closes the tail.  Returns the exclusive end return of each
+    segment."""
+    target = max(int(target), 1)
+    pos = np.nonzero(np.asarray(cut_flags))[0]
+    if not len(pos):
+        return []
+    last = int(pos[-1])
+    ends: list = []
+    start = 0
+    while True:
+        j = np.searchsorted(pos, start + target - 1, side="left")
+        if j >= len(pos):
+            break
+        c = int(pos[j])
+        ends.append(c + 1)
+        start = c + 1
+    if not ends or ends[-1] != last + 1:
+        ends.append(last + 1)
+    return ends
+
+
+def _compose_transfer(T: np.ndarray, Sn: int) -> int:
+    """Compose transfer matrices left-to-right from entry state 0
+    (K tiny matvecs); returns the first dead segment or -1."""
+    v = np.zeros(Sn, bool)
+    v[0] = True
+    for k in range(T.shape[0]):
+        v = v @ T[k]
+        if not v.any():
+            return k
+    return -1
 
 
 def _fk_arrays(fk: _FastKey):
@@ -405,4 +471,51 @@ def _pack_regs(batch, Kp: int, R: int, U: int, I: int):
     ret_t = np.ascontiguousarray(ret_slot.T)
     islot_t = np.ascontiguousarray(inv_slot.transpose(1, 0, 2))
     iuop_t = np.ascontiguousarray(inv_uop.transpose(1, 0, 2))
+    return ret_t, islot_t, iuop_t, Lp
+
+
+def _pack_regs_stream(fk: _FastKey, seg_ends, R: int, U: int, I: int):
+    """Delta-encode one history split at `seg_ends` (quiescent cuts)
+    into [Lp, K] tables, one segment per column: the twin of the
+    reference's `_pack_regs_single`, whose invoke-delta stream comes
+    from its native scanners.  Here the stream comes from the scan's
+    open lists, which are in invocation order: the calls invoked since
+    return r - 1 are the last len(open_r) - (len(open_{r-1}) - 1)
+    entries of return r's list.  So the deltas of a return are in
+    invocation order (where `_pack_regs` orders them by slot), which the
+    pipeline's speculative rounds depend on; at exact rounds the
+    transfer matrices are the same either way.  Bursts beyond I spill
+    into virtual rows (ret -1) before their return's row.  Returns
+    (ret_t, islot_t, iuop_t, Lp)."""
+    rs, counts, cs, cu = _fk_arrays(fk)
+    NR = len(rs)
+    counts = counts.astype(np.int64)
+    prev = np.concatenate([[0], counts[:-1] - 1])
+    c = counts - prev                            # deltas per return
+    first = np.cumsum(counts) - counts
+    pos_in = np.arange(len(cs)) - np.repeat(first, counts)
+    keep = pos_in >= np.repeat(counts - c, counts)
+    dslot, duop = cs[keep], cu[keep]
+    K = len(seg_ends)
+    nr_all = np.diff(np.concatenate([[0], seg_ends])).astype(np.int64)
+    key_end = np.cumsum(nr_all)
+    ret_key = np.repeat(np.arange(K), nr_all)
+    key_start = np.concatenate([[0], key_end[:-1]])
+    e = np.maximum(0, (c + I - 1) // I - 1)     # virtual rows per return
+    ecum = np.cumsum(e)
+    ebase = np.concatenate([[0], ecum])[key_start]
+    rho = np.arange(NR) - key_start[ret_key] + (ecum - ebase[ret_key])
+    ent_ret = np.repeat(np.arange(NR), c)
+    j = np.arange(len(dslot)) - (np.cumsum(c) - c)[ent_ret]
+    from_end = c[ent_ret] - 1 - j
+    row = rho[ent_ret] - from_end // I
+    col = from_end % I
+    Lp = _pad_len(int((rho[key_end - 1] + 1).max()))
+    ret_t = np.full((Lp, K), -1, np.int8)
+    ret_t[rho, ret_key] = rs.astype(np.int8)
+    uop_dtype = np.int8 if U <= 127 else np.int16
+    islot_t = np.full((Lp, K, I), -1, np.int8)
+    iuop_t = np.full((Lp, K, I), -1, uop_dtype)
+    islot_t[row, ret_key[ent_ret], col] = dslot.astype(np.int8)
+    iuop_t[row, ret_key[ent_ret], col] = duop.astype(uop_dtype)
     return ret_t, islot_t, iuop_t, Lp

@@ -14,7 +14,10 @@ failing call's invoke op.
 
 The model must decompose into diagonal + rank-1 transitions with at
 most 32 states; histories must be crash-free with overlap depth
-R <= 16.  Everything else raises `Unsupported` (see ops.planner)."""
+R <= 16.  Everything else raises `Unsupported` (see ops.planner).
+`ops.wgl_seg` routes only R 7..16 here, as the reference does; this
+module's own entry points (`check_tables`, `check_pipeline`) walk any
+depth 1..16 a caller hands them."""
 
 from __future__ import annotations
 
@@ -31,8 +34,8 @@ from jepsen_tpu_torch.ops import deep_kernel, planner
 EB = deep_kernel.EB
 
 WHY = ("deep-overlap kernel: crash-free, decomposable model with Sn <= 32 "
-       "and R <= 16; R <= 6 also runs it because the register-delta "
-       "segment kernel is not ported yet (ROADMAP P2)")
+       "and overlap depth 7 <= R <= 16 (R <= 6 runs the register-delta "
+       "segment kernel, ops.wgl_seg)")
 
 
 def _snp(Sn: int) -> int:

@@ -1,25 +1,224 @@
-"""Single-history linearizability check: `check()`, the entry point the
-`Linearizable` checker calls.
+"""Linearizability checking of register histories: `check()`, the entry
+point the `Linearizable` checker calls, and `check_pipeline()` for many
+histories.
 
-The reference routes a history by its overlap depth R: the register-
-delta segment kernel at R <= 6, the deep kernel at 7..16.  Only the
-deep kernel is ported so far, and it is exact at every R, so every
-in-scope history runs it (`engine: "wgl_deep"`; the dispatch record's
-`why` says so).  Shapes outside the slice raise `Unsupported` naming
+Routing is the reference's (`jepsen_tpu/ops/wgl_seg.py::_check_fast`,
+nc = 0): a crash-free history over a decomposed model with Sn <= 32
+runs the register-delta segment kernel at overlap depth R <= 6
+(`engine: "wgl_seg"`) and the deep kernel at R 7..16
+(`engine: "wgl_deep"`).  Shapes outside both raise `Unsupported` naming
 the ROADMAP item that will cover them; nothing falls through to another
-engine."""
+engine.
+
+The segment route cuts a history at its quiescent returns (no call
+open) into segments of at least `target_returns_per_segment` returns.
+Only the model state crosses such a cut, so each segment is a boolean
+transfer matrix T_k[s0, s1] over model states, computed by one kernel
+lane per (segment, entry state) (`ops.regs_kernel`), and the history is
+linearizable iff a state survives the chained product from the initial
+state.  The composition runs on the device and returns six words: valid,
+the first dead segment and the entry configs reachable at the cut
+before it, from which `_localize_segment` replays only the dead segment
+through the CPU oracle to name the exact failing op."""
 
 from __future__ import annotations
 
 import time
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from jepsen_tpu_torch.backend import resolve_device
 from jepsen_tpu_torch.errors import Unsupported
 from jepsen_tpu_torch.history import History
-from jepsen_tpu_torch.ops import deep_kernel, planner, wgl_cpu, wgl_deep
+from jepsen_tpu_torch.ops import (deep_kernel, planner, regs_kernel, wgl_cpu,
+                                  wgl_deep)
+
+WHY = ("register-delta segment kernel: crash-free, decomposable model with "
+       "Sn <= 32 and overlap depth R <= 6, one lane per (quiescent "
+       "segment, entry state), composed on the device")
+
+#: Histories scanned, packed and launched together by check_pipeline
+#: (the reference's JEPSEN_TPU_PIPE_GROUP default).
+PIPE_GROUP = 4
+#: Closure rounds of the pipeline's speculative pass (the reference's
+#: JEPSEN_TPU_SPEC_ROUNDS default); a death there is re-checked exactly.
+SPEC_ROUNDS = 2
+
+
+class _SegGrid:
+    """The segments of one launch: the wires of one or more histories'
+    segments under one aux table, and each history's segment count (its
+    segments are consecutive)."""
+
+    def __init__(self):
+        self.bufs: list = []
+        self.offs: list = []
+        self.rows: list = []
+        self.seg_counts: list = []
+        self.size = 0
+
+    def add(self, ret_t, islot_t, iuop_t):
+        cbuf, offs, rows = regs_kernel.pack_segments(ret_t, islot_t, iuop_t)
+        self.bufs.append(cbuf)
+        self.offs.append(offs + self.size)
+        self.rows.append(rows)
+        self.seg_counts.append(len(rows))
+        self.size += cbuf.nbytes
+
+    def wire(self):
+        """(cbuf u8, offs int64[K], nrows int32[K]) as host arrays."""
+        return (np.concatenate(self.bufs), np.concatenate(self.offs),
+                np.concatenate(self.rows))
+
+    def to_device(self, aux: np.ndarray, dev: torch.device):
+        """The wire and the aux table on `dev`, copied without waiting."""
+        return tuple(regs_kernel.to_device(x, dev)
+                     for x in self.wire() + (aux,))
+
+
+def _aux(tables) -> tuple[np.ndarray, int]:
+    a1t, a2t, t0t = tables
+    UP = wgl_deep._pad_u(a1t.shape[0])
+    return wgl_deep.pack_aux(a1t, a2t, t0t, UP).view(np.int32), UP
+
+
+def _seg_tables(fk, seg_ends, R: int, U: int, I: int):
+    """[Lp, K] register-delta tables of one history's segments."""
+    return planner._pack_regs_stream(fk, seg_ends, R, U, I)[:3]
+
+
+def _launch(wire, seg_counts, UP: int, *, R: int, Sn: int, rounds: int,
+            events=None):
+    """Scan and compose one grid's wire (cbuf, offs, nrows, aux on the
+    device) without synchronising: returns (verdicts int32[B, 6], bad
+    int32[1]) as device tensors.  `events`, when given a list, receives
+    the (start, scanned, composed) CUDA events of the launch."""
+    cbuf, offs, rows, aux_t = wire
+    ev = None
+    if events is not None:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+    T, bad = regs_kernel.regs_scan(cbuf, offs, rows, aux_t, R=R, Sn=Sn,
+                                   UP=UP, J=Sn, rounds=rounds)
+    if ev is not None:
+        ev[1].record()
+    vd = regs_kernel.compose(T, seg_counts)
+    if ev is not None:
+        ev[2].record()
+        events.append(ev)
+    return vd, bad
+
+
+def _fetch(vds: list, bads: list) -> np.ndarray:
+    """Every launch's verdicts in one copy to the host: int32[sum B, 6].
+    Raises when the kernel refused a segment."""
+    flat = torch.cat([torch.cat(bads)] + [v.reshape(-1) for v in vds])
+    host = flat.cpu().numpy()
+    n_bad = int(host[:len(bads)].sum())
+    if n_bad:
+        raise RuntimeError(f"the segment kernel refused {n_bad} segments")
+    return host[len(bads):].reshape(-1, 6)
+
+
+def _localize_segment(spec, ops, fk, seg_ends, dead: int, mask_words,
+                      states) -> Optional[dict]:
+    """Exact witness localization confined to the DEAD segment: replay
+    only that segment's ops through the CPU oracle, in one walk seeded
+    with every entry state the device's composed verdict marks reachable.
+    Configs before a quiescent cut are summarized by the reachable state
+    set, so the first return at which the union config set empties is
+    the whole history's witness.  Returns the oracle's result, or None
+    when the model cannot decode states or the oracle disagrees (callers
+    fall back to the whole-history oracle)."""
+    if spec.decode is None:
+        return None
+    end_ret = int(seg_ends[dead]) - 1
+    start_pos = (int(fk.positions[int(seg_ends[dead - 1]) - 1]) + 1
+                 if dead > 0 else 0)
+    end_pos = int(fk.positions[end_ret])
+    # Quiescent cuts count ok-open calls only, so fail pairs may straddle
+    # either boundary; an unpaired half inside the slice would read to
+    # the oracle as a crashed call.  A failed call is never linearized,
+    # so dropping the stray halves is exact.
+    seg_ops = []
+    open_at: dict = {}
+    for o in ops[start_pos:end_pos + 1]:
+        p = o.process
+        if type(p) is int and p >= 0:
+            if o.type == "invoke":
+                open_at[p] = len(seg_ops)
+            elif p not in open_at:
+                continue             # completion of a pre-slice invoke
+            else:
+                del open_at[p]
+        seg_ops.append(o)
+    if open_at:                      # invokes completing past the slice
+        drop = set(open_at.values())
+        seg_ops = [o for i, o in enumerate(seg_ops) if i not in drop]
+    Sn = states.shape[0]
+    entry = [j for j in range(Sn)
+             if (int(mask_words[j // 32]) >> (j % 32)) & 1]
+    if not entry:
+        return None
+    o = wgl_cpu.check(None, History(seg_ops),
+                      initial_models=[spec.decode(states[j])
+                                      for j in entry])
+    if o.get("valid?") is not False:
+        return None
+    return o
+
+
+def _mark_dead(result: dict, vd, localize: bool, model, spec, history,
+               ops, fk, seg_ends, states):
+    """Add an invalid verdict's keys to `result`, and with `localize`
+    the exact witness and the oracle's artifacts."""
+    result["anomaly"] = "nonlinearizable"
+    result["dead_segment"] = int(vd[1])
+    if not localize:
+        return
+    oracle = _localize_segment(spec, ops, fk, seg_ends, int(vd[1]),
+                               vd[2:6], states)
+    if oracle is None:
+        # the whole-history oracle stops at the first non-linearizable op
+        oracle = wgl_cpu.check(model, history)
+    for key in ("op", "op_index", "final-paths", "configs"):
+        if key in oracle:
+            result[key] = oracle[key]
+
+
+def _check_regs(model, spec, history, ops, fk, states, legal, next_state,
+                decomposition, *, R, Sn, target_returns_per_segment,
+                localize, dev, t0) -> dict[str, Any]:
+    """One history on the segment kernel at exact rounds (R)."""
+    seg_ends = planner._segment_ends(fk.cuts, target_returns_per_segment)
+    tables = _seg_tables(fk, seg_ends, R, int(legal.shape[0]), min(2, R))
+    aux, UP = _aux(planner._pack_uop_tables(legal, next_state,
+                                            *decomposition))
+    grid = _SegGrid()
+    grid.add(*tables)
+    t_plan = time.monotonic() - t0
+    t1 = time.monotonic()
+    vd, bad = _launch(grid.to_device(aux, dev), grid.seg_counts, UP, R=R,
+                      Sn=Sn, rounds=R)
+    vd = _fetch([vd], [bad])[0]
+    result: dict[str, Any] = {
+        "valid?": int(vd[1]) < 0,
+        "op_count": fk.n_calls,
+        "backend": dev.type,
+        "engine": "wgl_seg",
+        "segments": len(seg_ends),
+        "states": Sn,
+        "sharded": False,
+        "max_open": R,
+        "time_plan_s": t_plan,
+        "time_kernel_s": time.monotonic() - t1,
+    }
+    if int(vd[1]) >= 0:
+        _mark_dead(result, vd, localize, model, spec, history, ops, fk,
+                   seg_ends, states)
+    return result
 
 
 def _check_deep(model, ops, fk, legal, next_state, diag_w, const_w,
@@ -70,12 +269,24 @@ def _check_deep(model, ops, fk, legal, next_state, diag_w, const_w,
     return result
 
 
+def _model_tables(spec, model, rows: list, max_states: int):
+    """(states, legal, next_state, (diag_w, const_w, const_t0)) of the
+    interned ops."""
+    uops = np.asarray(rows, np.int32).reshape(len(rows), 4)
+    init = np.asarray(spec.encode(model), np.int32)
+    states, legal, next_state = planner._enumerate_states(
+        spec, init, uops, max_states)
+    return states, legal, next_state, planner._decompose(legal, next_state)
+
+
 def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
-          localize: bool = True, device=None) -> dict[str, Any]:
-    """Linearizability of one history on the deep kernel.  Returns a
-    knossos-shaped analysis map with a `dispatch` record.  Raises
-    Unsupported for a history or model outside the slice and
-    BackendUnavailable when the device is missing."""
+          target_returns_per_segment: int = 256, localize: bool = True,
+          device=None) -> dict[str, Any]:
+    """Linearizability of one history: the segment kernel at R <= 6,
+    the deep kernel at 7..16.  Returns a knossos-shaped analysis map
+    with a `dispatch` record (engine, why, R).  Raises Unsupported for
+    a history or model outside the slice and BackendUnavailable when
+    the device is missing."""
     dev = resolve_device(device)
     spec = model.device_spec()
     if spec is None:
@@ -87,24 +298,192 @@ def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
     ops = history.ops if isinstance(history, History) else \
         History(history).ops
     fk = planner._fast_scan(ops, spec, seen, rows, max_open_bits)
-    record = {"engine": "wgl_deep", "why": wgl_deep.WHY, "batch": 1,
+    record = {"engine": "wgl_seg", "why": WHY, "batch": 1,
               "device": str(dev)}
     if fk.n_calls == 0:
         return {"valid?": True, "op_count": 0, "backend": dev.type,
-                "engine": "wgl_deep", "dispatch": record}
-    uops = np.asarray(rows, np.int32).reshape(len(rows), 4)
-    init = np.asarray(spec.encode(model), np.int32)
-    states, legal, next_state = planner._enumerate_states(
-        spec, init, uops, max_states)
+                "engine": "wgl_seg", "dispatch": record}
+    states, legal, next_state, dec = _model_tables(spec, model, rows,
+                                                   max_states)
     Sn = states.shape[0]
     R = int(fk.max_open)
-    diag_w, const_w, const_t0 = planner._decompose(legal, next_state)
-    why = planner.deep_gate(R, Sn, int(legal.shape[0]),
-                            diag_w is not None)
-    if why is not None:
-        raise Unsupported(why)
-    result = _check_deep(model, ops, fk, legal, next_state, diag_w,
-                         const_w, const_t0, R=R, Sn=Sn,
-                         localize=localize, device=dev, t0=t0)
+    U = int(legal.shape[0])
+    decomposed = dec[0] is not None
+    if planner.regs_gate(R, Sn, U, decomposed) is None:
+        result = _check_regs(
+            model, spec, history, ops, fk, states, legal, next_state, dec,
+            R=R, Sn=Sn, target_returns_per_segment=target_returns_per_segment,
+            localize=localize, dev=dev, t0=t0)
+    else:
+        why = planner.deep_gate(R, Sn, U, decomposed)
+        if why is not None:
+            raise Unsupported(why)
+        result = _check_deep(model, ops, fk, legal, next_state, *dec, R=R,
+                             Sn=Sn, localize=localize, device=dev, t0=t0)
+        record = dict(record, engine="wgl_deep", why=wgl_deep.WHY)
     result["dispatch"] = dict(record, R=R)
     return result
+
+
+def check_pipeline(model, histories, *, max_states: int = 64,
+                   max_open_bits: int = 10,
+                   target_returns_per_segment: int = 256,
+                   localize: bool = True, stats=None, device=None) -> list:
+    """Check many histories: scan and segment them in groups of
+    PIPE_GROUP, launch each group's segments (one kernel launch, then
+    the composition) on the current stream without waiting, and fetch
+    every verdict in one copy at the end.
+
+    The group kernel runs SPEC_ROUNDS speculative closure rounds (the
+    reference's `check_pipeline`): fewer rounds than R only
+    under-approximate each transfer matrix, so a surviving verdict is an
+    exact valid, and a death is re-checked through `check()` at exact
+    rounds (`speculation: "exact-rerun"`).  A group whose depth
+    (with the deepest group so far) or model falls outside the segment
+    kernel, and a history the scan refuses, go through `check()` one by
+    one: R 7..16 to the deep kernel, crashed histories and other shapes
+    outside the slice to an entry {"valid?": "unknown", "cause":
+    "unsupported", "error": {...}} naming the ROADMAP item, as in
+    `wgl_deep.check_pipeline`.  The uop tables are rebuilt only when
+    the alphabet grows.
+
+    `stats`, when given a dict, receives host seconds per stage (scan,
+    segment, tables, pack, copy, launch, sync, assemble, stragglers)
+    and, on a CUDA device, `kernel_ms` and `compose_ms`, the device
+    time of the segment kernel and of the composition (CUDA events)."""
+    dev = resolve_device(device)
+    spec = model.device_spec()
+    if spec is None:
+        raise Unsupported(f"model {model!r} has no device spec: "
+                          f"{planner.ITEM_CPU_AUTO}")
+    stats = {} if stats is None else stats
+    lap = wgl_deep._laps(stats)
+    n = len(histories)
+    results: list = [None] * n
+    seen: dict = {}
+    rows: list = []
+    strag: list = []
+    U_at = -1
+    Sn = 0
+    states = legal = next_state = dec = None
+    aux = UP = None
+    R_cur = 0
+    events: Optional[list] = [] if dev.type == "cuda" else None
+    launched: list = []      # (verdicts, bad, idxs, rounds, R, Sn, states)
+    metas: dict = {}         # i -> (fk, seg_ends, ops)
+    pos = 0
+    while pos < n:
+        grp: list = []
+        while pos < n and len(grp) < PIPE_GROUP:
+            i = pos
+            pos += 1
+            ops = histories[i].ops if isinstance(histories[i], History) \
+                else History(histories[i]).ops
+            try:
+                fk = planner._fast_scan(ops, spec, seen, rows,
+                                        max_open_bits)
+            except Unsupported:
+                strag.append(i)
+                lap("scan")
+                continue
+            lap("scan")
+            if fk.n_calls == 0:
+                results[i] = {"valid?": True, "op_count": 0,
+                              "backend": dev.type, "engine": "wgl_seg"}
+                continue
+            seg_ends = planner._segment_ends(fk.cuts,
+                                             target_returns_per_segment)
+            lap("segment")
+            grp.append((i, fk, seg_ends, ops))
+        if not grp:
+            continue
+        if len(rows) != U_at:
+            try:
+                states, legal, next_state, dec = _model_tables(
+                    spec, model, rows, max_states)
+            except Unsupported:
+                # the state space outgrew max_states: this group (and
+                # every later one: the alphabet only grows) goes through
+                # check(), which names the limit
+                strag.extend(i for i, *_ in grp)
+                lap("tables")
+                continue
+            Sn = states.shape[0]
+            U_at = len(rows)
+            if dec[0] is not None:
+                aux, UP = _aux(planner._pack_uop_tables(legal, next_state,
+                                                        *dec))
+        lap("tables")
+        R_g = max(fk.max_open for _, fk, _, _ in grp)
+        if planner.regs_gate(max(R_g, R_cur), Sn, U_at,
+                             dec[0] is not None) is not None:
+            strag.extend(i for i, *_ in grp)
+            continue
+        R_cur = max(R_cur, R_g)
+        rounds = min(R_cur, SPEC_ROUNDS)
+        grid = _SegGrid()
+        for i, fk, seg_ends, ops in grp:
+            # the reference's pipeline wire carries one invoke per row
+            grid.add(*_seg_tables(fk, seg_ends, R_cur, U_at, 1))
+            metas[i] = (fk, seg_ends, ops)
+        lap("pack")
+        wire = grid.to_device(aux, dev)
+        lap("copy")
+        vd, bad = _launch(wire, grid.seg_counts, UP, R=R_cur, Sn=Sn,
+                          rounds=rounds, events=events)
+        launched.append((vd, bad, [i for i, *_ in grp], rounds, R_cur, Sn,
+                         states))
+        lap("launch")
+    if launched:
+        host = _fetch([v for v, *_ in launched],
+                      [b for _, b, *_ in launched])      # the one sync
+        lap("sync")
+        if events:
+            stats["kernel_ms"] = stats.get("kernel_ms", 0.0) + sum(
+                e[0].elapsed_time(e[1]) for e in events)
+            stats["compose_ms"] = stats.get("compose_ms", 0.0) + sum(
+                e[1].elapsed_time(e[2]) for e in events)
+        row = 0
+        for _, _, idxs, rounds, R_g, Sn_g, states_g in launched:
+            for i in idxs:
+                vd = host[row]
+                row += 1
+                fk, seg_ends, ops = metas[i]
+                valid = bool(vd[0])
+                if not valid and rounds < R_g:
+                    # a speculative death is inconclusive: exact rerun
+                    res = check(model, histories[i], max_states=max_states,
+                                max_open_bits=max_open_bits,
+                                target_returns_per_segment=
+                                target_returns_per_segment,
+                                localize=localize, device=dev)
+                    res["pipelined"] = True
+                    res["speculation"] = "exact-rerun"
+                    results[i] = res
+                    continue
+                res = {"valid?": valid, "op_count": fk.n_calls,
+                       "backend": dev.type, "engine": "wgl_seg",
+                       "segments": len(seg_ends), "states": int(Sn_g),
+                       "pipelined": True}
+                if not valid:
+                    _mark_dead(res, vd, localize, model, spec,
+                               histories[i], ops, fk, seg_ends, states_g)
+                results[i] = res
+        lap("assemble")
+    record = {"engine": "wgl_seg", "why": WHY, "batch": n,
+              "device": str(dev), "R": R_cur or None,
+              "stragglers": len(strag) or None}
+    for r in results:
+        if r is not None and "dispatch" not in r:
+            r["dispatch"] = record
+    for i in strag:
+        try:
+            results[i] = check(model, histories[i], max_states=max_states,
+                               max_open_bits=max_open_bits,
+                               target_returns_per_segment=
+                               target_returns_per_segment,
+                               localize=localize, device=dev)
+        except Unsupported as e:
+            results[i] = wgl_deep._unsupported(e, i)
+    lap("stragglers")
+    return results

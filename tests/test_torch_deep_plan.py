@@ -14,7 +14,7 @@ from test_wgl_deep import burst_history, corrupt, deep_history
 from jepsen_tpu import models as ref_models
 from jepsen_tpu.ops import wgl_deep as ref_deep
 from jepsen_tpu_torch import convert, models
-from jepsen_tpu_torch.ops import deep_kernel, wgl_deep
+from jepsen_tpu_torch.ops import cuda_build, deep_kernel, wgl_deep
 
 REGS_PER_SM = 65_536
 
@@ -47,7 +47,7 @@ def test_launch_plan_fits_the_card(R, SnP):
 def test_boundary_is_one_constant():
     assert deep_kernel.arm_of(deep_kernel.WARP_MAX_R) == "warp"
     assert deep_kernel.arm_of(deep_kernel.WARP_MAX_R + 1) == "block"
-    src = (deep_kernel._CSRC / "wgl_deep.cu").read_text()
+    src = (cuda_build.CSRC / "wgl_deep.cu").read_text()
     m = re.search(r"constexpr int WARP_MAX_R = (\d+);", src)
     assert m and int(m.group(1)) == deep_kernel.WARP_MAX_R
     py = open(deep_kernel.__file__).read()

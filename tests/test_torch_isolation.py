@@ -1,7 +1,8 @@
 """jepsen_tpu_torch stands alone: no module of it, and not chip_smoke.py,
 imports jax or anything of jepsen_tpu; without a card the default
-device raises BackendUnavailable instead of running on the CPU; shapes
-outside the slice raise Unsupported."""
+device raises BackendUnavailable instead of running on the CPU, on the
+deep route and on the segment route; shapes outside the slice raise
+Unsupported."""
 
 import ast
 import subprocess
@@ -84,6 +85,25 @@ def test_default_device_without_a_card_raises(monkeypatch):
     with pytest.raises(BackendUnavailable):
         wgl_deep.check_tables(*tables, 1, 1)
     assert deep_kernel.LAUNCHES == launches
+
+
+def test_segment_route_without_a_card_raises(monkeypatch):
+    from jepsen_tpu_torch.ops import regs_kernel
+    h = small_history()
+    got = wgl_seg.check(models.CASRegister(), h, device="cpu")
+    assert got["valid?"] is True and got["engine"] == "wgl_seg"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the plain version ran for the default device")
+
+    monkeypatch.setattr(regs_kernel, "scan_plain", no_plain)
+    launches = regs_kernel.LAUNCHES
+    with pytest.raises(BackendUnavailable):
+        wgl_seg.check_pipeline(models.CASRegister(), [h])
+    with pytest.raises(BackendUnavailable):
+        wgl_seg.check(models.CASRegister(), h)
+    assert regs_kernel.LAUNCHES == launches
 
 
 def test_unknown_device_type_raises():

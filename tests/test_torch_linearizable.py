@@ -1,8 +1,9 @@
 """The whole slice: jepsen_tpu_torch's Linearizable checker on the CPU
-device against jepsen_tpu's wgl_seg.check (deep Pallas kernel, run by
-the interpreter) and its exact CPU oracle, on histories carried across
-by convert.history_from_dicts.  valid?, anomaly, op_index and op["f"]
-are equal exactly on valid, corrupted and subtle stale-read
+device against jepsen_tpu's wgl_seg.check (the deep Pallas kernel, run
+by the interpreter, at R >= 7; the register-delta segment kernel at
+R <= 6) and its exact CPU oracle, on histories carried across by
+convert.history_from_dicts.  valid?, engine, anomaly, op_index and
+op["f"] are equal exactly on valid, corrupted and subtle stale-read
 histories."""
 
 import pytest
@@ -63,8 +64,10 @@ def results():
 def test_linearizable_matches_reference(results, name):
     ref, oracle, got = results[name]
     assert got["valid?"] is ref["valid?"] is oracle["valid?"]
-    assert got["engine"] == "wgl_deep"
-    assert got["dispatch"]["engine"] == "wgl_deep"
+    assert got["engine"] == ref["engine"]
+    assert got["dispatch"]["engine"] == ref["engine"]
+    assert ref["engine"] == ("wgl_seg" if got["max_open"] <= 6
+                             else "wgl_deep")
     assert got.get("anomaly") == ref.get("anomaly")
     assert got.get("op_index") == ref.get("op_index") \
         == oracle.get("op_index")
@@ -76,9 +79,11 @@ def test_linearizable_matches_reference(results, name):
 
 def test_shallow_history_reports_its_route(results):
     ref, _, got = results["r4-corrupt"]
-    assert ref["engine"] == "wgl_seg"       # reference: register-delta
+    assert ref["engine"] == got["engine"] == "wgl_seg"
     assert got["max_open"] <= 6
-    assert "not ported yet" in got["dispatch"]["why"]
+    assert "segment kernel" in got["dispatch"]["why"]
+    assert got["segments"] == ref["segments"]
+    assert got["dead_segment"] == ref["dead_segment"]
 
 
 def test_cpu_algorithm_is_the_oracle(results):
