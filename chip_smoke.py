@@ -651,19 +651,20 @@ SEG_BATCH = 24                      # histories of the pipelined batch
 DEV = "cuda"                        # the card the segment phases run on
 
 
-def seg_bound_ms(words, wire_bytes, clock_hz):
-    """The larger of the closure's integer operations over every INT32
-    lane of the card and the wire over device memory."""
-    from jepsen_tpu_torch.ops import regs_kernel
-    ops = regs_kernel.OPS_PER_WORD * words
+def seg_bound_ms(ops, wire_bytes, clock_hz):
+    """The larger of the walk's integer operations (the kernel's `work=`
+    count) over every INT32 lane of the card and the wire over device
+    memory."""
     return 1e3 * max(ops / (N_SM * INT32_LANES_PER_SM * clock_hz),
                      wire_bytes / HBM_BYTES_PER_S)
 
 
-def seg_inputs(hs, target=256, I=None):
+def seg_inputs(hs, target=None, I=None):
     """The segment wire of histories scanned as check_pipeline scans a
-    group: one alphabet, depth R = the deepest, I invoke columns per row
-    (default min(2, R), check()'s; the pipeline packs 1).  Returns a dict
+    group: one alphabet, depth R = the deepest, segments of `target`
+    returns (default wgl_seg.TARGET_RETURNS, the entry points'), I invoke
+    columns per row (default min(2, R), check()'s; the pipeline packs
+    1).  Returns a dict
     of host arrays and shape arguments, with each history's segment
     count."""
     from jepsen_tpu_torch.models import CASRegister
@@ -676,9 +677,9 @@ def seg_inputs(hs, target=256, I=None):
     R = max(fk.max_open for fk in fks)
     grid = wgl_seg._SegGrid()
     for fk in fks:
-        seg_ends = planner._segment_ends(fk.cuts, target)
-        grid.add(*wgl_seg._seg_tables(fk, seg_ends, R, len(rows),
-                                      min(2, R) if I is None else I))
+        seg_ends = planner._segment_ends(
+            fk.cuts, wgl_seg.TARGET_RETURNS if target is None else target)
+        grid.add(fk, seg_ends, min(2, R) if I is None else I)
     aux, UP = wgl_seg._aux(planner._pack_uop_tables(legal, nxt, *dec))
     cbuf, offs, nrows = grid.wire()
     return dict(cbuf=cbuf, offs=offs, nrows=nrows, aux=aux, UP=UP, R=R,
@@ -687,8 +688,8 @@ def seg_inputs(hs, target=256, I=None):
 
 def seg_scan(inp, device, rounds, ks=None):
     """regs_scan on `device` over the wire of `inp` (only segments `ks`,
-    when given): (T u8 numpy, work int64 numpy, bad, ms by CUDA events
-    or NaN on the CPU)."""
+    when given): (T u8 numpy, work int64 numpy (integer operations per
+    segment), bad, ms by CUDA events or NaN on the CPU)."""
     from jepsen_tpu_torch.ops import regs_kernel
     dev = torch.device(device)
     offs, nrows = inp["offs"], inp["nrows"]
@@ -736,7 +737,7 @@ def phase_seg_kernel(clock_hz):
     """The segment kernel against its plain version on CPU copies of the
     same inputs, R = 1..6 x SnP 8/16/32 x (valid, planted-invalid) x
     (rounds R, rounds 2), plus a uop table past 255 ids: transfer
-    matrices, plane words and the composed verdict.  Returns the
+    matrices, operation counts and the composed verdict.  Returns the
     largest disagreement."""
     from jepsen_tpu_torch.ops import regs_kernel
     cases = []
@@ -783,7 +784,7 @@ def phase_seg_kernel(clock_hz):
             log(f"[seg-kernel] R={R} Sn={Sn} SnP={regs_kernel.snp(Sn)} "
                 f"U={inp['U']} K={K} rows={int(inp['nrows'].sum())} "
                 f"rounds={rounds} {'invalid' if bad else 'valid'} "
-                f"verdict={vd[:2]} words={int(work.sum())} "
+                f"verdict={vd[:2]} ops={int(work.sum())} "
                 f"kernel_ms={ms:.3f} bound_ms={b:.4f} plain_s={secs:.3f} "
                 f"{'OK' if ok else 'MISMATCH'}")
             if not ok:
@@ -948,14 +949,14 @@ def phase_seg_grid(hs, clock_hz):
             b = seg_bound_ms(int(wn.sum()), wire_bytes(inp, Kn, Sn),
                              clock_hz)
             res[name] = dict(ms=ms, plain_ms=1e3 * psecs, bound_ms=b,
-                             words=int(wn.sum()))
+                             ops=int(wn.sum()))
             log(f"[seg-timing] {name} launch: K={Kn} segments, "
                 f"rows={int(inp['nrows'].sum())}, R={inp['R']}, rounds="
                 f"{rounds if name == 'group' else inp['R']}: kernel "
                 f"{ms:.3f} ms (mean of 5), plain (CPU, one thread) "
                 f"{1e3 * psecs:.1f} ms, bound {b:.4f} ms from "
-                f"{int(wn.sum())} plane words x "
-                f"{regs_kernel.OPS_PER_WORD} ops ({b / ms:.4f} of it)")
+                f"{int(wn.sum())} integer operations ({b / ms:.4f} of "
+                f"it)")
         log(f"[seg-timing] composition of the group's {K} transfer "
             f"matrices (torch.bmm levels): {compose_ms:.3f} ms, "
             f"{compose_ms / (compose_ms + res['group']['ms']):.3f} of "

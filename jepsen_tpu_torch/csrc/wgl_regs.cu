@@ -44,10 +44,13 @@
 // lane's words.  The kernel is templated on (WD, SnP) and fully
 // unrolled, so the plane and the slot tables stay in registers.
 //
-// What bounds it on this card: integer operations.  A closure pass
-// costs about six operations per plane word (select the configs lacking
-// the slot, the diagonal select, the shift, the OR into the round's sum,
-// the rank-1 select, the OR over states), the wire is a few bytes a row,
+// What bounds it on this card: integer operations.  A closure pass of
+// a slot b < 5 costs six operations per plane word (select the configs
+// lacking the slot, the diagonal select, the shift, the OR into the
+// round's sum, the rank-1 select, the OR over states), one of slot 5
+// four per state row (no lack mask, no shift: word 0 moves to word 1),
+// and a prune two per word (the and-not and the shift; at slot 5 the
+// move and the clear per state row).  The wire is a few bytes a row,
 // and the plane never leaves registers.  The design gives every lane its
 // own thread and keeps the warp convergent, so the integer lanes do the
 // walk and nothing waits on memory or on a barrier after staging; a
@@ -63,9 +66,12 @@
 // host reads *bad with the verdicts.
 //
 // Output: out[K][J][Sn] u8, 1 where state s is reachable at mask 0;
-// work[k] (optional) the plane words the walk of segment k touches,
-// summed over its J lanes: per row, rounds * (open slots) words for the
-// closure and one plane for the prune at a return.
+// work[k] (optional) the integer operations of the walk of segment k
+// under the costs above, summed over its J lanes: per row, rounds passes
+// of every open slot over the Sn state rows that hold configs (rows Sn..
+// SnP-1 of the plane stay empty and are not counted), and a prune at a
+// return.  The per-row mask extraction, the landing at t0 and the OR of
+// a round's sum are left out, so the count is a floor.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,6 +83,10 @@ constexpr int I = 2;             // invoke columns per event row
 constexpr int WARPS = 4;         // segments per block, one per warp
 constexpr int CHUNK = 64;        // event rows staged per step
 constexpr int MAXJ = 32;         // entry states per segment (one warp)
+// integer operations of the work count (the bound model of the note)
+constexpr int CLOSE_OPS = 6;     // per plane word of a slot b < 5 pass
+constexpr int CLOSE5_OPS = 4;    // per state row of a slot 5 pass
+constexpr int PRUNE_OPS = 2;     // per plane word (state row at slot 5)
 
 // Bit i of intra(b) is set iff mask index i lacks bit b (b < 5).
 __host__ __device__ constexpr uint32_t intra(int b) {
@@ -197,7 +207,11 @@ wgl_regs_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
         t0r[b] = 0;
     }
     uint32_t open = 0u;                 // bit b: slot b is open
-    long long words = 0;
+    long long ops = 0;
+    const long long pass_ops = (long long)CLOSE_OPS * Sn * WD;
+    const long long pass5_ops = (long long)CLOSE5_OPS * Sn;
+    const long long prune_ops = (long long)PRUNE_OPS * Sn * WD;
+    const long long prune5_ops = (long long)PRUNE_OPS * Sn;
     int ok = 1;
 
     for (int base = 0; base < L; base += CHUNK) {
@@ -264,7 +278,8 @@ wgl_regs_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
 #pragma unroll
                         for (int w = 0; w < WD; ++w) fr[s][w] |= add[s][w];
                 }
-                words += (long long)rounds * __popc(open) * (SNP * WD);
+                ops += rounds * (__popc(open & 31u) * pass_ops
+                                 + ((open >> 5) & 1u) * pass5_ops);
             }
             const int rs = st.ret[r];
             if (rs >= R) {
@@ -280,7 +295,7 @@ wgl_regs_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                 default: ok = 0; break;
                 }
                 open &= ~(1u << (rs & 31));
-                words += SNP * WD;
+                ops += rs == 5 ? prune5_ops : prune_ops;
             }
         }
     }
@@ -294,7 +309,7 @@ wgl_regs_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
         for (int s = 0; s < SNP; ++s)
             if (s < Sn) o[s] = uint8_t(fr[s][0] & 1u);
     }
-    if (lane == 0 && work) work[k] = words * J;
+    if (lane == 0 && work) work[k] = ops * J;
 }
 
 namespace {

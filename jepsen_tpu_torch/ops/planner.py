@@ -474,19 +474,21 @@ def _pack_regs(batch, Kp: int, R: int, U: int, I: int):
     return ret_t, islot_t, iuop_t, Lp
 
 
-def _pack_regs_stream(fk: _FastKey, seg_ends, R: int, U: int, I: int):
-    """Delta-encode one history split at `seg_ends` (quiescent cuts)
-    into [Lp, K] tables, one segment per column: the twin of the
-    reference's `_pack_regs_single`, whose invoke-delta stream comes
-    from its native scanners.  Here the stream comes from the scan's
-    open lists, which are in invocation order: the calls invoked since
-    return r - 1 are the last len(open_r) - (len(open_{r-1}) - 1)
-    entries of return r's list.  So the deltas of a return are in
-    invocation order (where `_pack_regs` orders them by slot), which the
-    pipeline's speculative rounds depend on; at exact rounds the
-    transfer matrices are the same either way.  Bursts beyond I spill
-    into virtual rows (ret -1) before their return's row.  Returns
-    (ret_t, islot_t, iuop_t, Lp)."""
+def _stream_deltas(fk: _FastKey, seg_ends, I: int):
+    """Delta-encode one history split at `seg_ends` (quiescent cuts),
+    one segment-local row layout per segment: the twin of the
+    reference's `_pack_regs_single`, whose invoke-delta stream comes from
+    its native scanners.  Here the stream comes from the scan's open
+    lists, which are in invocation order: the calls invoked since return
+    r - 1 are the last len(open_r) - (len(open_{r-1}) - 1) entries of
+    return r's list.  So the deltas of a return are in invocation order
+    (where `_pack_regs` orders them by slot), which the pipeline's
+    speculative rounds depend on; at exact rounds the transfer matrices
+    are the same either way.  Bursts beyond I spill into virtual rows
+    (no return) before their return's row.  Returns int64 arrays
+    (rows [K]: rows per segment; ret_key, rho, rs [NR]: each return's
+    segment, row and slot; ent_key, row, col, dslot, duop: each delta's
+    segment, row, column, slot and uop)."""
     rs, counts, cs, cu = _fk_arrays(fk)
     NR = len(rs)
     counts = counts.astype(np.int64)
@@ -495,7 +497,8 @@ def _pack_regs_stream(fk: _FastKey, seg_ends, R: int, U: int, I: int):
     first = np.cumsum(counts) - counts
     pos_in = np.arange(len(cs)) - np.repeat(first, counts)
     keep = pos_in >= np.repeat(counts - c, counts)
-    dslot, duop = cs[keep], cu[keep]
+    dslot = cs[keep].astype(np.int64)
+    duop = cu[keep].astype(np.int64)
     K = len(seg_ends)
     nr_all = np.diff(np.concatenate([[0], seg_ends])).astype(np.int64)
     key_end = np.cumsum(nr_all)
@@ -510,12 +513,5 @@ def _pack_regs_stream(fk: _FastKey, seg_ends, R: int, U: int, I: int):
     from_end = c[ent_ret] - 1 - j
     row = rho[ent_ret] - from_end // I
     col = from_end % I
-    Lp = _pad_len(int((rho[key_end - 1] + 1).max()))
-    ret_t = np.full((Lp, K), -1, np.int8)
-    ret_t[rho, ret_key] = rs.astype(np.int8)
-    uop_dtype = np.int8 if U <= 127 else np.int16
-    islot_t = np.full((Lp, K, I), -1, np.int8)
-    iuop_t = np.full((Lp, K, I), -1, uop_dtype)
-    islot_t[row, ret_key[ent_ret], col] = dslot.astype(np.int8)
-    iuop_t[row, ret_key[ent_ret], col] = duop.astype(uop_dtype)
-    return ret_t, islot_t, iuop_t, Lp
+    return (rho[key_end - 1] + 1, ret_key, rho, rs.astype(np.int64),
+            ret_key[ent_ret], row, col, dslot, duop)

@@ -12,11 +12,12 @@ the transfer row T[k, j, :], the states reachable at the segment's end.
 
 What bounds it on the H100: integer operations.  A lane's plane is at
 most 32 states by 2 words, so it lives in registers, and the walk costs
-about OPS_PER_WORD operations per plane word of each closure pass; the
-wire is seven bytes a row.  The design gives each lane its own thread,
-one warp per segment, and keeps every decision the segment's, so the
-warp never diverges and nothing waits on memory or a barrier after a
-chunk of rows is staged in shared memory (the source note says more).
+CLOSE_OPS operations per plane word of each closure pass (CLOSE5_OPS per
+state row at slot 5) and PRUNE_OPS per word of each prune; the wire is
+seven bytes a row.  The design gives each lane its own thread, one warp
+per segment, and keeps every decision the segment's, so the warp never
+diverges and nothing waits on memory or a barrier after a chunk of rows
+is staged in shared memory (the source note says more).
 
 `regs_scan` takes the plain version (`scan_plain`) only for tensors on
 the CPU; for CUDA tensors it launches the kernel on the current stream
@@ -41,10 +42,16 @@ LAUNCHES = 0
 J_MAX = 32                      # entry states per segment, one warp
 I = 2                           # invoke columns per event row of the wire
 ROW_BYTES = 1 + 3 * I           # ret, I slots, I u16 uop ids
-#: Integer operations per plane word of a closure pass (the bound model
-#: of PERF.md): the lacks-slot select, the diagonal select, the shift,
-#: the OR into the round's sum, the rank-1 select and the OR over states.
-OPS_PER_WORD = 6
+#: Integer operations of the `work=` count (the bound model of PERF.md,
+#: equal to the kernel's constants).  Per plane word of a closure pass of
+#: slot b < 5: the lacks-slot select, the diagonal select, the shift, the
+#: OR into the round's sum, the rank-1 select and the OR over states.
+CLOSE_OPS = 6
+#: Per state row of a slot 5 pass: no lack mask and no shift.
+CLOSE5_OPS = 4
+#: Per plane word of a prune: the and-not and the shift (at slot 5, per
+#: state row: the move and the clear).
+PRUNE_OPS = 2
 
 
 def to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -62,36 +69,25 @@ def plane_width(R: int) -> int:
     return max(1, (1 << R) >> 5)
 
 
-def pack_segments(ret_t: np.ndarray, islot_t: np.ndarray,
-                  iuop_t: np.ndarray):
-    """The segment wire of [Lp, K] register-delta tables
-    (planner._pack_regs, I = 1 or 2): segment k's rows, up to its last
-    return, in the compact layout of `wgl_deep.pack_events_compact`
-    (ret+1 u8[L] ++ islot+1 u8[L*2] ++ iuop u16-LE[L*2]) with no row
-    padding.  Returns (cbuf u8, offs int64[K], nrows int32[K])."""
-    Lp, K = ret_t.shape
-    n_in = islot_t.shape[2]
-    has = ret_t >= 0
-    rows = np.where(has.any(0), Lp - np.argmax(has[::-1], axis=0), 0)
-    rows = rows.astype(np.int64)
+def pack_stream(fk, seg_ends, n_in: int):
+    """The segment wire of one history cut at `seg_ends`, with n_in (1
+    or 2) invoke columns in use (`planner._stream_deltas`): segment k's
+    rows, up to its last return, in the compact layout of
+    `wgl_deep.pack_events_compact` (ret+1 u8[L] ++ islot+1 u8[L*2] ++
+    iuop u16-LE[L*2]) with no row padding; an empty cell is 0.  Returns
+    (cbuf u8, offs int64[K], nrows int32[K])."""
+    rows, rkey, rho, rs, dkey, row, col, dslot, duop = \
+        planner._stream_deltas(fk, seg_ends, n_in)
     size = ROW_BYTES * rows
     offs = np.concatenate([[0], np.cumsum(size)[:-1]]).astype(np.int64)
-    live = np.arange(Lp)[None, :] < rows[:, None]          # [K, Lp]
-    kk, rr = np.nonzero(live)                               # k-major
-    base, L = offs[kk], rows[kk]
     buf = np.zeros(int(size.sum()), np.uint8)
-    buf[base + rr] = (ret_t[rr, kk].astype(np.int32) + 1).astype(np.uint8)
-    for i in range(I):
-        if i < n_in:
-            sl = islot_t[rr, kk, i].astype(np.int32)
-            u = np.maximum(iuop_t[rr, kk, i].astype(np.int32), 0)
-        else:
-            sl = np.full(len(rr), -1, np.int32)
-            u = np.zeros(len(rr), np.int32)
-        buf[base + L + I * rr + i] = (sl + 1).astype(np.uint8)
-        p = base + 3 * L + 2 * (I * rr + i)
-        buf[p] = (u & 0xFF).astype(np.uint8)
-        buf[p + 1] = (u >> 8).astype(np.uint8)
+    buf[offs[rkey] + rho] = (rs + 1).astype(np.uint8)
+    base, L = offs[dkey], rows[dkey]
+    cell = I * row + col
+    buf[base + L + cell] = (dslot + 1).astype(np.uint8)
+    p = base + 3 * L + 2 * cell
+    buf[p] = (duop & 0xFF).astype(np.uint8)
+    buf[p + 1] = (duop >> 8).astype(np.uint8)
     return buf, offs, rows.astype(np.int32)
 
 
@@ -113,10 +109,11 @@ def regs_scan(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
     Returns (T u8[K, J, Sn], bad i32[1]): bad counts segments the kernel
     refused (rows outside cbuf, a uop id outside the table, a slot at or
     past R) and whose rows it did not write; on the CPU such input
-    raises instead.  `work`, an optional int64[K], receives the plane
-    words each segment's walk touches over its J lanes.  CUDA tensors
-    launch on the current stream and do not synchronise; CPU tensors
-    run the plain version."""
+    raises instead.  `work`, an optional int64[K], receives the integer
+    operations of each segment's walk over its J lanes (CLOSE_OPS,
+    CLOSE5_OPS and PRUNE_OPS per plane word or state row, over the Sn
+    rows that hold configs).  CUDA tensors launch on the current stream
+    and do not synchronise; CPU tensors run the plain version."""
     global LAUNCHES
     dev = cbuf.device
     _check(cbuf, "cbuf", torch.uint8, dev)
@@ -180,7 +177,7 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
     dev = cbuf.device
     K = offs.numel()
     SnP, WD = snp(Sn), plane_width(R)
-    PW = SnP * WD
+    pass_ops, prune_ops = CLOSE_OPS * Sn * WD, PRUNE_OPS * Sn * WD
     L = nrows.to(torch.int64)
     o = offs
     n = cbuf.numel()
@@ -217,7 +214,7 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
     openr = torch.zeros((K, R), dtype=torch.bool, device=dev)
     bits = torch.arange(R, device=dev)
     s_idx = torch.arange(SnP, device=dev)
-    words = torch.zeros(K, dtype=torch.int64, device=dev)
+    ops = torch.zeros(K, dtype=torch.int64, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
 
     for row in range(Lmax):
@@ -260,7 +257,8 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
                     add = add | torch.where(ob[:, None, None, None], lin,
                                             zero)
                 fr = fr | add
-            words += rounds * opened.sum(1) * PW
+            ops += rounds * (opened[:, :5].sum(1) * pass_ops
+                             + opened[:, 5:].sum(1) * CLOSE5_OPS * Sn)
         rs = ret[:, row]
         for b in range(R):
             mb = rs == b
@@ -273,9 +271,10 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
                                    -1)
             fr = torch.where(mb[:, None, None, None], gone, fr)
             openr[:, b] &= ~mb
-        words += (rs >= 0).to(torch.int64) * PW
+        ops += torch.where(rs == 5, PRUNE_OPS * Sn,
+                           torch.where(rs >= 0, prune_ops, 0))
     if work is not None:
-        work.copy_(words * J)
+        work.copy_(ops * J)
     return (fr[:, :, :Sn, 0] & 1).to(torch.uint8)
 
 

@@ -11,7 +11,7 @@ the ROADMAP item that will cover them; nothing falls through to another
 engine.
 
 The segment route cuts a history at its quiescent returns (no call
-open) into segments of at least `target_returns_per_segment` returns.
+open) into segments of at least TARGET_RETURNS returns.
 Only the model state crosses such a cut, so each segment is a boolean
 transfer matrix T_k[s0, s1] over model states, computed by one kernel
 lane per (segment, entry state) (`ops.regs_kernel`), and the history is
@@ -39,6 +39,10 @@ WHY = ("register-delta segment kernel: crash-free, decomposable model with "
        "Sn <= 32 and overlap depth R <= 6, one lane per (quiescent "
        "segment, entry state), composed on the device")
 
+#: Returns per segment: a segment closes at the first quiescent return
+#: at least this many returns in (the reference's
+#: target_returns_per_segment default).
+TARGET_RETURNS = 256
 #: Histories scanned, packed and launched together by check_pipeline
 #: (the reference's JEPSEN_TPU_PIPE_GROUP default).
 PIPE_GROUP = 4
@@ -59,8 +63,9 @@ class _SegGrid:
         self.seg_counts: list = []
         self.size = 0
 
-    def add(self, ret_t, islot_t, iuop_t):
-        cbuf, offs, rows = regs_kernel.pack_segments(ret_t, islot_t, iuop_t)
+    def add(self, fk, seg_ends, n_in: int):
+        """One history's segments, n_in invoke columns per row."""
+        cbuf, offs, rows = regs_kernel.pack_stream(fk, seg_ends, n_in)
         self.bufs.append(cbuf)
         self.offs.append(offs + self.size)
         self.rows.append(rows)
@@ -82,11 +87,6 @@ def _aux(tables) -> tuple[np.ndarray, int]:
     a1t, a2t, t0t = tables
     UP = wgl_deep._pad_u(a1t.shape[0])
     return wgl_deep.pack_aux(a1t, a2t, t0t, UP).view(np.int32), UP
-
-
-def _seg_tables(fk, seg_ends, R: int, U: int, I: int):
-    """[Lp, K] register-delta tables of one history's segments."""
-    return planner._pack_regs_stream(fk, seg_ends, R, U, I)[:3]
 
 
 def _launch(wire, seg_counts, UP: int, *, R: int, Sn: int, rounds: int,
@@ -189,15 +189,14 @@ def _mark_dead(result: dict, vd, localize: bool, model, spec, history,
 
 
 def _check_regs(model, spec, history, ops, fk, states, legal, next_state,
-                decomposition, *, R, Sn, target_returns_per_segment,
-                localize, dev, t0) -> dict[str, Any]:
+                decomposition, *, R, Sn, localize, dev,
+                t0) -> dict[str, Any]:
     """One history on the segment kernel at exact rounds (R)."""
-    seg_ends = planner._segment_ends(fk.cuts, target_returns_per_segment)
-    tables = _seg_tables(fk, seg_ends, R, int(legal.shape[0]), min(2, R))
+    seg_ends = planner._segment_ends(fk.cuts, TARGET_RETURNS)
     aux, UP = _aux(planner._pack_uop_tables(legal, next_state,
                                             *decomposition))
     grid = _SegGrid()
-    grid.add(*tables)
+    grid.add(fk, seg_ends, min(2, R))
     t_plan = time.monotonic() - t0
     t1 = time.monotonic()
     vd, bad = _launch(grid.to_device(aux, dev), grid.seg_counts, UP, R=R,
@@ -280,8 +279,7 @@ def _model_tables(spec, model, rows: list, max_states: int):
 
 
 def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
-          target_returns_per_segment: int = 256, localize: bool = True,
-          device=None) -> dict[str, Any]:
+          localize: bool = True, device=None) -> dict[str, Any]:
     """Linearizability of one history: the segment kernel at R <= 6,
     the deep kernel at 7..16.  Returns a knossos-shaped analysis map
     with a `dispatch` record (engine, why, R).  Raises Unsupported for
@@ -312,8 +310,7 @@ def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
     if planner.regs_gate(R, Sn, U, decomposed) is None:
         result = _check_regs(
             model, spec, history, ops, fk, states, legal, next_state, dec,
-            R=R, Sn=Sn, target_returns_per_segment=target_returns_per_segment,
-            localize=localize, dev=dev, t0=t0)
+            R=R, Sn=Sn, localize=localize, dev=dev, t0=t0)
     else:
         why = planner.deep_gate(R, Sn, U, decomposed)
         if why is not None:
@@ -326,9 +323,8 @@ def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
 
 
 def check_pipeline(model, histories, *, max_states: int = 64,
-                   max_open_bits: int = 10,
-                   target_returns_per_segment: int = 256,
-                   localize: bool = True, stats=None, device=None) -> list:
+                   max_open_bits: int = 10, localize: bool = True,
+                   stats=None, device=None) -> list:
     """Check many histories: scan and segment them in groups of
     PIPE_GROUP, launch each group's segments (one kernel launch, then
     the composition) on the current stream without waiting, and fetch
@@ -391,8 +387,7 @@ def check_pipeline(model, histories, *, max_states: int = 64,
                 results[i] = {"valid?": True, "op_count": 0,
                               "backend": dev.type, "engine": "wgl_seg"}
                 continue
-            seg_ends = planner._segment_ends(fk.cuts,
-                                             target_returns_per_segment)
+            seg_ends = planner._segment_ends(fk.cuts, TARGET_RETURNS)
             lap("segment")
             grp.append((i, fk, seg_ends, ops))
         if not grp:
@@ -424,7 +419,7 @@ def check_pipeline(model, histories, *, max_states: int = 64,
         grid = _SegGrid()
         for i, fk, seg_ends, ops in grp:
             # the reference's pipeline wire carries one invoke per row
-            grid.add(*_seg_tables(fk, seg_ends, R_cur, U_at, 1))
+            grid.add(fk, seg_ends, 1)
             metas[i] = (fk, seg_ends, ops)
         lap("pack")
         wire = grid.to_device(aux, dev)
@@ -454,8 +449,6 @@ def check_pipeline(model, histories, *, max_states: int = 64,
                     # a speculative death is inconclusive: exact rerun
                     res = check(model, histories[i], max_states=max_states,
                                 max_open_bits=max_open_bits,
-                                target_returns_per_segment=
-                                target_returns_per_segment,
                                 localize=localize, device=dev)
                     res["pipelined"] = True
                     res["speculation"] = "exact-rerun"
@@ -480,8 +473,6 @@ def check_pipeline(model, histories, *, max_states: int = 64,
         try:
             results[i] = check(model, histories[i], max_states=max_states,
                                max_open_bits=max_open_bits,
-                               target_returns_per_segment=
-                               target_returns_per_segment,
                                localize=localize, device=dev)
         except Unsupported as e:
             results[i] = wgl_deep._unsupported(e, i)

@@ -114,7 +114,28 @@ def ref_seg_tables(h, R, I, target=32):
     return tabs, uop_tabs, states.shape[0], seg_ends
 
 
-def port_seg_tables(h, R, I, target=32):
+def wire_tables(cbuf, offs, nrows, I, U):
+    """[Lp, K] register-delta tables decoded from a segment wire, in the
+    dtypes of the reference's `_pack_regs_single`: what its kernel takes.
+    The wire's invoke columns past I are empty."""
+    K = len(offs)
+    Lp = planner._pad_len(int(nrows.max()))
+    ret_t = np.full((Lp, K), -1, np.int8)
+    islot_t = np.full((Lp, K, I), -1, np.int8)
+    iuop_t = np.full((Lp, K, I), -1, np.int8 if U <= 127 else np.int16)
+    for k in range(K):
+        o, L = int(offs[k]), int(nrows[k])
+        seg = cbuf[o:o + regs_kernel.ROW_BYTES * L].astype(np.int32)
+        ret_t[:L, k] = seg[:L] - 1
+        sl = seg[L:3 * L].reshape(L, 2) - 1
+        u = (seg[3 * L::2] | (seg[3 * L + 1::2] << 8)).reshape(L, 2)
+        assert (sl[:, I:] < 0).all()
+        islot_t[:L, k] = sl[:, :I]
+        iuop_t[:L, k] = np.where(sl[:, :I] >= 0, u[:, :I], -1)
+    return ret_t, islot_t, iuop_t
+
+
+def port_seg_wire(h, I, target=32):
     model = models.CASRegister()
     spec = model.device_spec()
     seen, rows = {}, []
@@ -122,9 +143,10 @@ def port_seg_tables(h, R, I, target=32):
     fk = planner._fast_scan(ph.ops, spec, seen, rows, 10)
     states, legal, nxt, dec = wgl_seg._model_tables(spec, model, rows, 64)
     seg_ends = planner._segment_ends(fk.cuts, target)
-    tabs = wgl_seg._seg_tables(fk, seg_ends, R, len(rows), I)
+    wire = regs_kernel.pack_stream(fk, seg_ends, I)
     aux, UP = wgl_seg._aux(planner._pack_uop_tables(legal, nxt, *dec))
-    return tabs, aux, UP, states.shape[0], seg_ends
+    return (wire, wire_tables(*wire, I, len(rows)), aux, UP,
+            states.shape[0], seg_ends)
 
 
 @pytest.fixture(scope="module")
@@ -133,8 +155,9 @@ def scans():
     for name, (make, R, rounds, I) in SCAN_CASES.items():
         h = make()
         tabs, uop_tabs, Sn, seg_ends = ref_seg_tables(h, R, I)
-        ptabs, aux, UP, pSn, pseg_ends = port_seg_tables(h, R, I)
-        # identical numpy tables into both kernels: the port's
+        wire, ptabs, aux, UP, pSn, pseg_ends = port_seg_wire(h, I)
+        # the same rows into both kernels: the port's wire, and the
+        # reference's tables decoded from it
         K, Lp = ptabs[0].shape[1], ptabs[0].shape[0]
         args = tuple(ptabs) + tuple(uop_tabs)
         ref_T = np.asarray(ref_seg._build_kernel_regs(
@@ -143,7 +166,7 @@ def scans():
         ref_vd = np.asarray(ref_seg._build_kernel_regs(
             K, Lp, I, max(1, (1 << R) // 32), Sn, R, True, rounds, 1,
             J=Sn, compose=True)(*args))
-        cbuf, offs, nrows = regs_kernel.pack_segments(*ptabs)
+        cbuf, offs, nrows = wire
         work = torch.zeros(K, dtype=torch.int64)
         T, bad = regs_kernel.regs_scan(
             torch.from_numpy(cbuf), torch.from_numpy(offs),
@@ -151,7 +174,8 @@ def scans():
             UP=UP, J=Sn, rounds=rounds, work=work)
         out[name] = dict(ref_T=ref_T, ref_vd=ref_vd, T=T.numpy(),
                          vd=regs_kernel.compose(T, [K])[0].numpy(),
-                         tabs=tabs, ptabs=ptabs, seg_ends=seg_ends,
+                         tabs=tabs, ptabs=ptabs, wire=wire,
+                         seg_ends=seg_ends,
                          pseg_ends=pseg_ends, Sn=Sn, pSn=pSn, aux=aux,
                          UP=UP, U_real=len(uop_tabs[0]), bad=int(bad[0]),
                          work=work.numpy(), rows=nrows)
@@ -195,7 +219,7 @@ def test_scan_cases_cover_the_edges(scans):
 def test_segment_wire_is_the_deep_wire_unpadded(scans):
     from jepsen_tpu_torch.ops import wgl_deep
     ret_t, islot_t, iuop_t = scans["r4-bad"]["ptabs"]
-    cbuf, offs, nrows = regs_kernel.pack_segments(ret_t, islot_t, iuop_t)
+    cbuf, offs, nrows = scans["r4-bad"]["wire"]
     for k in range(ret_t.shape[1]):
         L = int(nrows[k])
         assert ret_t[L - 1, k] >= 0 and (ret_t[L:, k] < 0).all()
@@ -238,10 +262,11 @@ def test_compose_matches_host_composition():
 def test_speculation_needs_invocation_order(seed):
     """The pipeline's 2 speculative rounds keep a valid 1,500-call
     history (concurrency 5, vmax 9) alive when each return's new invokes
-    are registered in invocation order (`_pack_regs_stream`, the
+    are registered in invocation order (`regs_kernel.pack_stream`, the
     reference's native delta stream), and kill it when they are ordered
     by slot (`_pack_regs`, its Python-scan path): the order is part of
-    the speculative pass's function."""
+    the speculative pass's function.  Both orders go through the
+    reference's kernel, and the port's wire through the port's."""
     h = convert.history_from_dicts(
         rand_history(seed, n_ops=1500, conc=5, vmax=9).to_dicts())
     model = models.CASRegister()
@@ -251,34 +276,47 @@ def test_speculation_needs_invocation_order(seed):
     states, legal, nxt, dec = wgl_seg._model_tables(spec, model, rows, 64)
     R, Sn = fk.max_open, states.shape[0]
     seg_ends = planner._segment_ends(fk.cuts, 256)
-    aux, UP = wgl_seg._aux(planner._pack_uop_tables(legal, nxt, *dec))
+    uop_tabs = planner._pack_uop_tables(legal, nxt, *dec)
+    aux, UP = wgl_seg._aux(uop_tabs)
     segs, lo = [], 0
     for hi in seg_ends:
         segs.append((len(segs), planner._FastKey(
             fk.rets[lo:hi], R, hi - lo, cuts=fk.cuts[lo:hi],
             positions=fk.positions[lo:hi])))
         lo = hi
+    K = len(seg_ends)
+    stream = regs_kernel.pack_stream(fk, seg_ends, 1)
     verdicts = []
-    for tabs in (planner._pack_regs_stream(fk, seg_ends, R, len(rows), 1),
-                 planner._pack_regs(segs, len(segs), R, len(rows), 1)):
-        wire = [torch.from_numpy(x)
-                for x in regs_kernel.pack_segments(*tabs[:3])]
-        T, _ = regs_kernel.regs_scan(*wire, torch.from_numpy(aux), R=R,
-                                     Sn=Sn, UP=UP, J=Sn, rounds=2)
-        verdicts.append(int(regs_kernel.compose(T, [len(seg_ends)])[0, 0]))
-    assert R == 5 and len(seg_ends) > 1
+    for tabs in (wire_tables(*stream, 1, len(rows)),
+                 planner._pack_regs(segs, K, R, len(rows), 1)[:3]):
+        vd = ref_seg._build_kernel_regs(
+            K, tabs[0].shape[0], 1, 1, Sn, R, True, 2, 1, J=Sn,
+            compose=True)(*tabs, *uop_tabs)
+        verdicts.append(int(np.asarray(vd)[0]))
+    T, _ = regs_kernel.regs_scan(
+        *(torch.from_numpy(x) for x in stream), torch.from_numpy(aux), R=R,
+        Sn=Sn, UP=UP, J=Sn, rounds=2)
+    assert R == 5 and K > 1
     assert verdicts == [1, 0]
+    assert int(regs_kernel.compose(T, [K])[0, 0]) == 1
 
 
 def test_kernel_depth_is_the_gate_constant():
+    import inspect
     import re
 
     from jepsen_tpu_torch.ops import cuda_build
     src = (cuda_build.CSRC / "wgl_regs.cu").read_text()
-    assert int(re.search(r"constexpr int MAXR = (\d+);", src).group(1)) \
-        == planner.REGS_R_MAX
-    assert int(re.search(r"constexpr int MAXJ = (\d+);", src).group(1)) \
-        == regs_kernel.J_MAX
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1))
+    assert const("MAXR") == planner.REGS_R_MAX
+    assert const("MAXJ") == regs_kernel.J_MAX
+    for name in ("CLOSE_OPS", "CLOSE5_OPS", "PRUNE_OPS"):
+        assert const(name) == getattr(regs_kernel, name), name
+    assert wgl_seg.TARGET_RETURNS == inspect.signature(
+        ref_seg.check).parameters["target_returns_per_segment"].default
     py = open(regs_kernel.__file__).read()
     assert "environ" not in py and "except" not in py
 
@@ -321,6 +359,27 @@ def test_regs_scan_checks_inputs():
                               rows.to("meta"), aux.to("meta"), **kw)
 
 
+@pytest.mark.parametrize("R, slot, Sn", [(1, 0, 2), (5, 4, 11), (6, 4, 3),
+                                         (6, 5, 3)])
+def test_work_counts_operations_over_live_state_rows(R, slot, Sn):
+    """One row that invokes and returns `slot`, one closure round: the
+    count is one pass and one prune over the Sn state rows that hold
+    configs (not the SnP rows of the plane), per lane."""
+    cbuf = torch.tensor([slot + 1, slot + 1, 0, 0, 0, 0, 0],
+                        dtype=torch.uint8)
+    work = torch.zeros(1, dtype=torch.int64)
+    regs_kernel.regs_scan(cbuf, torch.zeros(1, dtype=torch.int64),
+                          torch.ones(1, dtype=torch.int32),
+                          torch.zeros(3 * 8, dtype=torch.int32), R=R, Sn=Sn,
+                          UP=8, J=Sn, rounds=1, work=work)
+    words = Sn * regs_kernel.plane_width(R)
+    if slot < 5:
+        per_lane = (regs_kernel.CLOSE_OPS + regs_kernel.PRUNE_OPS) * words
+    else:
+        per_lane = (regs_kernel.CLOSE5_OPS + regs_kernel.PRUNE_OPS) * Sn
+    assert work.tolist() == [per_lane * Sn]
+
+
 CHECK_CASES = {
     "r1-bad": lambda: shallow(1, 41, buggy=True, n_ops=120),
     "r2": lambda: shallow(2, 42, n_ops=120),
@@ -341,9 +400,11 @@ def checks():
         target = 256 if "one-segment" in name else 24
         ref = ref_seg.check(ref_models.CASRegister(), h,
                             target_returns_per_segment=target)
-        got = wgl_seg.check(models.CASRegister(),
-                            convert.history_from_dicts(h.to_dicts()),
-                            target_returns_per_segment=target, device="cpu")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(wgl_seg, "TARGET_RETURNS", target)
+            got = wgl_seg.check(models.CASRegister(),
+                                convert.history_from_dicts(h.to_dicts()),
+                                device="cpu")
         out[name] = (ref, got, ref_cpu.check(ref_models.CASRegister(), h))
     return out
 
@@ -403,10 +464,12 @@ def pipelines():
     ref = ref_seg.check_pipeline(ref_models.CASRegister(), hs,
                                  target_returns_per_segment=32)
     st = {}
-    got = wgl_seg.check_pipeline(
-        models.CASRegister(),
-        [convert.history_from_dicts(h.to_dicts()) for h in hs],
-        target_returns_per_segment=32, device="cpu", stats=st)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(wgl_seg, "TARGET_RETURNS", 32)
+        got = wgl_seg.check_pipeline(
+            models.CASRegister(),
+            [convert.history_from_dicts(h.to_dicts()) for h in hs],
+            device="cpu", stats=st)
     return ref, got, st
 
 
@@ -465,7 +528,7 @@ def test_kernel_matches_plain_on_card(scans):
     launches = regs_kernel.LAUNCHES
     for name, c in sorted(scans.items()):
         _, R, rounds, _ = SCAN_CASES[name]
-        wire = regs_kernel.pack_segments(*c["ptabs"]) + (c["aux"],)
+        wire = c["wire"] + (c["aux"],)
         outs = []
         for dev in ("cuda", "cpu"):
             work = torch.zeros(len(wire[1]), dtype=torch.int64, device=dev)
