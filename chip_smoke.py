@@ -6,8 +6,9 @@ Phases, each printing what it measured on lines tagged with its name;
 any failure exits non-zero:
 
   device     - the card, and nvidia-smi's name and power limit;
-  build      - one nvcc per source (csrc/wgl_deep.cu, csrc/wgl_regs.cu),
-               started together, for sm_90a (timed); ptxas registers and
+  build      - one nvcc per source (csrc/wgl_deep.cu, csrc/wgl_regs.cu,
+               csrc/wgl_crash.cu), started together, for sm_90a
+               (timed); ptxas registers and
                spill bytes of each kernel instantiation; a spill in the
                deep kernel's warp arm fails;
   kernel     - each deep arm against the plain PyTorch version (on CPU
@@ -47,7 +48,34 @@ any failure exits non-zero:
                chosen segment lanes against the plain version; then the
                group launch and check()'s launch on one history, each
                against its plain version and its bound, and the
-               composition's time, for the JSON kernel line.
+               composition's time, for the JSON kernel line;
+  crash-kernel
+             - the segment kernel's crash variants against their plain
+               version on CPU copies of the same inputs: the crash
+               variant at nc = 1..4 crashed calls and R + nc = 2..8
+               with (nc, Sn) at (1, 32), (2, 32), (3, 16), (4, 8); the
+               relaxed variant and the death row at R = 1..6 x SnP
+               8/16/32 with 1, 40 and 300 crash prefixes; valid and
+               planted-invalid: transfer rows, verdict words, death rows
+               and operation counts;
+  crash-main - the crash tiers at full size through Linearizable: (a)
+               the hard regime (50,000 calls, 16 processes, 1% crashed)
+               proven valid on its stripped twin, (b) the same shape
+               with a stale read planted at 90% depth refuted under
+               relaxed crash semantics at the planted read, (c) a
+               north-star history with four completions turned :info
+               on the nc = 3 segment kernel, valid and planted, (d) an
+               envelope history with two crashed writes on the deep
+               warp arm at R = 10, valid and planted; stage seconds of
+               each; the crash kernels' launches are counted from here;
+  crash-pipeline
+             - a north-star batch with four histories shaped as (c)
+               through check_pipeline: those through check(), with the
+               single calls' verdicts, the rest pipelined;
+  crash-timing
+             - the tier-2 launch of (c), the relaxed launch of (b) and
+               its death-row launch against their plain versions and
+               bounds, for the JSON kernel line.
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with
 no result line when torch.cuda.is_available() is false or the package
@@ -82,16 +110,20 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 def make_history(n_ops, concurrency, seed, vmax=9, max_open=0, burst=0,
-                 cas_hits=False):
+                 cas_hits=False, crash_rate=0.0, crash_vmax=0):
     """A register workload (read/read/write/cas) executed against a
     sequential in-memory register with process interleaving, bounded to
-    `max_open` simultaneously-open calls; `n_ops` counts calls.  With
-    `burst`, that many writes open together at the end, so the overlap
-    depth is at least `burst`.  With `cas_hits`, every cas names the
-    register's value as its old value and succeeds, so the distinct
-    (old, new) pairs run into the hundreds of uop ids."""
-    from jepsen_tpu_torch.history import (History, fail_op, invoke_op,
-                                          ok_op)
+    `max_open` simultaneously-open normal calls; `n_ops` counts calls.
+    With `burst`, that many writes open together at the end, so the
+    overlap depth is at least `burst`.  With `cas_hits`, every cas names
+    the register's value as its old value and succeeds, so the distinct
+    (old, new) pairs run into the hundreds of uop ids.  With
+    `crash_rate`, that share of calls time out: an invoke and at once an
+    :info completion, no effect on the register; `crash_vmax` > 0 draws
+    their values from 0..crash_vmax (the nemesis-run shape of the JAX
+    package's bench, `make_history`)."""
+    from jepsen_tpu_torch.history import (History, fail_op, info_op,
+                                          invoke_op, ok_op)
     rng = random.Random(seed)
     ops, value = [], None
     open_ops: dict = {}
@@ -107,6 +139,14 @@ def make_history(n_ops, concurrency, seed, vmax=9, max_open=0, burst=0,
             continue
         i += 1
         f = rng.choice(("read", "read", "write", "cas"))
+        if crash_rate and rng.random() < crash_rate:
+            cm = crash_vmax or vmax
+            v = (None if f == "read" else rng.randint(0, cm)
+                 if f == "write" else
+                 [rng.randint(0, cm), rng.randint(0, cm)])
+            ops.append(invoke_op(p, f, v))
+            ops.append(info_op(p, f, v))
+            continue
         if f == "read":
             ops.append(invoke_op(p, "read", None))
             open_ops[p] = ok_op(p, "read", value)
@@ -133,12 +173,13 @@ def make_history(n_ops, concurrency, seed, vmax=9, max_open=0, burst=0,
     return History(ops).index()
 
 
-def plant_stale_read(h, frac, vmax):
+def plant_stale_read(h, frac, vmax, forbidden=()):
     """Rewrite one ok-read at `frac` depth to a legal value w that no
     linearization can produce: w is neither the register value at the
     read's invoke nor written by any call that can linearize inside the
-    read's window.  Returns the op index of the read's INVOKE (the
-    exact witness), or None."""
+    read's window, nor in `forbidden` (for example every crashed call's
+    value, which crashed calls could otherwise explain).  Returns the op
+    index of the read's INVOKE (the exact witness), or None."""
     ops = h.ops
     n = len(ops)
     value_at = np.zeros(n + 1, np.int64)      # sequential value before i
@@ -180,7 +221,8 @@ def plant_stale_read(h, frac, vmax):
         touch = (inv_pos <= i) & (comp_pos >= M) & (wval >= 0)
         V = set(int(x) for x in np.unique(wval[touch]))
         V.add(int(value_at[lo]))
-        w = next((x for x in range(vmax + 1) if x not in V), None)
+        w = next((x for x in range(vmax + 1)
+                  if x not in V and x not in forbidden), None)
         if w is None:
             continue
         ops[i].value = w
@@ -221,11 +263,13 @@ def phase_device():
 def phase_build():
     """Both kernels' nvcc at once, timed; ptxas registers and spills of
     every instantiation; a warp-arm spill of the deep kernel fails."""
-    from jepsen_tpu_torch.ops import cuda_build, deep_kernel, regs_kernel
+    from jepsen_tpu_torch.ops import (crash_kernel, cuda_build, deep_kernel,
+                                      regs_kernel)
     t = time.perf_counter()
-    libs = cuda_build.build("wgl_deep", "wgl_regs")
+    libs = cuda_build.build("wgl_deep", "wgl_regs", "wgl_crash")
     deep_kernel._load()
     cuda_build.load("wgl_regs", regs_kernel._declare)
+    cuda_build.load("wgl_crash", crash_kernel._declare)
     dt = time.perf_counter() - t
     kernels, entries = {}, []
     for lib in libs.values():
@@ -233,8 +277,8 @@ def phase_build():
         text = report.read_text() if report.exists() else ""
         kernels.update(ptxas_kernels(text))
         entries += [ln for ln in text.splitlines() if "entry function" in ln]
-    if not any(k.startswith("wgl_regs") for k in kernels) or \
-            not any(k.startswith("wgl_warp") for k in kernels):
+    if not all(any(k.startswith(n) for k in kernels)
+               for n in ("wgl_regs", "wgl_warp", "wgl_crash")):
         raise SystemExit("[build] ptxas reported no kernel of a source: "
                          + " | ".join(entries))
     log(f"[build] {', '.join(p.name for p in libs.values())} in {dt:.2f} s "
@@ -252,9 +296,10 @@ def ptxas_kernels(text):
     from `nvcc -Xptxas -v` output."""
     out, name = {}, None
     for ln in text.splitlines():
-        m = re.search(r"entry function '_Z\d+(\w+?)I((?:Li\d+E)+)E", ln)
+        m = re.search(r"entry function '_Z\d+(\w+?)I((?:L[ib]\d+E)+)E",
+                      ln)
         if m:
-            args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             name = f"{m.group(1)}<{args}>"
             out[name] = {"regs": None, "spill": 0}
             continue
@@ -965,6 +1010,530 @@ def phase_seg_grid(hs, clock_hz):
     return res
 
 
+# ---------------------------------------------------------------------------
+# The crash tiers: the segment kernel's crash variants on the main path
+# ---------------------------------------------------------------------------
+
+HARD_N_OPS = 50_000                 # calls of the hard crash regime
+ENV_N_OPS = 20_000                  # calls of an envelope history
+
+
+def copy_history(h):
+    """A history of copies of h's ops (the planter edits ops in place)."""
+    import copy
+    from jepsen_tpu_torch.history import History
+    return History([copy.copy(o) for o in h.ops])
+
+
+def crash_ops(h, picks):
+    """A copy of h with the ok completions picked by `picks` (a list of
+    (depth fraction, f) pairs: the first ok completion of f at or past
+    that share of the ops) turned into :info.  Returns (history, the
+    values the crashed calls could write)."""
+    h = copy_history(h)
+    ops = h.ops
+    values = set()
+    for frac, f in picks:
+        i = next(i for i in range(int(len(ops) * frac), len(ops))
+                 if ops[i].type == "ok" and ops[i].f == f)
+        ops[i] = ops[i].assoc(type="info")
+        v = ops[i].value
+        values |= set(v) if isinstance(v, list) else {v}
+    values.discard(None)
+    return h, values
+
+
+def add_crashes(h, nc, seed, vmax, keep_last_open=True):
+    """h with nc crashed writes of fresh processes, of values 0..vmax,
+    invoked at random points: each ends with an :info at the end of the
+    history, the last one (with `keep_last_open`) never completes.
+    Returns (history, their values)."""
+    from jepsen_tpu_torch.history import History, info_op, invoke_op
+    rng = random.Random(seed)
+    ops = list(h.ops)
+    vals = [rng.randint(0, vmax) for _ in range(nc)]
+    at = sorted(rng.randrange(len(ops) + 1) for _ in range(nc))
+    for j, pos in reversed(list(enumerate(at))):
+        ops.insert(pos, invoke_op(1000 + j, "write", vals[j]))
+    ops += [info_op(1000 + j, "write", vals[j])
+            for j in range(nc - (1 if keep_last_open else 0))]
+    return History(ops).index(), set(vals)
+
+
+def with_every_value(h, vmax):
+    """h after one process writes 0..vmax in turn, so every value is a
+    model state: vmax + 2 states with the initial None."""
+    from jepsen_tpu_torch.history import History, invoke_op, ok_op
+    ops = [o for v in range(vmax + 1)
+           for o in (invoke_op(999, "write", v), ok_op(999, "write", v))]
+    return History(ops + list(h.ops)).index()
+
+
+def crash_inputs(h, target=None):
+    """The tier-2 wire of h as check() builds it: the scan carrying up
+    to four crashed calls on permanent slots, segments, wire and uop
+    table.  Returns a dict of host arrays and shape arguments."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import planner, regs_kernel, wgl_seg
+    model = CASRegister()
+    spec = model.device_spec()
+    seen, rows = {}, []
+    fk = planner._fast_scan(h.ops, spec, seen, rows, 10,
+                            max_crashed=planner.MAX_CRASHED)
+    states, legal, nxt, dec = wgl_seg._model_tables(spec, model, rows, 64)
+    seg_ends = planner._segment_ends(
+        fk.cuts, wgl_seg.TARGET_RETURNS if target is None else target)
+    cbuf, offs, nrows = regs_kernel.pack_stream(fk, seg_ends, 2)
+    aux, UP = wgl_seg._aux(planner._pack_uop_tables(legal, nxt, *dec))
+    return dict(cbuf=cbuf, offs=offs, nrows=nrows, aux=aux, UP=UP,
+                R=fk.rn + fk.nc, rn=fk.rn, nc=fk.nc, Sn=states.shape[0],
+                K=len(seg_ends))
+
+
+def relaxed_inputs(h, target=None):
+    """The relaxed tier's wire of h as check() builds it (crash-prefix
+    closures and each row's index; the stripped history's segments)."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import wgl_seg
+    model = CASRegister()
+    spec = model.device_spec()
+    c = wgl_seg._split(model, spec, h.ops, max_states=64, max_open_bits=12)
+    rw = wgl_seg._relaxed_wire(spec, h.ops, c, max_open_bits=12,
+                               target=target)
+    cbuf, offs, nrows = rw.wire
+    return dict(cbuf=cbuf, offs=offs, nrows=nrows, aux=rw.aux, UP=rw.UP,
+                ctab=rw.ctab, R=rw.R, Sn=rw.Sn, K=len(offs),
+                nC=len(rw.ctab) // rw.Sn)
+
+
+def crash_run(inp, device, kind, ks=None, seed=None, reps=0):
+    """One variant's wrapper on `device` over the wire of `inp` (only
+    segments `ks`, when given): kind "crash" (crash_scan), "relaxed"
+    (relaxed_scan) or "death" (death_row from the states of `seed`).
+    Returns (output numpy, work numpy, bad, ms): ms is the mean of
+    `reps` timed launches after the counted one (CUDA events), NaN on
+    the CPU or with reps = 0."""
+    from jepsen_tpu_torch.ops import crash_kernel
+    dev = torch.device(device)
+    offs, nrows = inp["offs"], inp["nrows"]
+    if ks is not None:
+        offs, nrows = offs[ks], nrows[ks]
+    names = ("cbuf", "offs", "nrows", "aux") + (
+        ("ctab",) if kind != "crash" else ())
+    arrs = dict(inp, offs=offs, nrows=nrows)
+    args = [torch.from_numpy(np.ascontiguousarray(arrs[n])).to(dev)
+            for n in names]
+    work = torch.zeros(len(offs), dtype=torch.int64, device=dev)
+
+    def launch(w):
+        kw = dict(R=inp["R"], Sn=inp["Sn"], UP=inp["UP"], work=w)
+        if kind == "crash":
+            return crash_kernel.crash_scan(*args, nc=inp["nc"],
+                                           rn=inp["rn"], **kw)
+        if kind == "relaxed":
+            return crash_kernel.relaxed_scan(*args, **kw)
+        return crash_kernel.death_row(*args, seed, **kw)
+    out, bad = launch(work)
+    ms = float("nan")
+    if dev.type == "cuda" and reps:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(reps):
+            launch(None)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / reps
+    return out.cpu().numpy(), work.cpu().numpy(), int(bad.cpu()[0]), ms
+
+
+def plain_crash_job(inp, kind, ks=None, seed=None):
+    """The plain version on CPU copies, in a worker process: (output,
+    work, seconds)."""
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    out, work, _, _ = crash_run(inp, "cpu", kind, ks, seed)
+    return out, work, time.perf_counter() - t
+
+
+def crash_wire_bytes(inp, out_bytes):
+    return (inp["cbuf"].nbytes + 12 * len(inp["offs"]) + inp["aux"].nbytes
+            + inp.get("ctab", np.zeros(0, np.int32)).nbytes + out_bytes)
+
+
+# (rn, nc, vmax): nc = 1..4 at R + nc = 2..8, with (nc, Sn) at (1, 32),
+# (2, 32), (3, 16) and (4, 8) (vmax 30 / 14 / 6 give 32 / 16 / 8 states)
+CRASH_KERNEL_CASES = [(1, 1, 30), (4, 1, 30), (6, 1, 30), (7, 1, 30),
+                      (1, 2, 30), (4, 2, 30), (6, 2, 30),
+                      (1, 3, 14), (3, 3, 14), (5, 3, 14),
+                      (1, 4, 6), (2, 4, 6), (3, 4, 6), (4, 4, 6)]
+# (R, vmax, crash prefixes) of the relaxed variant and the death row:
+# R = 1..6 at SnP 8 / 16 / 32, each prefix count at each SnP
+RELAXED_KERNEL_CASES = [(R, v, (1, 40, 300)[(R + i) % 3])
+                        for R in range(1, 7)
+                        for i, v in enumerate((6, 9, 30))]
+
+
+def phase_crash_kernel(clock_hz):
+    """Each crash variant against its plain version on CPU copies of the
+    same inputs: the crash variant at nc = 1..4 and R + nc = 2..8 (J up
+    to 64 and 128), the relaxed variant (composed verdict) and the death
+    row at R = 1..6 x SnP 8/16/32 with 1, 40 and 300 crash prefixes,
+    each valid and planted-invalid: transfer rows, verdict words, death
+    rows and operation counts; and ptxas's registers and spills of each
+    instantiation.  Returns the largest disagreement per kernel."""
+    from jepsen_tpu_torch.ops import cuda_build, regs_kernel
+    report = cuda_build.ptxas_report(cuda_build.lib_path("wgl_crash"))
+    regs = {k: v for k, v in ptxas_kernels(
+        report.read_text() if report.exists() else "").items()
+        if k.startswith("wgl_crash")}
+    log("[crash-kernel] ptxas (WD, SnP, closure): " + " | ".join(
+        f"{k}: {v['regs']} registers, spill {v['spill']} bytes"
+        for k, v in sorted(regs.items())))
+    cases = []
+    for rn, nc, vmax in CRASH_KERNEL_CASES:
+        for bad in (False, True):
+            seed = 3000 + 10 * rn + nc + (5 if bad else 0)
+            h = with_every_value(make_history(
+                300, rn + 2, seed=seed, vmax=vmax, max_open=rn, burst=rn),
+                vmax)
+            h, vals = add_crashes(h, nc, seed, vmax)
+            if bad and plant_stale_read(h, 0.6, vmax, vals) is None:
+                raise SystemExit(f"[crash-kernel] no plantable read at "
+                                 f"rn={rn} nc={nc}")
+            inp = crash_inputs(h, target=64)
+            if (inp["rn"], inp["nc"], inp["Sn"]) != (rn, nc, vmax + 2):
+                raise SystemExit(f"[crash-kernel] built rn={inp['rn']} "
+                                 f"nc={inp['nc']} Sn={inp['Sn']}, wanted "
+                                 f"{rn}, {nc}, {vmax + 2}")
+            cases.append(("crash", bad, inp))
+    for R, vmax, nC in RELAXED_KERNEL_CASES:
+        for bad in (False, True):
+            seed = 4000 + 10 * R + vmax + (5 if bad else 0)
+            h = make_history(300, R + 2, seed=seed, vmax=vmax, max_open=R,
+                             burst=R)
+            # crashed values leave vmax - 1 and vmax to the planted read
+            h, vals = add_crashes(h, nC - 1, seed, vmax - 2,
+                                  keep_last_open=False)
+            if bad and plant_stale_read(h, 0.6, vmax, vals) is None:
+                raise SystemExit(f"[crash-kernel] no plantable read at R={R}")
+            inp = relaxed_inputs(h, target=64)
+            if (inp["R"], inp["nC"]) != (R, nC):
+                raise SystemExit(f"[crash-kernel] built R={inp['R']} "
+                                 f"nC={inp['nC']}, wanted {R}, {nC}")
+            cases.append(("relaxed", bad, inp))
+    ctx = multiprocessing.get_context("spawn")
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    err = {"crash": 0, "relaxed": 0}
+    seen = set()
+    with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        jobs = [(kind, bad, inp, pool.submit(plain_crash_job, inp, kind))
+                for kind, bad, inp in cases]
+        for kind, bad, inp, fut in jobs:
+            T, work, nbad, _ = crash_run(inp, DEV, kind)
+            pT, pwork, secs = fut.result()
+            K, Sn = inp["K"], inp["Sn"]
+            vd = regs_kernel.compose(torch.from_numpy(T).to(DEV),
+                                     [K]).cpu()[0].tolist()
+            pvd = regs_kernel.compose(torch.from_numpy(pT),
+                                      [K])[0].tolist()
+            e = int(np.abs(T.astype(np.int64) - pT.astype(np.int64)).max())
+            ok = (np.array_equal(T, pT) and np.array_equal(work, pwork)
+                  and nbad == 0 and vd == pvd)
+            if kind == "crash":     # exact: the verdict is the truth
+                ok &= vd[0] == (0 if bad else 1)
+            death = ""
+            if kind == "relaxed":
+                # the death row of the dead segment, from its reachable
+                # entry states (segment 0 from state 0 when valid)
+                dead = max(vd[1], 0)
+                seed = (vd[2] & 0xFFFFFFFF) if vd[1] >= 0 else 1
+                drow, dwork, dbad, _ = crash_run(inp, DEV, "death", [dead],
+                                                 seed)
+                pdrow, pdwork, _ = plain_crash_job(inp, "death", [dead], seed)
+                e = max(e, abs(int(drow[0]) - int(pdrow[0])))
+                ok &= (int(drow[0]) == int(pdrow[0]) and dbad == 0
+                       and np.array_equal(dwork, pdwork))
+                if bad and vd[0] == 0:
+                    ok &= int(drow[0]) >= 0
+                death = (f" death_row={int(drow[0])}/{int(pdrow[0])} "
+                         f"ops={int(dwork[0])}")
+                seen.add(("relaxed", inp["R"], regs_kernel.snp(Sn),
+                          inp["nC"]))
+            else:
+                seen.add(("crash", inp["nc"], inp["R"], regs_kernel.snp(Sn)))
+            err[kind] = max(err[kind], e)
+            b = seg_bound_ms(int(work.sum()), crash_wire_bytes(inp, T.nbytes),
+                             clock_hz)
+            log(f"[crash-kernel] {kind} R={inp['R']}"
+                + (f" rn={inp['rn']} nc={inp['nc']} J={Sn << inp['nc']}"
+                   if kind == "crash" else f" prefixes={inp['nC']}")
+                + f" Sn={Sn} K={K} rows={int(inp['nrows'].sum())} "
+                f"{'invalid' if bad else 'valid'} verdict={vd[:2]} "
+                f"ops={int(work.sum())}{death} bound_ms={b:.4f} "
+                f"plain_s={secs:.3f} {'OK' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit("[crash-kernel] kernel and plain version "
+                                 "disagree")
+    want = {("crash", nc, rn + nc, snp)
+            for rn, nc, v in CRASH_KERNEL_CASES
+            for snp in (8 if v == 6 else 16 if v == 14 else 32,)}
+    want |= {("relaxed", R, 8 if v == 6 else 16 if v == 9 else 32, nC)
+             for R, v, nC in RELAXED_KERNEL_CASES}
+    if not want <= seen:
+        raise SystemExit(f"[crash-kernel] not run: {sorted(want - seen)}")
+    return err
+
+
+def stage_line(st):
+    return ", ".join(f"{k} {st[k]:.3f} s" for k in (
+        "scan", "split", "tier2", "stripped", "relaxed", "oracle")
+        if k in st)
+
+
+def segment_of(fk_positions, ops, seg_ends, index):
+    """The segment holding the return of the call whose completion has
+    op index `index`."""
+    r = next(r for r, p in enumerate(fk_positions)
+             if ops[p].index == index)
+    return next(k for k, e in enumerate(seg_ends) if e > r)
+
+
+def phase_crash_main(seg_hs):
+    """The crash tiers at full size through Linearizable: (a) the hard
+    regime (50,000 calls, 16 processes, 1% crashed, max_open 6, vmax 4)
+    proven valid on its stripped twin; (b) the same shape at vmax 9 with
+    crashed values 0..7 and a stale read planted at 90% depth, refuted
+    under relaxed crash semantics at the planted read; (c) a north-star
+    history with four ok completions turned :info (a read, two writes,
+    a cas) on the nc = 3 segment kernel, valid and then planted-invalid
+    at its dead segment; (d) an envelope history at max_open 8 with two
+    write completions turned :info on the deep warp arm at R = 10, valid
+    and then planted-invalid at its exact witness.  The crash kernels'
+    launch counts start at 0 here."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import crash_kernel, deep_kernel, planner
+    model = CASRegister()
+    out = {}
+    for k in crash_kernel.LAUNCHES:
+        crash_kernel.LAUNCHES[k] = 0
+
+    def run(tag, h, want, **kw):
+        st = {}
+        t = time.perf_counter()
+        r = Linearizable(model, stats=st, **kw).check(None, h)
+        dt = time.perf_counter() - t
+        n_crash = sum(1 for o in h.ops if o.type == "info")
+        keys = ("valid?", "engine", "crashed", "crashed_dropped",
+                "crashed_ignored", "refutation", "witness", "op_index",
+                "dead_segment", "max_open", "states")
+        bad = {k: (r.get(k), v) for k, v in want.items() if r.get(k) != v}
+        log(f"[crash-main] {tag}: {len(h.ops)} ops, {n_crash} crashed: "
+            + " ".join(f"{k}={r.get(k)}" for k in keys if k in r)
+            + f" R={r['dispatch'].get('R')} in {dt:.3f} s; stages: "
+            f"{stage_line(st)}; why: {r['dispatch']['why']} "
+            f"{'OK' if not bad else 'WRONG ' + str(bad)}")
+        if bad:
+            raise SystemExit(f"[crash-main] {tag}: {bad}")
+        out[tag] = dict(r=r, s=dt, st=st)
+        return r
+
+    t = time.perf_counter()
+    ha = make_history(HARD_N_OPS, 16, seed=23, crash_rate=0.01, max_open=6,
+                      vmax=4)
+    hb = make_history(HARD_N_OPS, 16, seed=23, crash_rate=0.01, max_open=6,
+                      vmax=9, crash_vmax=7)
+    wit_b = plant_stale_read(hb, 0.9, 9, forbidden=set(range(8)))
+    hc, vals_c = crash_ops(seg_hs[0], [(0.2, "read"), (0.4, "write"),
+                                       (0.6, "write"), (0.8, "cas")])
+    hc_bad = copy_history(hc)
+    wit_c = plant_stale_read(hc_bad, 0.9, 9, forbidden=vals_c)
+    hd0 = make_history(ENV_N_OPS, 16, seed=5100, vmax=9, max_open=8)
+    hd, vals_d = crash_ops(hd0, [(0.3, "write"), (0.7, "write")])
+    hd_bad = copy_history(hd)
+    wit_d = plant_stale_read(hd_bad, 0.9, 9, forbidden=vals_d)
+    if None in (wit_b, wit_c, wit_d):
+        raise SystemExit("[crash-main] no plantable read")
+    log(f"[crash-main] made the histories in {time.perf_counter() - t:.1f} s")
+    n_a = sum(1 for o in ha.ops if o.type == "info")
+    run("(a) hard regime", ha, {"valid?": True, "crashed_ignored": n_a},
+        max_open_bits=12)
+    run("(b) crash-regime refutation", hb,
+        {"valid?": False, "refutation": "crash-relaxed",
+         "witness": "relaxed-exact", "op_index": wit_b},
+        max_open_bits=12, localize=False)
+    run("(c) tier 2 on the segment kernel", hc,
+        {"valid?": True, "engine": "wgl_seg", "crashed": 3,
+         "crashed_dropped": 1, "max_open": 8, "states": 11})
+    # the planted read's dead segment, from the tier-2 scan's segments
+    from jepsen_tpu_torch.ops import wgl_seg
+    spec = model.device_spec()
+    span = inert_read_span(hc_bad)
+    red = [o for o in hc_bad.ops if o.index not in span]
+    fk = planner._fast_scan(red, spec, {}, [], 10, max_crashed=4)
+    seg_ends = planner._segment_ends(fk.cuts, wgl_seg.TARGET_RETURNS)
+    comp = completion_index(hc_bad, wit_c)
+    dead_c = segment_of(fk.positions, red, seg_ends, comp)
+    run("(c) planted", hc_bad,
+        {"valid?": False, "engine": "wgl_seg", "crashed": 3,
+         "crashed_dropped": 1, "dead_segment": dead_c}, localize=False)
+    warp0 = deep_kernel.ARM_LAUNCHES["warp"]
+    run("(d) deep route with crashes", hd,
+        {"valid?": True, "engine": "wgl_deep", "crashed": 2})
+    run("(d) planted", hd_bad,
+        {"valid?": False, "engine": "wgl_deep", "crashed": 2,
+         "op_index": wit_d}, localize=False)
+    if out["(d) deep route with crashes"]["r"]["dispatch"]["R"] != 10 or \
+            deep_kernel.ARM_LAUNCHES["warp"] - warp0 != 2:
+        raise SystemExit("[crash-main] (d) did not run the deep warp arm "
+                         "at R = 10")
+    out["hists"] = dict(a=ha, b=hb, c=hc, d=hd)
+    return out
+
+
+def inert_read_span(h):
+    """Op indices of the crashed read's invoke and :info in h."""
+    info = next(o for o in h.ops if o.type == "info" and o.f == "read")
+    inv = max(o.index for o in h.ops if o.process == info.process
+              and o.type == "invoke" and o.index < info.index)
+    return {inv, info.index}
+
+
+def completion_index(h, invoke_index):
+    inv = h.ops[invoke_index]
+    return next(o.index for o in h.ops[invoke_index + 1:]
+                if o.process == inv.process)
+
+
+def phase_crash_pipeline(seg_hs, main):
+    """A batch of SEG_BATCH north-star histories, four of them shaped as
+    (c), through check_pipeline: the crash-bearing ones come back
+    through check() with the verdicts of single calls, the rest stay
+    pipelined.  Returns the crash kernels' launches over the crash main
+    path (this phase and [crash-main])."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import crash_kernel, wgl_seg
+    model = CASRegister()
+    shaped = [main["hists"]["c"]] + [
+        crash_ops(h, [(0.2, "read"), (0.4, "write"), (0.6, "write"),
+                      (0.8, "cas")])[0] for h in seg_hs[1:4]]
+    batch = shaped + list(seg_hs[4:SEG_BATCH])
+    st = {}
+    t = time.perf_counter()
+    res = wgl_seg.check_pipeline(model, batch, stats=st)
+    wall = time.perf_counter() - t
+    singles = [main["(c) tier 2 on the segment kernel"]["r"]] + [
+        wgl_seg.check(model, h) for h in shaped[1:]]
+    keys = ("valid?", "engine", "crashed", "crashed_dropped", "dead_segment")
+    bad = [i for i in range(4)
+           if res[i].get("pipelined")
+           or any(res[i].get(k) != singles[i].get(k) for k in keys)]
+    bad += [i for i in range(4, len(batch))
+            if res[i]["valid?"] is not True or not res[i].get("pipelined")]
+    n_ops = sum(len(h.ops) for h in batch)
+    log(f"[crash-pipeline] {len(batch)} histories ({len(shaped)} with "
+        f"crashed calls): {n_ops / wall:.0f} ops/s, wall {wall:.3f} s, "
+        f"stragglers {st.get('stragglers', 0.0):.3f} s, scan "
+        f"{st.get('scan', 0.0):.3f} s; crash-bearing: "
+        + "; ".join(f"valid?={r['valid?']} crashed={r.get('crashed')} "
+                    f"dropped={r.get('crashed_dropped')}"
+                    for r in res[:4])
+        + f" {'OK' if not bad else 'WRONG ' + str(bad)}")
+    if bad:
+        raise SystemExit(f"[crash-pipeline] histories {bad} disagree")
+    launches = dict(crash_kernel.LAUNCHES)
+    log(f"[crash-pipeline] crash kernel launches on the crash main path: "
+        f"{launches}")
+    if min(launches.values()) <= 0:
+        raise SystemExit("[crash-pipeline] the main path left a crash "
+                         "kernel unlaunched")
+    return launches
+
+
+def phase_crash_timing(main, clock_hz):
+    """The main path's crash launches timed with CUDA events (mean of 5
+    after the counted launch) beside their plain versions and bounds:
+    the tier-2 launch of (c) (all segments, then the first 16 against
+    the plain version), the relaxed launch of (b) and its death-row
+    launch; and the stage seconds of (a)-(d)."""
+    from jepsen_tpu_torch.ops import regs_kernel
+    hc = main["hists"]["c"]
+    info_read = inert_read_span(hc)
+    red = copy_history(hc)
+    red.ops = [o for o in red.ops if o.index not in info_read]
+    ci = crash_inputs(red)
+    ri = relaxed_inputs(main["hists"]["b"])
+    ks = list(range(min(16, ci["K"])))
+    ctx = multiprocessing.get_context("spawn")
+    res = {}
+    with ProcessPoolExecutor(3, mp_context=ctx) as pool:
+        f_slice = pool.submit(plain_crash_job, ci, "crash", ks)
+        f_rel = pool.submit(plain_crash_job, ri, "relaxed")
+        T, work, nbad, ms = crash_run(ci, DEV, "crash", reps=5)
+        vd = regs_kernel.compose(torch.from_numpy(T).to(DEV),
+                                 [ci["K"]]).cpu()[0].tolist()
+        b_full = seg_bound_ms(int(work.sum()),
+                              crash_wire_bytes(ci, T.nbytes), clock_hz)
+        log(f"[crash-timing] tier-2 launch of (c): K={ci['K']} segments, "
+            f"rows={int(ci['nrows'].sum())}, R={ci['R']} (rn={ci['rn']}, "
+            f"nc={ci['nc']}), J={ci['Sn'] << ci['nc']}: verdict {vd[:2]}, "
+            f"kernel {ms:.3f} ms (mean of 5), bound {b_full:.4f} ms from "
+            f"{int(work.sum())} integer operations ({b_full / ms:.4f} of "
+            f"it)")
+        Ts, ws, _, ms_s = crash_run(ci, DEV, "crash", ks, reps=5)
+        pT, pwork, psecs = f_slice.result()
+        if not (np.array_equal(Ts, pT) and np.array_equal(ws, pwork)
+                and np.array_equal(Ts, T[ks])):
+            raise SystemExit("[crash-timing] tier-2 slice: kernel and plain "
+                             "version disagree")
+        b = seg_bound_ms(int(ws.sum()), crash_wire_bytes(
+            dict(ci, offs=ci["offs"][ks]), Ts.nbytes), clock_hz)
+        res["crash"] = dict(ms=ms_s, plain_ms=1e3 * psecs, bound_ms=b,
+                            err=int(np.abs(Ts.astype(np.int64)
+                                           - pT.astype(np.int64)).max()))
+        log(f"[crash-timing] tier-2 launch of (c), segments 0..{ks[-1]}: kernel "
+            f"{ms_s:.3f} ms (mean of 5), plain (CPU, one thread) "
+            f"{1e3 * psecs:.1f} ms, bound {b:.4f} ms from {int(ws.sum())} "
+            f"integer operations ({b / ms_s:.4f} of it); equal")
+        Tr, wr, _, ms_r = crash_run(ri, DEV, "relaxed", reps=5)
+        vdr = regs_kernel.compose(torch.from_numpy(Tr).to(DEV),
+                                  [ri["K"]]).cpu()[0].tolist()
+        dead = vdr[1]
+        seed = vdr[2] & 0xFFFFFFFF
+        dr, dw, _, ms_d = crash_run(ri, DEV, "death", [dead], seed, reps=5)
+        t = time.perf_counter()
+        pdr, pdw, _ = plain_crash_job(ri, "death", [dead], seed)
+        pd_ms = 1e3 * (time.perf_counter() - t)
+        pTr, pwr, rsecs = f_rel.result()
+        if not (np.array_equal(Tr, pTr) and np.array_equal(wr, pwr)
+                and int(dr[0]) == int(pdr[0])
+                and np.array_equal(dw, pdw)):
+            raise SystemExit("[crash-timing] relaxed: kernel and plain "
+                             "version disagree")
+        br = seg_bound_ms(int(wr.sum()), crash_wire_bytes(ri, Tr.nbytes),
+                          clock_hz)
+        bd = seg_bound_ms(int(dw.sum()), crash_wire_bytes(
+            dict(ri, offs=ri["offs"][[dead]]), 4), clock_hz)
+        res["relaxed"] = dict(ms=ms_r, plain_ms=1e3 * rsecs, bound_ms=br,
+                              err=int(np.abs(Tr.astype(np.int64)
+                                             - pTr.astype(np.int64)).max()))
+        log(f"[crash-timing] relaxed launch of (b): K={ri['K']} segments, "
+            f"rows={int(ri['nrows'].sum())}, R={ri['R']}, Sn={ri['Sn']}, "
+            f"{ri['nC']} crash prefixes: dead segment {dead}, kernel "
+            f"{ms_r:.3f} ms (mean of 5), plain {1e3 * rsecs:.1f} ms, bound "
+            f"{br:.4f} ms from {int(wr.sum())} integer operations "
+            f"({br / ms_r:.4f} of it); equal")
+        log(f"[crash-timing] death-row launch of (b)'s dead segment: row "
+            f"{int(dr[0])}, kernel {ms_d:.3f} ms (mean of 5), plain "
+            f"{pd_ms:.1f} ms, bound {bd:.5f} ms from {int(dw.sum())} "
+            f"integer operations; equal")
+    for tag, m in main.items():
+        if tag != "hists":
+            log(f"[crash-timing] {tag}: {m['s']:.3f} s; stages: "
+                f"{stage_line(m['st'])}")
+    return res
+
 
 def main() -> int:
     smi, clock_hz = phase_device()
@@ -976,6 +1545,10 @@ def main() -> int:
     one = phase_timing(batches, clock_hz)
     seg_hs, seg_launches = phase_seg_main()
     seg = phase_seg_grid(seg_hs, clock_hz)
+    crash_err = phase_crash_kernel(clock_hz)
+    crash_main = phase_crash_main(seg_hs)
+    crash_launches = phase_crash_pipeline(seg_hs, crash_main)
+    crash = phase_crash_timing(crash_main, clock_hz)
     kernels = [{"name": f"wgl_deep_{arm}", "route": "cuda",
                 "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",
                 "replaces": "jepsen_tpu/ops/wgl_deep.py:358",
@@ -994,6 +1567,18 @@ def main() -> int:
                     "plain_ms": seg["group"]["plain_ms"],
                     "bound_ms": seg["group"]["bound_ms"],
                     "bound_by": "operations", "library_ms": None})
+    for name, kind in (("wgl_regs_crash", "crash"),
+                       ("wgl_regs_relaxed", "relaxed")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "jepsen_tpu_torch/csrc/wgl_crash.cu",
+                        "replaces": "jepsen_tpu/ops/wgl_seg.py:258",
+                        "launches": crash_launches[name],
+                        "max_abs_err": max(crash_err[kind],
+                                           crash[kind]["err"]),
+                        "ms": crash[kind]["ms"],
+                        "plain_ms": crash[kind]["plain_ms"],
+                        "bound_ms": crash[kind]["bound_ms"],
+                        "bound_by": "operations", "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 The `Checker` protocol and the linearizability checker, which runs
 `ops.wgl_seg.check` on the card (or the kernels' plain versions on a CPU
 device the caller names) instead of knossos: the register-delta segment
-kernel at overlap depth R <= 6, the deep-overlap kernel at 7..16.  Every checker returns a dict
-with at least a "valid?" key: True, False or "unknown"."""
+kernel at overlap depth R <= 6, the deep-overlap kernel at 7..16, and
+the crash tiers for histories with crashed (:info) calls.  Every
+checker returns a dict with at least a "valid?" key: True, False or
+"unknown"."""
 
 from __future__ import annotations
 
@@ -27,10 +29,10 @@ class Linearizable(Checker):
     because the caller asks for it.  A model without a device spec
     raises Unsupported under 'device'/'auto'.
 
-    Keyword options: max_states, max_open_bits, localize (the device
-    check); max_configs, time_limit (the CPU oracle)."""
+    Keyword options: max_states, max_open_bits, localize, stats (the
+    device check); max_configs, time_limit (the CPU oracle)."""
 
-    _SEG_KEYS = ("max_states", "max_open_bits", "localize")
+    _SEG_KEYS = ("max_states", "max_open_bits", "localize", "stats")
     _CPU_KEYS = ("max_configs", "time_limit")
 
     def __init__(self, model=None, algorithm: str = "auto", device=None,

@@ -5,11 +5,11 @@
     ├── BackendUnavailable no usable device: no card where the caller
     │                     asked for one, or a device type the port has
     │                     no kernel for
-    └── Unsupported       a history or model outside the ported slice
-                          (crashed calls, overlap past the deep plane,
-                          too many states, an undecomposable or
-                          spec-less model); the message names the
-                          ROADMAP item that will cover it
+    └── Unsupported       a history or model outside the port
+                          (overlap past the deep plane, too many states,
+                          an undecomposable or spec-less model, crashed
+                          calls that no crash tier settles); the message
+                          names the ROADMAP item that will cover it
 """
 
 from __future__ import annotations

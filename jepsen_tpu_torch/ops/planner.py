@@ -9,7 +9,12 @@ jitted vmap replaced by the model's torch `step` over a written-out
 Routing is the reference's: the register-delta segment kernel where
 `regs_gate` passes (R <= 6), the deep kernel where `deep_gate` passes
 (R 7..16), and every other shape raises `Unsupported` naming the
-ROADMAP item that will cover it."""
+ROADMAP item that will cover it.  Crashed calls (an :info completion,
+or none) are found by `_split_crashed`; the scan carries up to
+MAX_CRASHED of them as permanent slots above the normal ones when asked
+(`_fast_scan(max_crashed=...)`), `crash_gate` says whether the segment
+kernel's crash variant takes them, and `_snapshot_deltas` writes their
+segment wire."""
 
 from __future__ import annotations
 
@@ -21,8 +26,7 @@ import torch
 from jepsen_tpu_torch.errors import Unsupported
 from jepsen_tpu_torch.history import History
 
-# ROADMAP items that own the shapes this slice refuses.
-ITEM_CRASH = "ROADMAP P3 (crash tiers)"
+# ROADMAP items that own the shapes the port refuses.
 ITEM_SERIAL = ("ROADMAP P5 (serial wgl / wgl_batch and candidate-table "
                "engines)")
 ITEM_CPU_AUTO = ("ROADMAP P6 (competition mode and auto routing to the "
@@ -82,12 +86,17 @@ def regs_gate(R: int, Sn: int, U: int, decomposed: bool) -> Optional[str]:
     ids in the u16 wire, a decomposed model with Sn <= 32).  The
     reference's nibble form for undecomposed models (Sn <= 8) has no
     model in this package and is not ported."""
+    return _segment_gate(R, REGS_R_MAX, Sn, U, decomposed)
+
+
+def _segment_gate(R: int, r_max: int, Sn: int, U: int,
+                  decomposed: bool) -> Optional[str]:
     if not decomposed:
         return ("model transitions are not diagonal + rank-1 "
                 f"decomposable: {ITEM_SERIAL}")
-    if not 0 < R <= REGS_R_MAX:
+    if not 0 < R <= r_max:
         return (f"overlap depth R={R} is outside the segment kernel's "
-                f"1..{REGS_R_MAX}")
+                f"1..{r_max}")
     if Sn > REGS_SN_MAX:
         return (f"{Sn} model states exceed the segment kernel's "
                 f"{REGS_SN_MAX}: {ITEM_SERIAL}")
@@ -96,21 +105,61 @@ def regs_gate(R: int, Sn: int, U: int, decomposed: bool) -> Optional[str]:
     return None
 
 
+#: Crashed calls the segment kernel carries as permanent slots (each
+#: doubles its entry axis, J = Sn * 2^nc), the deepest R + nc it walks
+#: with them, and the widest entry axis (the reference's _MAX_CRASHED,
+#: r_cap = 8 and Sn * 2^nc <= 128).
+MAX_CRASHED = 4
+CRASH_R_MAX = 8
+CRASH_J_MAX = 128
+
+
+def crash_gate(R: int, nc: int, Sn: int, U: int,
+               decomposed: bool) -> Optional[str]:
+    """Why the segment kernel cannot carry nc crashed calls as permanent
+    slots above a normal overlap depth R, or None: the reference's
+    `_linear_candidates` for its register-delta engine with crashes
+    (nc <= 4, R + nc <= 8, a decomposed model with Sn <= 32, uop ids in
+    the u16 wire, Sn * 2^nc <= 128).  A refused shape goes to the deep
+    kernel at R + nc when `deep_gate` passes."""
+    if nc > MAX_CRASHED:
+        return (f"{nc} crashed calls exceed the segment kernel's "
+                f"{MAX_CRASHED}")
+    why = _segment_gate(R + nc, CRASH_R_MAX, Sn, U, decomposed)
+    if why is None and (Sn << nc) > CRASH_J_MAX:
+        why = (f"the crash entry axis Sn*2^nc={Sn << nc} exceeds "
+               f"{CRASH_J_MAX}")
+    return why
+
+
+class CrashedCalls(Unsupported):
+    """The history has crashed calls (an :info completion, or none) and
+    the scan was not asked to carry them, or more than it was asked to:
+    `wgl_seg.check`'s crash tiers take such a history."""
+
+
 class _FastKey:
     """One scanned history: rets[r] = (slot, [(open_slot, open_uop),
     ...]) per return event, the open set at that return (target
-    included); `cuts[r]` marks returns after which no call is open;
-    `positions[r]` is the op position of return r in history.ops, which
-    names the failing call of an invalid verdict exactly."""
+    included); `cuts[r]` marks returns after which no normal call is
+    open; `positions[r]` is the op position of return r in history.ops,
+    which names the failing call of an invalid verdict exactly.  A scan
+    that carries crashed calls sets `nc` (their count) and `rn` (the
+    first crashed slot, the normal overlap depth): crashed call j holds
+    slot rn + j and joins every open set from its invoke onward."""
 
-    __slots__ = ("rets", "max_open", "n_calls", "cuts", "positions")
+    __slots__ = ("rets", "max_open", "n_calls", "cuts", "positions", "nc",
+                 "rn")
 
-    def __init__(self, rets, max_open, n_calls, cuts, positions):
+    def __init__(self, rets, max_open, n_calls, cuts, positions, nc=0,
+                 rn=None):
         self.rets = rets
         self.max_open = max_open
         self.n_calls = n_calls
         self.cuts = cuts
         self.positions = positions
+        self.nc = nc
+        self.rn = rn
 
     @property
     def n_rets(self):
@@ -118,12 +167,15 @@ class _FastKey:
 
 
 def _fast_scan(history, spec, seen: dict, rows: list,
-               max_open_bits: int) -> _FastKey:
+               max_open_bits: int, max_crashed: int = 0) -> _FastKey:
     """Pairing + slot assignment + op interning in one pass over the
-    ops.  Raises Unsupported for a history outside the slice (crashed
-    calls, overlap past max_open_bits, ops the model cannot encode) and
-    ValueError for a malformed one (a process invoked twice).  The
-    shared seen/rows interning is touched only on success."""
+    ops.  Raises CrashedCalls for more than `max_crashed` crashed calls,
+    Unsupported for another history outside the slice (overlap past
+    max_open_bits, ops the model cannot encode) and ValueError for a
+    malformed one (a process invoked twice).  Up to `max_crashed`
+    crashed calls take permanent slots above the normal ones (see
+    _FastKey.nc / .rn); cuts count normal open calls only.  The shared
+    seen/rows interning is touched only on success."""
     ops = history.ops if isinstance(history, History) else \
         History(history).ops
     f_codes = spec.f_codes
@@ -145,9 +197,8 @@ def _fast_scan(history, spec, seen: dict, rows: list,
             ip = open_by_process.pop(p, None)
             if ip is not None:
                 fate[ip] = o
-    if open_by_process:
-        raise Unsupported(f"history has calls that never return: "
-                          f"{ITEM_CRASH}")
+    if open_by_process and max_crashed == 0:
+        raise CrashedCalls("history has calls that never return")
     if n_client == 0:
         return _FastKey([], 0, 0, cuts=np.zeros(0, np.int32),
                         positions=np.zeros(0, np.int32))
@@ -160,6 +211,7 @@ def _fast_scan(history, spec, seen: dict, rows: list,
     slot_of: dict = {}
     uop_of: dict = {}
     open_list: list = []
+    crashed_list: list = []          # [(pseudo-slot -2 - j, uop), ...]
     rets: list = []
     cuts: list = []
     positions: list = []
@@ -172,13 +224,14 @@ def _fast_scan(history, spec, seen: dict, rows: list,
             continue
         t = o.type
         if t == "invoke":
-            comp = fate[pos]
-            if comp.type == "info":
-                raise Unsupported(f"history has crashed (:info) calls: "
-                                  f"{ITEM_CRASH}")
-            if comp.type == "fail":
+            comp = fate.get(pos)
+            crashed = comp is None or comp.type == "info"
+            if crashed and len(crashed_list) >= max_crashed:
+                raise CrashedCalls("history has crashed (:info) calls")
+            if not crashed and comp.type == "fail":
                 continue             # the pair never happened: dropped
-            v = o.value if o.value is not None else comp.value
+            v = o.value if (o.value is not None or comp is None) \
+                else comp.value
             fc = f_codes.get(o.f, -1)
             if fc < 0:
                 raise Unsupported(f"model has no f-code for {o.f!r}: "
@@ -206,6 +259,11 @@ def _fast_scan(history, spec, seen: dict, rows: list,
             if u is None:
                 u = new_seen[key] = len(rows) + len(new_rows)
                 new_rows.append(key)
+            if crashed:
+                # a permanent pseudo-slot, remapped to rn + j at the end
+                crashed_list.append((-2 - len(crashed_list), u))
+                n_calls += 1
+                continue
             s = free.pop() if free else next_slot
             if s == next_slot:
                 next_slot += 1
@@ -224,7 +282,7 @@ def _fast_scan(history, spec, seen: dict, rows: list,
             if s is None:
                 continue
             rets.append((s, [(slot_of[q], uop_of[q])
-                             for q in open_list]))
+                             for q in open_list] + crashed_list))
             positions.append(pos)
             open_list.remove(p)
             del slot_of[p]
@@ -234,9 +292,87 @@ def _fast_scan(history, spec, seen: dict, rows: list,
 
     seen.update(new_seen)
     rows.extend(new_rows)
+    nc = len(crashed_list)
+    if nc:
+        rn = max_open
+        rets = [(s, [(q if q >= 0 else rn - 2 - q, u) for q, u in cands])
+                for s, cands in rets]
+        return _FastKey(rets, max_open, n_calls,
+                        cuts=np.asarray(cuts, np.int32),
+                        positions=np.asarray(positions, np.int32), nc=nc,
+                        rn=rn)
     return _FastKey(rets, max_open, n_calls,
                     cuts=np.asarray(cuts, np.int32),
                     positions=np.asarray(positions, np.int32))
+
+
+def _split_crashed(ops):
+    """The crashed client calls of one history (an :info completion, or
+    no completion), in invocation order: (drop bool[n], crashed), where
+    drop marks each crashed invoke and its :info completion and crashed
+    lists (invoke position, :info position or -1, invoke op).  Raises
+    ValueError for a process invoked twice."""
+    open_by_process: dict = {}
+    info_of: dict = {}
+    for pos, o in enumerate(ops):
+        p = o.process
+        if not (type(p) is int and p >= 0):
+            continue
+        if o.type == "invoke":
+            if p in open_by_process:
+                raise ValueError(f"process {p} double-invoked at {pos}")
+            open_by_process[p] = pos
+        else:
+            ip = open_by_process.pop(p, None)
+            if ip is not None and o.type == "info":
+                info_of[ip] = pos
+    crashed_pos = sorted(set(open_by_process.values()) | set(info_of))
+    drop = np.zeros(len(ops), bool)
+    crashed = []
+    for ip in crashed_pos:
+        cp = info_of.get(ip, -1)
+        drop[ip] = True
+        if cp >= 0:
+            drop[cp] = True
+        crashed.append((ip, cp, ops[ip]))
+    return drop, crashed
+
+
+def _encode_op(op, f_codes) -> tuple[int, int, int, bool]:
+    """An op's (f, a, b, a_ok) encoding from its own value: an int in a,
+    an [a, b] pair across both, None or anything else not-ok (the
+    reference's `wgl._generic_encode_op`)."""
+    fc = f_codes.get(op.f, -1)
+    v = op.value
+    if isinstance(v, bool):
+        return fc, int(v), 0, True
+    if isinstance(v, int):
+        return fc, v, 0, True
+    if (isinstance(v, (list, tuple)) and len(v) == 2
+            and all(isinstance(x, int) and not isinstance(x, bool)
+                    for x in v)):
+        return fc, v[0], v[1], True
+    return fc, 0, 0, False
+
+
+def _intern_crashed(crashed, spec, seen: dict, rows: list) -> list:
+    """Intern each crashed call's invoke op beside the scanned ops, so
+    the state enumeration closes over both.  Returns one uop id per
+    crashed call, -1 for an op the model cannot encode (never inert)."""
+    out = []
+    INT32 = 2 ** 31
+    for _, _, o in crashed:
+        fc, av, bv, okv = _encode_op(o, spec.f_codes)
+        if fc < 0 or not (-INT32 <= av < INT32 and -INT32 <= bv < INT32):
+            out.append(-1)
+            continue
+        key = (fc, av, bv, okv)
+        u = seen.get(key)
+        if u is None:
+            u = seen[key] = len(rows)
+            rows.append(key)
+        out.append(u)
+    return out
 
 
 def _segment_ends(cut_flags: np.ndarray, target: int) -> list:
@@ -515,3 +651,44 @@ def _stream_deltas(fk: _FastKey, seg_ends, I: int):
     col = from_end % I
     return (rho[key_end - 1] + 1, ret_key, rho, rs.astype(np.int64),
             ret_key[ent_ret], row, col, dslot, duop)
+
+
+def _snapshot_deltas(fk: _FastKey, seg_ends, R: int, I: int):
+    """The delta layout of `_stream_deltas` for a scan that carries
+    crashed calls, each segment a key of the reference's snapshot-diff
+    `_pack_regs(_segments_from_fk(fk, R, seg_ends))`: a return's deltas
+    are the (slot -> uop) cells of its open set that the previous
+    return's set (with that return's slot freed) lacks, in slot order,
+    and a segment's first return registers its whole open set.  So
+    every crashed call open at a segment is registered on its permanent
+    slot before the segment's first return, in virtual rows where the
+    burst spills past I, and is never returned.  R is the slot count
+    (rn + nc).  Returns the arrays of `_stream_deltas`."""
+    rs, counts, cs, cu = _fk_arrays(fk)
+    NR = len(rs)
+    K = len(seg_ends)
+    nr_all = np.diff(np.concatenate([[0], seg_ends])).astype(np.int64)
+    key_end = np.cumsum(nr_all)
+    key_start = np.concatenate([[0], key_end[:-1]])
+    ret_key = np.repeat(np.arange(K), nr_all)
+    M = np.full((NR, R), -1, np.int64)           # M[r, slot] = uop
+    M[np.repeat(np.arange(NR), counts), cs.astype(np.int64)] = cu
+    Oprev = np.full_like(M, -1)
+    Oprev[1:] = M[:-1]
+    Oprev[np.arange(1, NR), rs[:-1].astype(np.int64)] = -1
+    Oprev[key_start] = -1
+    D = (M != -1) & (M != Oprev)
+    c = D.sum(1).astype(np.int64)                # deltas per return
+    e = np.maximum(0, (c + I - 1) // I - 1)     # virtual rows per return
+    ecum = np.cumsum(e)
+    ebase = np.concatenate([[0], ecum])[key_start]
+    rho = np.arange(NR) - key_start[ret_key] + (ecum - ebase[ret_key])
+    ent_ret, dslot = np.nonzero(D)               # ordered by (ret, slot)
+    duop = M[ent_ret, dslot]
+    j = np.arange(len(ent_ret)) - (np.cumsum(c) - c)[ent_ret]
+    from_end = c[ent_ret] - 1 - j
+    row = rho[ent_ret] - from_end // I
+    col = from_end % I
+    return (rho[key_end - 1] + 1, ret_key, rho, rs.astype(np.int64),
+            ret_key[ent_ret], row, col, dslot.astype(np.int64),
+            duop.astype(np.int64))

@@ -42,6 +42,7 @@ LAUNCHES = 0
 J_MAX = 32                      # entry states per segment, one warp
 I = 2                           # invoke columns per event row of the wire
 ROW_BYTES = 1 + 3 * I           # ret, I slots, I u16 uop ids
+CROW_ROW_BYTES = ROW_BYTES + 2  # and an i16 crash-prefix index
 #: Integer operations of the `work=` count (the bound model of PERF.md,
 #: equal to the kernel's constants).  Per plane word of a closure pass of
 #: slot b < 5: the lacks-slot select, the diagonal select, the shift, the
@@ -69,16 +70,24 @@ def plane_width(R: int) -> int:
     return max(1, (1 << R) >> 5)
 
 
-def pack_stream(fk, seg_ends, n_in: int):
+def pack_stream(fk, seg_ends, n_in: int, crow=None):
     """The segment wire of one history cut at `seg_ends`, with n_in (1
-    or 2) invoke columns in use (`planner._stream_deltas`): segment k's
-    rows, up to its last return, in the compact layout of
-    `wgl_deep.pack_events_compact` (ret+1 u8[L] ++ islot+1 u8[L*2] ++
-    iuop u16-LE[L*2]) with no row padding; an empty cell is 0.  Returns
-    (cbuf u8, offs int64[K], nrows int32[K])."""
-    rows, rkey, rho, rs, dkey, row, col, dslot, duop = \
-        planner._stream_deltas(fk, seg_ends, n_in)
-    size = ROW_BYTES * rows
+    or 2) invoke columns in use: segment k's rows, up to its last
+    return, in the compact layout of `wgl_deep.pack_events_compact`
+    (ret+1 u8[L] ++ islot+1 u8[L*2] ++ iuop u16-LE[L*2]) with no row
+    padding; an empty cell is 0.  The deltas come from
+    `planner._stream_deltas`, or, for a scan that carries crashed calls
+    (fk.nc > 0), from `planner._snapshot_deltas`.  With `crow` (one
+    int per return: the relaxed crash tier's crash-prefix index), each
+    segment's rows also carry an i16-LE index after the uop ids, 0 on
+    virtual rows: CROW_ROW_BYTES a row.  Returns (cbuf u8, offs
+    int64[K], nrows int32[K])."""
+    if fk.nc:
+        d = planner._snapshot_deltas(fk, seg_ends, fk.rn + fk.nc, n_in)
+    else:
+        d = planner._stream_deltas(fk, seg_ends, n_in)
+    rows, rkey, rho, rs, dkey, row, col, dslot, duop = d
+    size = (ROW_BYTES if crow is None else CROW_ROW_BYTES) * rows
     offs = np.concatenate([[0], np.cumsum(size)[:-1]]).astype(np.int64)
     buf = np.zeros(int(size.sum()), np.uint8)
     buf[offs[rkey] + rho] = (rs + 1).astype(np.uint8)
@@ -88,6 +97,11 @@ def pack_stream(fk, seg_ends, n_in: int):
     p = base + 3 * L + 2 * cell
     buf[p] = (duop & 0xFF).astype(np.uint8)
     buf[p + 1] = (duop >> 8).astype(np.uint8)
+    if crow is not None:
+        c = np.asarray(crow, np.int64)
+        p = offs[rkey] + ROW_BYTES * rows[rkey] + 2 * rho
+        buf[p] = (c & 0xFF).astype(np.uint8)
+        buf[p + 1] = ((c >> 8) & 0xFF).astype(np.uint8)
     return buf, offs, rows.astype(np.int32)
 
 
@@ -294,7 +308,8 @@ def compose(T: torch.Tensor, seg_counts) -> torch.Tensor:
     Prefix products by doubling (Hillis-Steele): log2(K) levels of
     `torch.bmm` on 0/1 float32 matrices, thresholded > 0 after each.
     The products are exact under TF32 as in full float32: the entries
-    are 0 or 1 and a sum is at most J <= 32.  `alive` is monotone (the
+    are 0 or 1 and a sum is at most J <= 128 (the crash variant's
+    Sn * 2^nc entry configs).  `alive` is monotone (the
     empty set is absorbing), so its count IS the first dead index;
     histories shorter than the longest are padded with identities."""
     dev = T.device

@@ -13,8 +13,9 @@ verdict names the exact failing event, which `map_witness` maps to the
 failing call's invoke op.
 
 The model must decompose into diagonal + rank-1 transitions with at
-most 32 states; histories must be crash-free with overlap depth
-R <= 16.  Everything else raises `Unsupported` (see ops.planner).
+most 32 states, at overlap depth R <= 16; crashed calls ride as
+permanent slots, counted in R (`ops.wgl_seg`'s crash tier 2).
+Everything else raises `Unsupported` (see ops.planner).
 `ops.wgl_seg` routes only R 7..16 here, as the reference does; this
 module's own entry points (`check_tables`, `check_pipeline`) walk any
 depth 1..16 a caller hands them."""
@@ -33,9 +34,9 @@ from jepsen_tpu_torch.ops import deep_kernel, planner
 
 EB = deep_kernel.EB
 
-WHY = ("deep-overlap kernel: crash-free, decomposable model with Sn <= 32 "
-       "and overlap depth 7 <= R <= 16 (R <= 6 runs the register-delta "
-       "segment kernel, ops.wgl_seg)")
+WHY = ("deep-overlap kernel: decomposable model with Sn <= 32 and overlap "
+       "depth 7 <= R <= 16 (R <= 6 runs the register-delta segment "
+       "kernel, ops.wgl_seg)")
 
 
 def _snp(Sn: int) -> int:
@@ -231,7 +232,8 @@ def pack_pipeline(model, histories, *, max_open_bits=None,
     holds the entries already decided on the host (empty or out-of-scope
     histories) and None for the rest; `grid` is the `_Grid` to launch;
     pend[k] = (i, fk, ret_t, ops, R, Sn) describes the grid's k-th CTA,
-    history i."""
+    history i.  A history with crashed calls is in neither: its entry
+    stays None."""
     dev = resolve_device(device)
     spec = model.device_spec()
     if spec is None:
@@ -254,6 +256,9 @@ def pack_pipeline(model, histories, *, max_open_bits=None,
         ops = h.ops
         try:
             fk = planner._fast_scan(h, spec, seen, rows, max_open_bits)
+        except planner.CrashedCalls:
+            lap("scan")              # check_pipeline's crash tiers take it
+            continue
         except Unsupported as e:
             results[i] = _unsupported(e, i)
             lap("scan")
@@ -315,7 +320,9 @@ def check_pipeline(model, histories, *, max_open_bits=None,
     history, each at its own overlap depth) on the current stream, and
     synchronise once for all verdicts.
 
-    A history outside the slice does not poison the batch: its entry is
+    A history with crashed calls goes through `wgl_seg.check`'s crash
+    tiers after the grid, as the reference's stragglers do.  A history
+    outside the port does not poison the batch: its entry is
     {"valid?": "unknown", "cause": "unsupported", "error": {...}} with
     the Unsupported message naming the ROADMAP item, and the others
     keep their verdicts.  As in the reference pipeline, once the shared
@@ -370,4 +377,15 @@ def check_pipeline(model, histories, *, max_open_bits=None,
     for r in results:
         if r is not None and r.get("engine") == "wgl_deep":
             r["dispatch"] = record
+    from jepsen_tpu_torch.ops import wgl_seg    # wgl_seg imports this module
+    for i, r in enumerate(results):
+        if r is None:
+            try:
+                results[i] = wgl_seg.check(
+                    model, histories[i], max_states=max_states,
+                    max_open_bits=(planner.deep_r_max() if max_open_bits
+                                   is None else max_open_bits), device=dev)
+            except Unsupported as e:
+                results[i] = _unsupported(e, i)
+    lap("stragglers")
     return results

@@ -2,29 +2,36 @@
 point the `Linearizable` checker calls, and `check_pipeline()` for many
 histories.
 
-Routing is the reference's (`jepsen_tpu/ops/wgl_seg.py::_check_fast`,
-nc = 0): a crash-free history over a decomposed model with Sn <= 32
-runs the register-delta segment kernel at overlap depth R <= 6
-(`engine: "wgl_seg"`) and the deep kernel at R 7..16
-(`engine: "wgl_deep"`).  Shapes outside both raise `Unsupported` naming
-the ROADMAP item that will cover them; nothing falls through to another
-engine.
+Routing is the reference's (`jepsen_tpu/ops/wgl_seg.py::_check_fast`):
+a history over a decomposed model with Sn <= 32 runs the register-delta
+segment kernel at overlap depth R <= 6 (`engine: "wgl_seg"`) and the
+deep kernel at R 7..16 (`engine: "wgl_deep"`).  A history with crashed
+calls (an :info completion, or none) goes through the reference's crash
+tiers (`_check_crashed`): inert crashed calls are dropped (tier 1); up
+to planner.MAX_CRASHED others ride as permanent slots, in the segment
+kernel's crash variant while R + nc <= 8 and Sn * 2^nc <= 128, else in
+the deep kernel (tier 2); past that, a valid verdict on the history
+with every crash stripped is the history's (tier 3), and an invalid one
+is followed by a sound refutation under relaxed crash semantics (tier
+4).  Shapes outside all of these raise `Unsupported` naming the ROADMAP
+item that will cover them; nothing falls through to another engine.
 
-The segment route cuts a history at its quiescent returns (no call
-open) into segments of at least TARGET_RETURNS returns.
-Only the model state crosses such a cut, so each segment is a boolean
-transfer matrix T_k[s0, s1] over model states, computed by one kernel
-lane per (segment, entry state) (`ops.regs_kernel`), and the history is
-linearizable iff a state survives the chained product from the initial
-state.  The composition runs on the device and returns six words: valid,
-the first dead segment and the entry configs reachable at the cut
-before it, from which `_localize_segment` replays only the dead segment
-through the CPU oracle to name the exact failing op."""
+The segment route cuts a history at its quiescent returns (no normal
+call open) into segments of at least TARGET_RETURNS returns.
+Only the model state (and which crashed calls took effect) crosses such
+a cut, so each segment is a boolean transfer matrix T_k over entry
+configs, computed by one kernel lane per (segment, entry config)
+(`ops.regs_kernel`, `ops.crash_kernel`), and the history is
+linearizable iff a config survives the chained product from the
+initial one.  The composition runs on the device and returns six words:
+valid, the first dead segment and the entry configs reachable at the
+cut before it, from which `_localize_segment` replays only the dead
+segment through the CPU oracle to name the exact failing op."""
 
 from __future__ import annotations
 
 import time
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,12 +39,23 @@ import torch
 from jepsen_tpu_torch.backend import resolve_device
 from jepsen_tpu_torch.errors import Unsupported
 from jepsen_tpu_torch.history import History
-from jepsen_tpu_torch.ops import (deep_kernel, planner, regs_kernel, wgl_cpu,
-                                  wgl_deep)
+from jepsen_tpu_torch.ops import (crash_kernel, deep_kernel, planner,
+                                  regs_kernel, wgl_cpu, wgl_deep)
 
-WHY = ("register-delta segment kernel: crash-free, decomposable model with "
-       "Sn <= 32 and overlap depth R <= 6, one lane per (quiescent "
-       "segment, entry state), composed on the device")
+WHY = ("register-delta segment kernel: decomposable model with Sn <= 32 and "
+       "overlap depth R <= 6, one lane per (quiescent segment, entry "
+       "state), composed on the device")
+WHY_CRASH = ("crash tier 2: {nc} crashed calls as permanent slots "
+             "{rn}..{top} of the {kernel} (R = {R} with them)")
+WHY_INERT = "crash tier 1: {n} inert crashed calls dropped; "
+WHY_STRIPPED = ("crash tier 3: the history with its {n} crashed calls "
+                "stripped is valid, so it is; ")
+WHY_RELAXED = ("crash tier 4: refuted under relaxed crash semantics (the "
+               "segment kernel with crash-prefix closures, then the death "
+               "row of the dead segment)")
+#: Caps of the CPU oracle where it only adds artifacts or a witness the
+#: device cannot name (deep prefixes, crashed-call segments).
+ORACLE_CAPS = {"time_limit": 15, "max_configs": 500_000}
 
 #: Returns per segment: a segment closes at the first quiescent return
 #: at least this many returns in (the reference's
@@ -173,13 +191,21 @@ def _localize_segment(spec, ops, fk, seg_ends, dead: int, mask_words,
 def _mark_dead(result: dict, vd, localize: bool, model, spec, history,
                ops, fk, seg_ends, states):
     """Add an invalid verdict's keys to `result`, and with `localize`
-    the exact witness and the oracle's artifacts."""
+    the exact witness and the oracle's artifacts.  With crashed calls in
+    the walk (fk.nc > 0) the entry configs are (crashed mask, state)
+    pairs the segment replay cannot seed, so the whole history goes to
+    the capped oracle, which names the witness when it finishes."""
     result["anomaly"] = "nonlinearizable"
     result["dead_segment"] = int(vd[1])
     if not localize:
         return
-    oracle = _localize_segment(spec, ops, fk, seg_ends, int(vd[1]),
-                               vd[2:6], states)
+    if fk.nc:
+        oracle = wgl_cpu.check(model, history, **ORACLE_CAPS)
+        if oracle.get("valid?") is not False:
+            return
+    else:
+        oracle = _localize_segment(spec, ops, fk, seg_ends, int(vd[1]),
+                                   vd[2:6], states)
     if oracle is None:
         # the whole-history oracle stops at the first non-linearizable op
         oracle = wgl_cpu.check(model, history)
@@ -191,7 +217,8 @@ def _mark_dead(result: dict, vd, localize: bool, model, spec, history,
 def _check_regs(model, spec, history, ops, fk, states, legal, next_state,
                 decomposition, *, R, Sn, localize, dev,
                 t0) -> dict[str, Any]:
-    """One history on the segment kernel at exact rounds (R)."""
+    """One history on the segment kernel at exact rounds (R), its crashed
+    calls (fk.nc) on permanent slots fk.rn.. of the crash variant."""
     seg_ends = planner._segment_ends(fk.cuts, TARGET_RETURNS)
     aux, UP = _aux(planner._pack_uop_tables(legal, next_state,
                                             *decomposition))
@@ -199,8 +226,13 @@ def _check_regs(model, spec, history, ops, fk, states, legal, next_state,
     grid.add(fk, seg_ends, min(2, R))
     t_plan = time.monotonic() - t0
     t1 = time.monotonic()
-    vd, bad = _launch(grid.to_device(aux, dev), grid.seg_counts, UP, R=R,
-                      Sn=Sn, rounds=R)
+    wire = grid.to_device(aux, dev)
+    if fk.nc:
+        T, bad = crash_kernel.crash_scan(*wire, R=R, Sn=Sn, UP=UP, nc=fk.nc,
+                                         rn=fk.rn)
+        vd = regs_kernel.compose(T, grid.seg_counts)
+    else:
+        vd, bad = _launch(wire, grid.seg_counts, UP, R=R, Sn=Sn, rounds=R)
     vd = _fetch([vd], [bad])[0]
     result: dict[str, Any] = {
         "valid?": int(vd[1]) < 0,
@@ -260,7 +292,7 @@ def _check_deep(model, ops, fk, legal, next_state, diag_w, const_w,
         result["localized"] = True
         prefix = ops if pos is None else ops[:pos + 1]
         oracle = wgl_cpu.check(model, History(list(prefix)),
-                               time_limit=15, max_configs=500_000)
+                               **ORACLE_CAPS)
         if oracle.get("valid?") is False:
             for key in ("final-paths", "configs"):
                 if key in oracle:
@@ -278,13 +310,61 @@ def _model_tables(spec, model, rows: list, max_states: int):
     return states, legal, next_state, planner._decompose(legal, next_state)
 
 
+def _check_scanned(model, spec, history, ops, fk, rows, *, max_states,
+                   localize, dev, t0) -> dict[str, Any]:
+    """One scanned history: the segment kernel where its gate passes
+    (`regs_gate`, or `crash_gate` with the scan's crashed calls on
+    permanent slots), else the deep kernel at R (+ nc).  Raises
+    Unsupported outside both."""
+    record = {"engine": "wgl_seg", "why": WHY, "batch": 1,
+              "device": str(dev)}
+    if fk.n_calls == 0:
+        return {"valid?": True, "op_count": 0, "backend": dev.type,
+                "engine": "wgl_seg", "dispatch": record}
+    states, legal, next_state, dec = _model_tables(spec, model, rows,
+                                                   max_states)
+    Sn = states.shape[0]
+    nc = fk.nc
+    R = fk.rn + nc if nc else int(fk.max_open)
+    U = int(legal.shape[0])
+    decomposed = dec[0] is not None
+    if nc:
+        gate = planner.crash_gate(fk.rn, nc, Sn, U, decomposed)
+    else:
+        gate = planner.regs_gate(R, Sn, U, decomposed)
+    if gate is None:
+        if nc and (not fk.n_rets or fk.cuts[-1] != 1):
+            raise Unsupported("no quiescent return to close a segment at")
+        result = _check_regs(
+            model, spec, history, ops, fk, states, legal, next_state, dec,
+            R=R, Sn=Sn, localize=localize, dev=dev, t0=t0)
+        kernel = "segment kernel, J = Sn * 2^nc = " + str(Sn << nc)
+    else:
+        why = planner.deep_gate(R, Sn, U, decomposed)
+        if why is not None:
+            raise Unsupported(why)
+        result = _check_deep(model, ops, fk, legal, next_state, *dec, R=R,
+                             Sn=Sn, localize=localize, device=dev, t0=t0)
+        record = dict(record, engine="wgl_deep", why=wgl_deep.WHY)
+        kernel = "deep kernel"
+    if nc:
+        result["crashed"] = nc
+        record["why"] = WHY_CRASH.format(nc=nc, rn=fk.rn, top=R - 1,
+                                         kernel=kernel, R=R)
+    result["dispatch"] = dict(record, R=R)
+    return result
+
+
 def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
-          localize: bool = True, device=None) -> dict[str, Any]:
+          localize: bool = True, device=None, stats=None) -> dict[str, Any]:
     """Linearizability of one history: the segment kernel at R <= 6,
-    the deep kernel at 7..16.  Returns a knossos-shaped analysis map
-    with a `dispatch` record (engine, why, R).  Raises Unsupported for
-    a history or model outside the slice and BackendUnavailable when
-    the device is missing."""
+    the deep kernel at 7..16, and the crash tiers for a history with
+    crashed calls.  Returns a knossos-shaped analysis map with a
+    `dispatch` record (engine, why, R).  Raises Unsupported for a
+    history or model outside the port and BackendUnavailable when the
+    device is missing.  `stats`, when given a dict, receives host
+    seconds per stage of a history with crashed calls (scan, split,
+    tier2, stripped, relaxed, oracle)."""
     dev = resolve_device(device)
     spec = model.device_spec()
     if spec is None:
@@ -295,30 +375,291 @@ def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
     rows: list = []
     ops = history.ops if isinstance(history, History) else \
         History(history).ops
-    fk = planner._fast_scan(ops, spec, seen, rows, max_open_bits)
-    record = {"engine": "wgl_seg", "why": WHY, "batch": 1,
-              "device": str(dev)}
-    if fk.n_calls == 0:
-        return {"valid?": True, "op_count": 0, "backend": dev.type,
-                "engine": "wgl_seg", "dispatch": record}
-    states, legal, next_state, dec = _model_tables(spec, model, rows,
-                                                   max_states)
-    Sn = states.shape[0]
+    lap = wgl_deep._laps({} if stats is None else stats)
+    try:
+        fk = planner._fast_scan(ops, spec, seen, rows, max_open_bits)
+    except planner.CrashedCalls:
+        lap("scan")
+        return _check_crashed(model, spec, history, ops,
+                              max_states=max_states,
+                              max_open_bits=max_open_bits,
+                              localize=localize, dev=dev, t0=t0, lap=lap)
+    return _check_scanned(model, spec, history, ops, fk, rows,
+                          max_states=max_states, localize=localize, dev=dev,
+                          t0=t0)
+
+
+class _Crashes(NamedTuple):
+    """Tier 1's reading of a history with crashed calls: drop marks each
+    crashed invoke and its :info completion, crashed lists them
+    (`planner._split_crashed`), and the stripped history's ops and the
+    crashed ops are interned together (seen, rows; crash_uop[i] = -1
+    for an op the model cannot encode) over one state enumeration;
+    inert[i] says the crashed op is legal and the identity on every
+    state."""
+    drop: np.ndarray
+    crashed: list
+    stripped: list
+    seen: dict
+    rows: list
+    crash_uop: list
+    inert: list
+    states: np.ndarray
+    legal: np.ndarray
+    next_state: np.ndarray
+
+
+def _split(model, spec, ops, *, max_states, max_open_bits) -> _Crashes:
+    drop, crashed = planner._split_crashed(ops)
+    stripped = [o for pos, o in enumerate(ops) if not drop[pos]]
+    seen: dict = {}
+    rows: list = []
+    planner._fast_scan(stripped, spec, seen, rows, max_open_bits)
+    crash_uop = planner._intern_crashed(crashed, spec, seen, rows)
+    states, legal, next_state, _ = _model_tables(spec, model, rows,
+                                                 max_states)
+    eye = np.arange(legal.shape[1])
+    inert = [u >= 0 and bool(legal[u].all())
+             and bool((next_state[u] == eye).all()) for u in crash_uop]
+    return _Crashes(drop, crashed, stripped, seen, rows, crash_uop, inert,
+                    states, legal, next_state)
+
+
+def _check_crashed(model, spec, history, ops, *, max_states, max_open_bits,
+                   localize, dev, t0, lap) -> dict[str, Any]:
+    """A history with crashed calls, in the reference's tiers
+    (`_check_crashed_fast`; a crashed call may be linearized at any
+    point after its invoke, or never):
+
+    1. a crashed call whose op is legal and the identity on every state
+       constrains nothing and is dropped;
+    2. up to planner.MAX_CRASHED others ride as permanent slots
+       (`_check_scanned` on the history without the inert ones): exact;
+    3. past that (or where tier 2's kernels refuse the shape), a valid
+       verdict on the history with every crashed call stripped is the
+       history's, since no crashed call must be linearized;
+    4. a stripped history that dies is refuted, where it can be, under
+       relaxed crash semantics (`_relaxed_refute`): sound.
+
+    Raises Unsupported naming the serial engines (ROADMAP P5) when every
+    tier leaves the history open.  `lap(stage)` adds the seconds since
+    its last call to a stage: split, tier2, stripped, relaxed, oracle."""
+    c = _split(model, spec, ops, max_states=max_states,
+               max_open_bits=max_open_bits)
+    lap("split")
+    n_inert = sum(c.inert)
+    if len(c.crashed) - n_inert <= planner.MAX_CRASHED:
+        red_drop = np.zeros(len(ops), bool)
+        for (ip, cp, _), ine in zip(c.crashed, c.inert):
+            if ine:
+                red_drop[ip] = True
+                if cp >= 0:
+                    red_drop[cp] = True
+        reduced = [o for pos, o in enumerate(ops) if not red_drop[pos]]
+        res = _tier2(model, spec, History(reduced), max_states=max_states,
+                     max_open_bits=max_open_bits, localize=localize, dev=dev,
+                     t0=t0)
+        lap("tier2")
+        if res is not None:
+            if n_inert:
+                res["crashed_dropped"] = n_inert
+                res["dispatch"]["why"] = (WHY_INERT.format(n=n_inert)
+                                          + res["dispatch"]["why"])
+            return res
+    try:
+        res = check(model, History(c.stripped), max_states=max_states,
+                    max_open_bits=max_open_bits, localize=False, device=dev)
+    except Unsupported:
+        res = None
+    lap("stripped")
+    if res is not None and res.get("valid?") is True:
+        res["crashed_ignored"] = len(c.crashed)
+        res["dispatch"]["why"] = (WHY_STRIPPED.format(n=len(c.crashed))
+                                  + res["dispatch"]["why"])
+        return res
+    res = _relaxed_refute(model, spec, history, ops, c,
+                          max_open_bits=max_open_bits, localize=localize,
+                          dev=dev, lap=lap)
+    if res is None:
+        raise Unsupported(
+            f"{len(c.crashed)} crashed calls: the stripped history dies "
+            f"and the relaxed refutation does not: {planner.ITEM_SERIAL}")
+    return res
+
+
+def _tier2(model, spec, history, *, max_states, max_open_bits, localize,
+           dev, t0) -> Optional[dict]:
+    """Tier 2: the history (its inert crashed calls dropped) with up to
+    MAX_CRASHED crashed calls on permanent slots, or None where the scan
+    or the kernels' gates refuse it."""
+    seen: dict = {}
+    rows: list = []
+    ops = history.ops
+    try:
+        fk = planner._fast_scan(ops, spec, seen, rows, max_open_bits,
+                                max_crashed=planner.MAX_CRASHED)
+        return _check_scanned(model, spec, history, ops, fk, rows,
+                              max_states=max_states, localize=localize,
+                              dev=dev, t0=t0)
+    except Unsupported:
+        return None
+
+
+def _prefix_closures(eff, legal, next_state) -> np.ndarray:
+    """int32[nC * Sn] with nC = len(eff) + 1: row c holds, for each state
+    s, the mask of states t reachable from s by the first c effective
+    crashed ops (each any number of times, or not at all), a reflexive
+    and transitive closure (boolean matrix products)."""
+    Sn = legal.shape[1]
+    C = np.eye(Sn, dtype=bool)
+    rows = [C]
+    for _, u in eff:
+        rel = np.zeros((Sn, Sn), bool)
+        lg = legal[u].astype(bool)
+        rel[np.arange(Sn)[lg], next_state[u][lg]] = True
+        C = C | rel
+        while True:
+            C2 = C | ((C.astype(np.int64) @ C.astype(np.int64)) > 0)
+            if (C2 == C).all():
+                break
+            C = C2
+        rows.append(C)
+    pw = (1 << np.arange(Sn, dtype=np.uint64)).astype(np.uint64)
+    words = [(M.astype(np.uint64) * pw).sum(1) for M in rows]
+    return np.concatenate(words).astype(np.uint32).view(np.int32)
+
+
+class _RelaxedWire(NamedTuple):
+    """The relaxed tier's input: the stripped history's scan, segments
+    and wire with each return's crash-prefix index, the closures, the
+    uop table, and the original position of each return."""
+    fk: Any
+    seg_ends: list
+    orig_ret_pos: np.ndarray
+    wire: tuple                 # (cbuf u8, offs int64, nrows int32)
+    aux: np.ndarray
+    UP: int
+    ctab: np.ndarray
+    R: int
+    Sn: int
+
+
+def _relaxed_wire(spec, ops, c: _Crashes, *, max_open_bits,
+                  target=None) -> Optional[_RelaxedWire]:
+    """The relaxed tier's wire, segments closing `target` returns in
+    (TARGET_RETURNS by default), or None where the tier does not apply
+    (an unencodable crashed op, Sn > 32, a stripped shape outside the
+    segment kernel's nc = 0 gate)."""
+    Sn = c.states.shape[0]
+    if Sn > 32:
+        return None                  # the two-word lift: ROADMAP P5
+    eff = [(ip, u) for (ip, _, _), ine, u in zip(c.crashed, c.inert,
+                                                 c.crash_uop) if not ine]
+    if any(u < 0 for _, u in eff) or len(eff) > 32767:
+        return None
+    keep = np.nonzero(~c.drop)[0]
+    U0 = len(c.rows)
+    fk = planner._fast_scan([ops[i] for i in keep], spec, c.seen, c.rows,
+                            max_open_bits)
+    if fk.n_calls == 0 or len(c.rows) != U0:
+        return None
     R = int(fk.max_open)
-    U = int(legal.shape[0])
-    decomposed = dec[0] is not None
-    if planner.regs_gate(R, Sn, U, decomposed) is None:
-        result = _check_regs(
-            model, spec, history, ops, fk, states, legal, next_state, dec,
-            R=R, Sn=Sn, localize=localize, dev=dev, t0=t0)
-    else:
-        why = planner.deep_gate(R, Sn, U, decomposed)
-        if why is not None:
-            raise Unsupported(why)
-        result = _check_deep(model, ops, fk, legal, next_state, *dec, R=R,
-                             Sn=Sn, localize=localize, device=dev, t0=t0)
-        record = dict(record, engine="wgl_deep", why=wgl_deep.WHY)
-    result["dispatch"] = dict(record, R=R)
+    dec = planner._decompose(c.legal, c.next_state)
+    if planner.regs_gate(R, Sn, U0, dec[0] is not None) is not None \
+            or not fk.n_rets or fk.cuts[-1] != 1:
+        return None
+    seg_ends = planner._segment_ends(
+        fk.cuts, TARGET_RETURNS if target is None else target)
+    crash_pos = np.asarray([ip for ip, _ in eff], np.int64)
+    orig_ret_pos = keep[np.asarray(fk.positions, np.int64)]
+    crow = np.searchsorted(crash_pos, orig_ret_pos, side="left")
+    aux, UP = _aux(planner._pack_uop_tables(c.legal, c.next_state, *dec))
+    wire = regs_kernel.pack_stream(fk, seg_ends, min(2, R), crow=crow)
+    return _RelaxedWire(fk, seg_ends, orig_ret_pos, wire, aux, UP,
+                        _prefix_closures(eff, c.legal, c.next_state), R, Sn)
+
+
+def _relaxed_refute(model, spec, history, ops, c: _Crashes, *,
+                    max_open_bits, localize, dev, lap) -> Optional[dict]:
+    """Tier 4: a sound refutation under relaxed crash semantics (the
+    reference's `_relaxed_refute`, at Sn <= 32).  Every effect-bearing
+    crashed call becomes a jump between states available any number of
+    times from its invoke on: a true linearization uses each crashed op
+    at most once, after its invoke, so the relaxed config set holds the
+    true one at every return, and a relaxed death is a true death.
+    Availability only grows with position, so each return's row names
+    the closure of the crashed ops invoked before it (one reflexive and
+    transitive mask table per crash prefix, built on the host), and the
+    segment kernel's relaxed variant applies it around every round of
+    the stripped history's walk.  The dead segment's death row names the
+    first return at which even the relaxation dies: its call is the
+    witness (`relaxed-exact`); without one, the dead segment's last
+    return bounds it (`segment-bound`).  With `localize` the capped
+    oracle adds artifacts and, when it finishes, the minimal witness.
+    Returns None where it proves nothing or does not apply."""
+    if all(c.inert):
+        return None                  # nothing effect-bearing to relax
+    rw = _relaxed_wire(spec, ops, c, max_open_bits=max_open_bits)
+    if rw is None:
+        return None
+    R, Sn, UP = rw.R, rw.Sn, rw.UP
+    wire = tuple(regs_kernel.to_device(x, dev)
+                 for x in rw.wire + (rw.aux, rw.ctab))
+    T, bad = crash_kernel.relaxed_scan(*wire, R=R, Sn=Sn, UP=UP)
+    vd = _fetch([regs_kernel.compose(T, [len(rw.seg_ends)])], [bad])[0]
+    if int(vd[0]) == 1:
+        lap("relaxed")
+        return None                  # relaxed-valid: proves nothing
+    dead = int(vd[1])
+    seg_lo = int(rw.seg_ends[dead - 1]) if dead > 0 else 0
+    bound_pos = int(rw.orig_ret_pos[int(rw.seg_ends[dead]) - 1])
+    drow, bad = crash_kernel.death_row(
+        wire[0], wire[1][dead:dead + 1], wire[2][dead:dead + 1], wire[3],
+        wire[4], int(vd[2]) & 0xFFFFFFFF, R=R, Sn=Sn, UP=UP)
+    bad, drow = (int(x) for x in torch.cat([bad, drow]).cpu())
+    if bad:
+        raise RuntimeError("the relaxed kernel refused the dead segment")
+    if drow >= 0:
+        o = int(rw.wire[1][dead])
+        local = int((rw.wire[0][o:o + drow + 1] > 0).sum()) - 1
+        g = seg_lo + local
+        if 0 <= g < len(rw.orig_ret_pos):
+            bound_pos = int(rw.orig_ret_pos[g])
+    lap("relaxed")
+    p = ops[bound_pos].process
+    inv = bound_pos
+    while inv >= 0 and not (ops[inv].process == p
+                            and ops[inv].type == "invoke"):
+        inv -= 1
+    bound_op = ops[max(inv, 0)]
+    bound_idx = (bound_op.index if bound_op.index is not None
+                 else max(inv, 0))
+    result: dict[str, Any] = {
+        "valid?": False,
+        "op_count": rw.fk.n_calls + len(c.crashed),
+        "backend": dev.type,
+        "engine": "wgl_seg",
+        "anomaly": "nonlinearizable",
+        "refutation": "crash-relaxed",
+        "crashed": len(c.crashed),
+        "dead_segment": dead,
+        "segments": len(rw.seg_ends),
+        "states": Sn,
+        "max_open": R,
+        "op": bound_op.to_dict(),
+        "op_index": bound_idx,
+        "witness": "relaxed-exact" if drow >= 0 else "segment-bound",
+        "witness_bound_index": bound_idx,
+        "dispatch": {"engine": "wgl_seg", "why": WHY_RELAXED, "batch": 1,
+                     "device": str(dev), "R": R},
+    }
+    if localize:
+        oracle = wgl_cpu.check(model, history, **ORACLE_CAPS)
+        if oracle.get("valid?") is False:
+            for key in ("op", "op_index", "final-paths", "configs"):
+                if key in oracle:
+                    result[key] = oracle[key]
+        lap("oracle")
     return result
 
 
@@ -337,11 +678,11 @@ def check_pipeline(model, histories, *, max_states: int = 64,
     rounds (`speculation: "exact-rerun"`).  A group whose depth
     (with the deepest group so far) or model falls outside the segment
     kernel, and a history the scan refuses, go through `check()` one by
-    one: R 7..16 to the deep kernel, crashed histories and other shapes
-    outside the slice to an entry {"valid?": "unknown", "cause":
-    "unsupported", "error": {...}} naming the ROADMAP item, as in
-    `wgl_deep.check_pipeline`.  The uop tables are rebuilt only when
-    the alphabet grows.
+    one: R 7..16 to the deep kernel, histories with crashed calls to
+    the crash tiers, and shapes outside the port to an entry {"valid?":
+    "unknown", "cause": "unsupported", "error": {...}} naming the
+    ROADMAP item, as in `wgl_deep.check_pipeline`.  The uop tables are
+    rebuilt only when the alphabet grows.
 
     `stats`, when given a dict, receives host seconds per stage (scan,
     segment, tables, pack, copy, launch, sync, assemble, stragglers)

@@ -112,13 +112,25 @@ def test_unknown_device_type_raises():
 
 
 def test_crashed_history_raises_unsupported():
+    # crashed calls have verdicts now (the crash tiers); only the
+    # residual case, where every tier leaves the history open, raises,
+    # naming the serial engines
     h = History([invoke_op(0, "write", 1), info_op(0, "write", 1),
                  invoke_op(1, "read", None), ok_op(1, "read", 1)]).index()
-    with pytest.raises(Unsupported, match="P3"):
-        Linearizable(models.CASRegister(), device="cpu").check(None, h)
+    r = Linearizable(models.CASRegister(), device="cpu").check(None, h)
+    assert r["valid?"] is True and r["crashed"] == 1
     unreturned = History([invoke_op(0, "write", 1)]).index()
-    with pytest.raises(Unsupported, match="P3"):
-        wgl_seg.check(models.CASRegister(), unreturned, device="cpu")
+    r = wgl_seg.check(models.CASRegister(), unreturned, device="cpu")
+    assert r["valid?"] is True and r["crashed_ignored"] == 1
+    ops = [invoke_op(9, "write", 0), ok_op(9, "write", 0)]
+    ops += [invoke_op(i, "write", i % 3 + 1) for i in range(6)]
+    for i in range(6):
+        ops += [invoke_op(9, "read", None), ok_op(9, "read", i % 3 + 1),
+                invoke_op(8, "write", 0), ok_op(8, "write", 0)]
+    ops += [info_op(i, "write", i % 3 + 1) for i in range(6)]
+    with pytest.raises(Unsupported, match="P5"):
+        Linearizable(models.CASRegister(), device="cpu").check(
+            None, History(ops).index())
 
 
 @pytest.mark.parametrize("depth", [11, 17])

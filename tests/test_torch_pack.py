@@ -106,7 +106,7 @@ def test_scan_refuses_out_of_slice_shapes():
         [invoke_op(0, "write", 1), info_op(0, "write", 1),
          invoke_op(1, "read", None), ok_op(1, "read", 1)]).index()
         .to_dicts())
-    with pytest.raises(planner.Unsupported, match="P3"):
+    with pytest.raises(planner.CrashedCalls, match="crashed"):
         planner._fast_scan(crashed, spec, {}, [], 10)
     deep = convert.history_from_dicts(burst_history(12).to_dicts())
     with pytest.raises(planner.Unsupported, match="max_open_bits=10"):

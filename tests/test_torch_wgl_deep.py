@@ -128,14 +128,17 @@ def test_pipeline_matches_reference_and_isolates_out_of_scope():
     assert got[2]["op_index"] == ref_cpu.check(model, hs[2])["op_index"]
     assert got[3]["deep_variant"] == "word-split"
     assert got[6]["valid?"] is False and got[6]["max_open"] == 1
-    # R = 18 and the crashed history: per-history Unsupported entries
-    # naming the ROADMAP item, never another engine's verdict
-    for i, item in ((1, "P5"), (4, "P3")):
+    # R = 18: a per-history Unsupported entry naming the ROADMAP item,
+    # never another engine's verdict; the crashed history: the crash
+    # tiers' verdict, as the reference's stragglers get it
+    for i, item in ((1, "P5"),):
         assert got[i]["valid?"] == "unknown"
         assert got[i]["cause"] == "unsupported"
         assert got[i]["error"]["error"] == "Unsupported"
         assert item in got[i]["error"]["message"]
         assert got[i]["error"]["history_index"] == i
+    assert got[4]["valid?"] is ref[4]["valid?"] is True
+    assert got[4]["crashed"] == ref[4]["crashed"] == 1
     assert {"scan", "pack", "sync"} <= set(st)
 
 

@@ -14,8 +14,8 @@ on histories made from a seed:
   segments, dead_segment and op_index are equal;
 - `wgl_seg.check_pipeline` against the reference's on a mixed batch:
   pipelined R <= 6 histories, a speculative death re-run exactly, an
-  R = 8 group that goes to the deep kernel, and a crashed history (an
-  `unsupported` entry in the port).
+  R = 8 group that goes to the deep kernel, and a crashed history (the
+  crash tiers, through `check()`).
 
 The one test that needs the card skips without one."""
 
@@ -476,15 +476,11 @@ def pipelines():
 @pytest.mark.parametrize("i", range(10))
 def test_pipeline_matches_reference(pipelines, i):
     ref, got, _ = pipelines
-    if i == 2:                           # crashed: P3 in the port
-        assert got[i]["valid?"] == "unknown"
-        assert got[i]["cause"] == "unsupported"
-        assert "P3" in got[i]["error"]["message"]
-        assert got[i]["error"]["history_index"] == i
-        return
     for key in ("valid?", "op_index", "pipelined", "speculation",
-                "dead_segment"):
+                "dead_segment", "crashed"):
         assert got[i].get(key) == ref[i].get(key), key
+    if i == 2:                           # crashed: through check()
+        assert got[i]["crashed"] == 1 and got[i]["valid?"] is True
     if i == 5:
         # R = 8: the deep kernel here; the reference's CPU backend routes
         # it to its candidate-table engine, which the port leaves to P5
