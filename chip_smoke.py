@@ -1069,7 +1069,7 @@ def with_every_value(h, vmax):
     return History(ops + list(h.ops)).index()
 
 
-def crash_inputs(h, target=None):
+def crash_inputs(h):
     """The tier-2 wire of h as check() builds it: the scan carrying up
     to four crashed calls on permanent slots, segments, wire and uop
     table.  Returns a dict of host arrays and shape arguments."""
@@ -1081,8 +1081,7 @@ def crash_inputs(h, target=None):
     fk = planner._fast_scan(h.ops, spec, seen, rows, 10,
                             max_crashed=planner.MAX_CRASHED)
     states, legal, nxt, dec = wgl_seg._model_tables(spec, model, rows, 64)
-    seg_ends = planner._segment_ends(
-        fk.cuts, wgl_seg.TARGET_RETURNS if target is None else target)
+    seg_ends = planner._segment_ends(fk.cuts, wgl_seg.TARGET_RETURNS)
     cbuf, offs, nrows = regs_kernel.pack_stream(fk, seg_ends, 2)
     aux, UP = wgl_seg._aux(planner._pack_uop_tables(legal, nxt, *dec))
     return dict(cbuf=cbuf, offs=offs, nrows=nrows, aux=aux, UP=UP,
@@ -1090,7 +1089,7 @@ def crash_inputs(h, target=None):
                 K=len(seg_ends))
 
 
-def relaxed_inputs(h, target=None):
+def relaxed_inputs(h):
     """The relaxed tier's wire of h as check() builds it (crash-prefix
     closures and each row's index; the stripped history's segments)."""
     from jepsen_tpu_torch.models import CASRegister
@@ -1098,8 +1097,7 @@ def relaxed_inputs(h, target=None):
     model = CASRegister()
     spec = model.device_spec()
     c = wgl_seg._split(model, spec, h.ops, max_states=64, max_open_bits=12)
-    rw = wgl_seg._relaxed_wire(spec, h.ops, c, max_open_bits=12,
-                               target=target)
+    rw = wgl_seg._relaxed_wire(c)
     cbuf, offs, nrows = rw.wire
     return dict(cbuf=cbuf, offs=offs, nrows=nrows, aux=rw.aux, UP=rw.UP,
                 ctab=rw.ctab, R=rw.R, Sn=rw.Sn, K=len(offs),
@@ -1174,22 +1172,9 @@ RELAXED_KERNEL_CASES = [(R, v, (1, 40, 300)[(R + i) % 3])
                         for i, v in enumerate((6, 9, 30))]
 
 
-def phase_crash_kernel(clock_hz):
-    """Each crash variant against its plain version on CPU copies of the
-    same inputs: the crash variant at nc = 1..4 and R + nc = 2..8 (J up
-    to 64 and 128), the relaxed variant (composed verdict) and the death
-    row at R = 1..6 x SnP 8/16/32 with 1, 40 and 300 crash prefixes,
-    each valid and planted-invalid: transfer rows, verdict words, death
-    rows and operation counts; and ptxas's registers and spills of each
-    instantiation.  Returns the largest disagreement per kernel."""
-    from jepsen_tpu_torch.ops import cuda_build, regs_kernel
-    report = cuda_build.ptxas_report(cuda_build.lib_path("wgl_crash"))
-    regs = {k: v for k, v in ptxas_kernels(
-        report.read_text() if report.exists() else "").items()
-        if k.startswith("wgl_crash")}
-    log("[crash-kernel] ptxas (WD, SnP, closure): " + " | ".join(
-        f"{k}: {v['regs']} registers, spill {v['spill']} bytes"
-        for k, v in sorted(regs.items())))
+def crash_kernel_cases():
+    """The [crash-kernel] cases: (kind, planted, inputs) for each crash
+    and relaxed shape, valid and planted-invalid, 300-call histories."""
     cases = []
     for rn, nc, vmax in CRASH_KERNEL_CASES:
         for bad in (False, True):
@@ -1201,7 +1186,7 @@ def phase_crash_kernel(clock_hz):
             if bad and plant_stale_read(h, 0.6, vmax, vals) is None:
                 raise SystemExit(f"[crash-kernel] no plantable read at "
                                  f"rn={rn} nc={nc}")
-            inp = crash_inputs(h, target=64)
+            inp = crash_inputs(h)
             if (inp["rn"], inp["nc"], inp["Sn"]) != (rn, nc, vmax + 2):
                 raise SystemExit(f"[crash-kernel] built rn={inp['rn']} "
                                  f"nc={inp['nc']} Sn={inp['Sn']}, wanted "
@@ -1217,11 +1202,37 @@ def phase_crash_kernel(clock_hz):
                                   keep_last_open=False)
             if bad and plant_stale_read(h, 0.6, vmax, vals) is None:
                 raise SystemExit(f"[crash-kernel] no plantable read at R={R}")
-            inp = relaxed_inputs(h, target=64)
+            inp = relaxed_inputs(h)
             if (inp["R"], inp["nC"]) != (R, nC):
                 raise SystemExit(f"[crash-kernel] built R={inp['R']} "
                                  f"nC={inp['nC']}, wanted {R}, {nC}")
             cases.append(("relaxed", bad, inp))
+    return cases
+
+
+def phase_crash_kernel(clock_hz):
+    """Each crash variant against its plain version on CPU copies of the
+    same inputs: the crash variant at nc = 1..4 and R + nc = 2..8 (J up
+    to 64 and 128), the relaxed variant (composed verdict) and the death
+    row at R = 1..6 x SnP 8/16/32 with 1, 40 and 300 crash prefixes,
+    each valid and planted-invalid: transfer rows, verdict words, death
+    rows and operation counts; and ptxas's registers and spills of each
+    instantiation.  Returns the largest disagreement per kernel."""
+    from jepsen_tpu_torch.ops import cuda_build, regs_kernel, wgl_seg
+    report = cuda_build.ptxas_report(cuda_build.lib_path("wgl_crash"))
+    regs = {k: v for k, v in ptxas_kernels(
+        report.read_text() if report.exists() else "").items()
+        if k.startswith("wgl_crash")}
+    log("[crash-kernel] ptxas (WD, SnP, closure): " + " | ".join(
+        f"{k}: {v['regs']} registers, spill {v['spill']} bytes"
+        for k, v in sorted(regs.items())))
+    # segments of 64 returns, so each small history spans several
+    target = wgl_seg.TARGET_RETURNS
+    wgl_seg.TARGET_RETURNS = 64
+    try:
+        cases = crash_kernel_cases()
+    finally:
+        wgl_seg.TARGET_RETURNS = target
     ctx = multiprocessing.get_context("spawn")
     workers = max(1, min(7, (os.cpu_count() or 2) - 1))
     err = {"crash": 0, "relaxed": 0}
@@ -1423,6 +1434,8 @@ def phase_crash_pipeline(seg_hs, main):
     t = time.perf_counter()
     res = wgl_seg.check_pipeline(model, batch, stats=st)
     wall = time.perf_counter() - t
+    # the main path ends here: the single checks below only compare
+    launches = dict(crash_kernel.LAUNCHES)
     singles = [main["(c) tier 2 on the segment kernel"]["r"]] + [
         wgl_seg.check(model, h) for h in shaped[1:]]
     keys = ("valid?", "engine", "crashed", "crashed_dropped", "dead_segment")
@@ -1442,7 +1455,6 @@ def phase_crash_pipeline(seg_hs, main):
         + f" {'OK' if not bad else 'WRONG ' + str(bad)}")
     if bad:
         raise SystemExit(f"[crash-pipeline] histories {bad} disagree")
-    launches = dict(crash_kernel.LAUNCHES)
     log(f"[crash-pipeline] crash kernel launches on the crash main path: "
         f"{launches}")
     if min(launches.values()) <= 0:

@@ -27,15 +27,19 @@
 //
 // The walk, per event row: register up to I = 2 invokes (slot b's a1, a2,
 // t0 words; the slot opens); [relaxed, death: close the states]; when a
-// slot is open, R rounds, each a pass of every open slot b (the configs
-// lacking b: moved = contrib & diag(a1), and at state t0 the OR over
-// states of contrib & const(a2), set into b) [then close the states]; at
-// a return of slot rs, prune the configs lacking rs and clear its bit,
-// and retire the slot.  R rounds are exact, so each pass updates the
-// plane in place (Gauss-Seidel): a round then holds at least what the
-// reference's Jacobi round holds and no more than the fixpoint, and the
-// transfer rows are the same bit for bit.  Inside one pass the update is
-// the Jacobi one, since a pass only sets bits its sources lack.
+// slot is open, rounds to the fixpoint (at most R), each a pass of every
+// open slot b (the configs lacking b: moved = contrib & diag(a1), and at
+// state t0 the OR over states of contrib & const(a2), set into b) [then
+// close the states]; at a return of slot rs, prune the configs lacking rs
+// and clear its bit, and retire the slot.  R rounds reach the fixpoint,
+// so each pass updates the plane in place (Gauss-Seidel): a round then
+// holds at least what the reference's Jacobi round holds and no more than
+// the fixpoint, and the transfer rows are the same bit for bit.  Inside
+// one pass the update is the Jacobi one, since a pass only sets bits its
+// sources lack.  A round only sets bits, so a lane changed iff its plane's
+// popcount grew; a warp leaves the row's rounds when a ballot finds no
+// lane changed (a lane that did not change is at its fixpoint and stays
+// there).
 //
 // Layout.  One thread per (lane, word column): thread g of a segment owns
 // word w = g % WD of every state row of lane j = g / WD, SnP registers.
@@ -50,15 +54,16 @@
 // segment's, so no warp diverges.  Warps past J * WD lanes stage and wait
 // at the barriers but do not walk.
 //
-// What bounds it on this card: integer operations.  A lane's plane is at
-// most 32 words per thread, in registers; the wire is 7 (9 with the
-// closure) bytes a row.  Per row and lane the work= count charges: a pass
-// of slot b < 5 CLOSE_OPS per word of the Sn live state rows, of slot
-// b >= 5 CLOSE5_OPS per state row of each receiving word (WD / 2), a
-// prune PRUNE_OPS per word (per state row and receiving word at b >= 5),
-// a state closure CLOSURE_OPS per (source, target) pair and word; R
-// rounds whenever a slot is open.  The sum over the J lanes of segment k
-// goes to work[k].
+// The work= count, the integer operations the walk needs: a lane's plane
+// is at most 32 words per thread, in registers; the wire is 7 (9 with the
+// closure) bytes a row.  Per row and lane it charges a pass of slot b < 5
+// CLOSE_OPS per word of the Sn live state rows, of slot b >= 5 CLOSE5_OPS
+// per state row of each receiving word (WD / 2), a prune PRUNE_OPS per
+// word (per state row and receiving word at b >= 5), a state closure
+// CLOSURE_OPS per (source, target) pair and word; and each round the lane
+// runs up to the first that leaves its plane unchanged (at most R), not
+// the rounds its warp runs on for other lanes.  Each lane adds its count
+// to work[k], which the caller zeroes.
 //
 // Wire: segment k's L = nrows[k] rows at byte offs[k]: ret+1 u8[L] ++
 // islot+1 u8[L * 2] ++ iuop u16-LE[L * 2] (++ crow i16-LE[L] with the
@@ -186,6 +191,8 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
     const int j = g / WD;
     const int w = g % WD;
     const bool walker = blockIdx.y * blockDim.x + (tid & ~31) < J * WD;
+    // this lane's WD threads in the warp's ballot
+    const uint32_t grp = ((1u << WD) - 1u) << ((tid & 31) & ~(WD - 1));
     const long long off = offs[k];
     const int L = nrows[k];
     constexpr int RB = 1 + 3 * I + (CLOSE ? 2 : 0);
@@ -220,7 +227,7 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
         t0r[b] = 0;
     }
     uint32_t open = 0u;                 // bit b: slot b is open
-    long long ops = 0;
+    long long ops = 0;                  // this lane's integer operations
     const long long half = WD > 1 ? WD / 2 : 1;
     const long long pass_ops = (long long)CLOSE_OPS * Sn * WD;
     const long long pass5_ops = (long long)CLOSE5_OPS * Sn * half;
@@ -294,6 +301,13 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                 ops += close_ops;
             }
             if (open) {
+                const long long per_round = __popc(open & 31u) * pass_ops
+                                            + __popc(open >> 5) * pass5_ops
+                                            + close_ops;
+                int bits = 0;
+#pragma unroll
+                for (int s = 0; s < SNP; ++s) bits += __popc(fr[s]);
+                bool run = true;        // the lane is short of its fixpoint
                 for (int rd = 0; rd < R; ++rd) {
                     if (open & 1u)
                         pass<WD, SNP, 0>(fr, a1r[0], a2r[0], t0r[0], w);
@@ -312,10 +326,15 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                     if (open & 128u)
                         pass<WD, SNP, 7>(fr, a1r[7], a2r[7], t0r[7], w);
                     if constexpr (CLOSE) close_states<SNP>(fr, st.cmask[r]);
+                    int now = 0;
+#pragma unroll
+                    for (int s = 0; s < SNP; ++s) now += __popc(fr[s]);
+                    const uint32_t grew = __ballot_sync(FULL, now != bits);
+                    bits = now;
+                    if (run) ops += per_round;
+                    run = run && (grew & grp) != 0u;
+                    if (!grew) break;   // every lane of the warp is fixed
                 }
-                ops += (long long)R * (__popc(open & 31u) * pass_ops
-                                       + __popc(open >> 5) * pass5_ops
-                                       + close_ops);
             }
             const int rs = st.ret[r];
             if (rs >= 0) {
@@ -360,7 +379,9 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                 if (s < Sn) o[cm * Sn + s] = uint8_t((fr[s] >> (m & 31)) & 1u);
         }
     }
-    if (g == 0 && work) work[k] = ops * J;
+    if (work && j < J && w == 0)
+        atomicAdd(reinterpret_cast<unsigned long long *>(work) + k,
+                  static_cast<unsigned long long>(ops));
 }
 
 namespace {
@@ -381,7 +402,7 @@ void launch_one(dim3 grid, int threads, cudaStream_t stream,
 }  // namespace
 
 // One launch over K segments on `stream`; returns the cudaError_t of the
-// launch (0 on success).  ctab == NULL walks without the state closure
+// launch (0 on success).  `work`, when given, must hold K zeros.  ctab == NULL walks without the state closure
 // (the crash variant, nc >= 0); with ctab (nC rows of Sn masks) nc must be
 // 0 and R <= 6, and `death` != 0 seeds one lane with `seed` and writes
 // int32 death rows instead of u8 transfer rows.  SnP is the state-row

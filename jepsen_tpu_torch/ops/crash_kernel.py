@@ -22,13 +22,14 @@ a segment's event rows (`jepsen_tpu_torch/csrc/wgl_crash.cu`):
   at mask 0 walks one segment with the closure and reports the first
   row at which its plane empties (-1 if it never does).
 
-All three run at exact rounds (R, counting the crashed slots), so a
-closure pass may update the plane in place: a round then holds at least
-what the reference's Jacobi round holds and no more than the fixpoint,
-which R rounds reach either way, so the transfer rows are equal bit for
-bit.  What bounds the kernel: integer operations (the `work=` count:
-the constants below, over the Sn state rows that hold configs), with a
-lane's plane up to 32 states by 8 words.
+All three run to the fixpoint that R rounds (R counting the crashed
+slots) reach, so a closure pass may update the plane in place: a round
+then holds at least what the reference's Jacobi round holds and no more
+than the fixpoint, so the transfer rows are equal bit for bit, and a
+row's rounds end early once a round changes no lane of a warp.  The
+`work=` count is the integer operations each lane needs (the constants
+below, over the Sn state rows that hold configs): its rounds up to the
+first that leaves its plane unchanged, at most R.
 
 The wrappers take the plain version (`walk_plain`) only for tensors on
 the CPU; for CUDA tensors they launch the kernel on the current stream
@@ -41,11 +42,8 @@ import ctypes
 import torch
 
 from jepsen_tpu_torch.ops import cuda_build, planner
-from jepsen_tpu_torch.ops.deep_kernel import _FULL, _INTRA, _check
-from jepsen_tpu_torch.ops.regs_kernel import (CLOSE5_OPS, CLOSE_OPS,
-                                              CROW_ROW_BYTES, PRUNE_OPS,
-                                              ROW_BYTES, I, _or_states,
-                                              plane_width)
+from jepsen_tpu_torch.ops import regs_kernel as rk
+from jepsen_tpu_torch.ops.deep_kernel import _FULL, _check
 from jepsen_tpu_torch.ops.wgl_deep import _snp as snp
 
 #: Kernel launches since import (or since a caller reset them to 0).
@@ -115,6 +113,8 @@ def _launch(name, cbuf, offs, nrows, aux, ctab, *, R, Sn, UP, nc, rn,
     if K == 0:
         return out, bad
     lib = cuda_build.load("wgl_crash", _declare)
+    if work is not None:
+        work.zero_()                    # each lane adds its count
     err = lib.wgl_crash_launch(
         cbuf.data_ptr(), cbuf.numel(), offs.data_ptr(), nrows.data_ptr(),
         aux.data_ptr(), UP, None if ctab is None else ctab.data_ptr(), nC,
@@ -133,10 +133,10 @@ def crash_scan(cbuf, offs, nrows, aux, *, R: int, Sn: int, UP: int,
                nc: int, rn: int, work=None):
     """Transfer rows of K segments with nc >= 1 crashed calls on the
     permanent slots rn..rn+nc-1 (the wire from `regs_kernel.pack_stream`
-    of a crash-carrying scan), at exact rounds R = rn + nc <= 8: u8[K,
-    J, J] with J = Sn * 2^nc <= 128, and bad int32[1].  `work`, an
-    optional int64[K], receives each segment's integer operations over
-    its J lanes."""
+    of a crash-carrying scan), each row's rounds run to the fixpoint (at
+    most R = rn + nc <= 8): u8[K, J, J] with J = Sn * 2^nc <= 128, and
+    bad int32[1].  `work`, an optional int64[K], receives each
+    segment's integer operations, summed over its J lanes."""
     if nc < 1 or R != rn + nc:
         raise ValueError(f"crash_scan needs nc >= 1 and R = rn + nc, got "
                          f"R={R} rn={rn} nc={nc}")
@@ -150,7 +150,7 @@ def relaxed_scan(cbuf, offs, nrows, aux, ctab, *, R: int, Sn: int,
     each row of the wire (CROW_ROW_BYTES a row) names a row of ctab
     (int32[nC * Sn]: bit t of ctab[c, s] allows the jump s -> t), whose
     masks close the plane before the first round and after every round;
-    exact rounds R <= 6.  Returns (T, bad)."""
+    rounds to the fixpoint, at most R <= 6.  Returns (T, bad)."""
     return _launch("wgl_regs_relaxed", cbuf, offs, nrows, aux, ctab, R=R,
                    Sn=Sn, UP=UP, nc=0, rn=0, seed=None, work=work)
 
@@ -168,60 +168,29 @@ def death_row(cbuf, offs, nrows, aux, ctab, seed: int, *, R: int, Sn: int,
 # The plain version: the same walk in PyTorch, every segment at once
 # ---------------------------------------------------------------------------
 
-def _half_words(WD: int, q: int):
-    """The word columns that hold bit q of the word index, and their
-    partners that lack it."""
-    hi = [w for w in range(WD) if (w >> q) & 1]
-    return hi, [w ^ (1 << q) for w in hi]
-
-
 def walk_plain(cbuf, offs, nrows, aux, ctab=None, *, R: int, Sn: int,
                UP: int, nc: int = 0, rn: int = 0, seed=None, work=None):
     """The kernel's function in plain PyTorch on cbuf's device: all K
     segments walk their rows in step, a segment past its own row count
     (or, with `seed`, past its death) standing still.  The planes are
     int64[K, J, SnP, WD] holding 32-bit words; closure passes update
-    them in place, slot by slot, as the kernel does.  Raises ValueError
+    them in place, slot by slot, as the kernel does, and a row's rounds
+    end when no lane changes.  Each lane's count charges the rounds up
+    to the first that leaves its plane unchanged.  Raises ValueError
     where the kernel would count a bad segment."""
     dev = cbuf.device
     K = offs.numel()
-    SnP, WD = snp(Sn), plane_width(R)
+    SnP, WD = snp(Sn), rk.plane_width(R)
     J = 1 if seed is not None else Sn << nc
-    rb = ROW_BYTES if ctab is None else CROW_ROW_BYTES
-    L = nrows.to(torch.int64)
-    o = offs
-    n = cbuf.numel()
-    if K and bool(((L < 0) | (o < 0) | (o + rb * L > n)).any()):
-        raise ValueError("a segment's rows lie outside cbuf")
-    Lmax = int(L.max()) if K else 0
-    r = torch.arange(Lmax, device=dev)
-    live = r[None, :] < L[:, None]                       # [K, Lmax]
-    wire = cbuf.to(torch.int64)
-
-    def at(pos):
-        return torch.where(live, wire[pos.clamp(0, max(n - 1, 0))], 0)
-
-    o2, L2 = o[:, None], L[:, None]
-    ret = at(o2 + r) - 1
-    isl = [at(o2 + L2 + I * r + i) - 1 for i in range(I)]
-    iu = [at(o2 + 3 * L2 + 2 * (I * r + i))
-          | (at(o2 + 3 * L2 + 2 * (I * r + i) + 1) << 8) for i in range(I)]
-    for i in range(I):
-        if bool(((isl[i] >= 0) & ((iu[i] >= UP) | (isl[i] >= R))).any()):
-            raise ValueError("an invoke names a uop outside the table or a "
-                             "slot past R")
-    if bool((ret >= R).any()):
-        raise ValueError("a return names a slot past R")
-    tab = aux.to(torch.int64) & _FULL
-    a1t, a2t, t0t = tab[:UP], tab[UP:2 * UP], tab[2 * UP:3 * UP]
-    s_idx = torch.arange(SnP, device=dev)
+    wire = rk.decode_wire(cbuf, offs, nrows, R=R, UP=UP,
+                          crow=ctab is not None)
+    tab = rk.uop_table(aux, UP)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
     if ctab is not None:
         nC = ctab.numel() // Sn
-        crow = at(o2 + ROW_BYTES * L2 + 2 * r) \
-            | (at(o2 + ROW_BYTES * L2 + 2 * r + 1) << 8)
-        crow = torch.where(crow >= 1 << 15, crow - (1 << 16), crow)
-        if bool(((crow < 0) | (crow >= nC)).any()):
+        if bool(((wire.crow < 0) | (wire.crow >= nC)).any()):
             raise ValueError("a row names a crash prefix outside ctab")
+        s_idx = torch.arange(SnP, device=dev)
         cm = (ctab.to(torch.int64) & _FULL).reshape(nC, Sn)
         # csel[c, s, t]: the jump s -> t is allowed under prefix c
         csel = torch.zeros((nC, SnP, SnP), dtype=torch.bool, device=dev)
@@ -236,100 +205,59 @@ def walk_plain(cbuf, offs, nrows, aux, ctab=None, *, R: int, Sn: int,
         for j in range(J):
             m0 = (j // Sn) << rn
             fr[:, j, j % Sn, m0 >> 5] = 1 << (m0 & 31)
-    a1r = torch.zeros((K, R), dtype=torch.int64, device=dev)
-    a2r = torch.zeros_like(a1r)
-    t0r = torch.zeros_like(a1r)
-    openr = torch.zeros((K, R), dtype=torch.bool, device=dev)
-    bits = torch.arange(R, device=dev)
-    ops = torch.zeros(K, dtype=torch.int64, device=dev)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    half = max(1, WD // 2)
-    pass_ops, pass5_ops = CLOSE_OPS * Sn * WD, CLOSE5_OPS * Sn * half
+    slots = rk.new_slots(K, R, dev)
+    ops = torch.zeros((K, J), dtype=torch.int64, device=dev)
     close_ops = CLOSURE_OPS * Sn * Sn * WD if ctab is not None else 0
     died = torch.full((K,), -1, dtype=torch.int64, device=dev)
 
     def close(fr, row):
-        sel = csel[crow[:, row]]                          # [K, s, t]
+        sel = csel[wire.crow[:, row]]                     # [K, s, t]
         out = fr
         for s in range(Sn):
             out = out | torch.where(sel[:, None, s, :, None],
                                     fr[:, :, s:s + 1, :], zero)
         return out
 
-    for row in range(Lmax):
-        act = live[:, row] & (died < 0)
-        for i in range(I):
-            m = isl[i][:, row, None] == bits             # [K, R]
-            u = iu[i][:, row].clamp(0, UP - 1)
-            a1r = torch.where(m, a1t[u][:, None], a1r)
-            a2r = torch.where(m, a2t[u][:, None], a2r)
-            t0r = torch.where(m, t0t[u][:, None], t0r)
-            openr = openr | m
-        opened = openr & act[:, None]
+    for row in range(wire.Lmax):
+        act = wire.live[:, row] & (died < 0)
         act4 = act[:, None, None, None]
+        slots = rk.register(wire, row, tab, UP, slots)
+        a1r, a2r, t0r, openr = slots
+        opened = openr & act[:, None]
         if ctab is not None:
             fr = torch.where(act4, close(fr, row), fr)
-            ops += torch.where(act, close_ops, 0)
+            ops += torch.where(act, close_ops, 0)[:, None]
         if bool(opened.any()):
-            for rd in range(R):
+            per_round = (rk.round_ops(opened, Sn, WD)
+                         + torch.where(opened.any(1), close_ops, 0))[:, None]
+            run = opened.any(1)[:, None].expand(K, J)
+            for _ in range(R):
                 before = fr
                 for b in range(R):
-                    ob = opened[:, b]
-                    if not bool(ob.any()):
-                        continue
-                    dm = ((a1r[:, b, None] >> s_idx) & 1).bool()  # [K, SnP]
-                    cmk = ((a2r[:, b, None] >> s_idx) & 1).bool()
-                    tm = s_idx[None, :] == t0r[:, b, None]
-                    obb = ob[:, None, None, None]
-                    if b < 5:
-                        c = fr & _INTRA[b]
-                        moved = torch.where(dm[:, None, :, None], c, zero)
-                        red = _or_states(torch.where(
-                            cmk[:, None, :, None], c, zero))
-                        moved = moved | torch.where(
-                            tm[:, None, :, None], red[:, :, None, :], zero)
-                        fr = torch.where(
-                            obb, fr | ((moved << (1 << b)) & _FULL), fr)
-                    else:               # slot b >= 5: bit b - 5 of the word
-                        hi, lo = _half_words(WD, b - 5)
-                        c = fr[..., lo]
-                        moved = torch.where(dm[:, None, :, None], c, zero)
-                        red = _or_states(torch.where(
-                            cmk[:, None, :, None], c, zero))
-                        moved = moved | torch.where(
-                            tm[:, None, :, None], red[:, :, None, :], zero)
-                        fr = fr.clone()
-                        fr[..., hi] = torch.where(obb, fr[..., hi] | moved,
-                                                  fr[..., hi])
+                    ob = opened[:, b, None, None, None]
+                    if bool(ob.any()):
+                        lin = rk.slot_pass(fr, b, a1r[:, b], a2r[:, b],
+                                           t0r[:, b])
+                        fr = torch.where(ob, fr | lin, fr)
                 if ctab is not None:
                     fr = torch.where(act4, close(fr, row), fr)
-                if torch.equal(before, fr):
-                    break               # a fixpoint: later rounds add nothing
-            n_open = opened.sum(1)
-            n_lo = opened[:, :5].sum(1)
-            ops += R * (n_lo * pass_ops + (n_open - n_lo) * pass5_ops
-                        + torch.where(n_open > 0, close_ops, 0))
-        rs = ret[:, row]
+                ops += torch.where(run, per_round, 0)
+                run = run & (fr != before).flatten(2).any(2)
+                if not bool(run.any()):
+                    break               # every lane at its fixpoint
+        rs = torch.where(act, wire.ret[:, row], -1)
         for b in range(R):
-            mb = (rs == b) & act
-            if not bool(mb.any()):
-                continue
-            if b < 5:
-                gone = (fr & (_INTRA[b] ^ _FULL)) >> (1 << b)
-            else:
-                hi, lo = _half_words(WD, b - 5)
-                gone = torch.zeros_like(fr)
-                gone[..., lo] = fr[..., hi]
-            fr = torch.where(mb[:, None, None, None], gone, fr)
-            openr[:, b] &= ~mb
-        ops += torch.where(act & (rs >= 5), PRUNE_OPS * Sn * half,
-                           torch.where(act & (rs >= 0), PRUNE_OPS * Sn * WD,
-                                       0))
+            mb = rs == b
+            if bool(mb.any()):
+                fr = torch.where(mb[:, None, None, None], rk.retire(fr, b),
+                                 fr)
+                openr[:, b] &= ~mb
+        ops += rk.prune_ops(rs, Sn, WD)[:, None]
         if seed is not None:
             empty = ~(fr != 0).flatten(1).any(1)
             died = torch.where(act & empty, row, died)
     if work is not None:
-        work.copy_(ops * J)
+        work.copy_(ops.sum(1))
     if seed is not None:
         return died.to(torch.int32)
     # the 2^nc crashed-mask planes at zero normal bits: j' = cm * Sn + s

@@ -28,6 +28,7 @@ words with `torch.bmm`, a plain matrix product outside the kernel."""
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -180,22 +181,31 @@ def _or_states(x: torch.Tensor) -> torch.Tensor:
     return x[:, :, 0]
 
 
-def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
-               aux: torch.Tensor, *, R: int, Sn: int, UP: int, J: int,
-               rounds: int, work: torch.Tensor | None = None):
-    """`regs_scan`'s function in plain PyTorch on cbuf's device: all K
-    segments walk their rows in step, a segment past its own row count
-    standing still.  The planes are int64[K, J, SnP, WD] holding 32-bit
-    words.  Raises ValueError where the kernel would count a bad
-    segment."""
+class Wire(NamedTuple):
+    """A segment wire decoded for the plain versions: row r of segment k
+    is live when r < nrows[k]; ret, isl[i] and iu[i] are [K, Lmax]
+    (slot returned or registered, -1 for none, and the uop id), and
+    crow the rows' crash-prefix indices (with `crow=True`)."""
+    Lmax: int
+    live: torch.Tensor
+    ret: torch.Tensor
+    isl: list
+    iu: list
+    crow: Optional[torch.Tensor]
+
+
+def decode_wire(cbuf, offs, nrows, *, R: int, UP: int,
+                crow: bool = False) -> Wire:
+    """Decode K segments of the wire (ROW_BYTES a row, CROW_ROW_BYTES
+    with `crow`).  Raises ValueError where a kernel counts a bad
+    segment: rows outside cbuf, a uop id outside the table, a slot at or
+    past R."""
     dev = cbuf.device
     K = offs.numel()
-    SnP, WD = snp(Sn), plane_width(R)
-    pass_ops, prune_ops = CLOSE_OPS * Sn * WD, PRUNE_OPS * Sn * WD
     L = nrows.to(torch.int64)
-    o = offs
     n = cbuf.numel()
-    if K and bool(((L < 0) | (o < 0) | (o + ROW_BYTES * L > n)).any()):
+    rb = CROW_ROW_BYTES if crow else ROW_BYTES
+    if K and bool(((L < 0) | (offs < 0) | (offs + rb * L > n)).any()):
         raise ValueError("a segment's rows lie outside cbuf")
     Lmax = int(L.max()) if K else 0
     r = torch.arange(Lmax, device=dev)
@@ -205,88 +215,159 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
     def at(pos):
         return torch.where(live, wire[pos.clamp(0, max(n - 1, 0))], 0)
 
-    o2, L2 = o[:, None], L[:, None]
+    def u16(pos):
+        return at(pos) | (at(pos + 1) << 8)
+
+    o2, L2 = offs[:, None], L[:, None]
     ret = at(o2 + r) - 1
     isl = [at(o2 + L2 + I * r + i) - 1 for i in range(I)]
-    iu = [at(o2 + 3 * L2 + 2 * (I * r + i))
-          | (at(o2 + 3 * L2 + 2 * (I * r + i) + 1) << 8) for i in range(I)]
+    iu = [u16(o2 + 3 * L2 + 2 * (I * r + i)) for i in range(I)]
     for i in range(I):
         if bool(((isl[i] >= 0) & ((iu[i] >= UP) | (isl[i] >= R))).any()):
             raise ValueError("an invoke names a uop outside the table or a "
                              "slot past R")
     if bool((ret >= R).any()):
         raise ValueError("a return names a slot past R")
-    tab = aux.to(torch.int64) & _FULL
-    a1t, a2t, t0t = tab[:UP], tab[UP:2 * UP], tab[2 * UP:3 * UP]
+    cr = None
+    if crow:
+        cr = u16(o2 + ROW_BYTES * L2 + 2 * r)
+        cr = torch.where(cr >= 1 << 15, cr - (1 << 16), cr)
+    return Wire(Lmax, live, ret, isl, iu, cr)
 
+
+def uop_table(aux, UP: int):
+    """(a1, a2, t0) int64[UP] each from the aux table: the diagonal and
+    rank-1 masks and the rank-1 target state of every uop."""
+    tab = aux.to(torch.int64) & _FULL
+    return tab[:UP], tab[UP:2 * UP], tab[2 * UP:3 * UP]
+
+
+def new_slots(K: int, R: int, dev):
+    """Empty slot registers: (a1, a2, t0 int64[K, R], open bool[K, R])."""
+    return tuple(torch.zeros((K, R), dtype=torch.int64, device=dev)
+                 for _ in range(3)) + (
+        torch.zeros((K, R), dtype=torch.bool, device=dev),)
+
+
+def register(wire: Wire, row: int, tab, UP: int, slots):
+    """The slot registers (a1, a2, t0 int64[K, R], open bool[K, R])
+    after the row's invokes."""
+    a1r, a2r, t0r, openr = slots
+    bits = torch.arange(a1r.shape[1], device=a1r.device)
+    for i in range(I):
+        m = wire.isl[i][:, row, None] == bits           # [K, R]
+        u = wire.iu[i][:, row].clamp(0, UP - 1)
+        a1r = torch.where(m, tab[0][u][:, None], a1r)
+        a2r = torch.where(m, tab[1][u][:, None], a2r)
+        t0r = torch.where(m, tab[2][u][:, None], t0r)
+        openr = openr | m
+    return a1r, a2r, t0r, openr
+
+
+def _half_words(WD: int, q: int):
+    """The word columns that hold bit q of the word index, and their
+    partners that lack it."""
+    hi = [w for w in range(WD) if (w >> q) & 1]
+    return hi, [w ^ (1 << q) for w in hi]
+
+
+def slot_pass(fr: torch.Tensor, b: int, a1, a2, t0) -> torch.Tensor:
+    """The configs one pass of slot b adds to the planes fr (int64[K, J,
+    SnP, WD] of 32-bit words; a1, a2, t0 int64[K], the slot's uop): the
+    configs lacking b, moved along the diagonal (a1) and into state t0
+    (the OR over the states of a2), with b set.  Slot b < 5 moves bits
+    inside a word, slot b >= 5 between the words of bit b - 5."""
+    zero = torch.zeros((), dtype=torch.int64, device=fr.device)
+    s_idx = torch.arange(fr.shape[2], device=fr.device)
+    dm = ((a1[:, None] >> s_idx) & 1).bool()[:, None, :, None]
+    cm = ((a2[:, None] >> s_idx) & 1).bool()[:, None, :, None]
+    tm = (s_idx[None, :] == t0[:, None])[:, None, :, None]
+    if b < 5:
+        c = fr & _INTRA[b]
+    else:
+        hi, lo = _half_words(fr.shape[3], b - 5)
+        c = fr[..., lo]
+    red = _or_states(torch.where(cm, c, zero))
+    moved = torch.where(dm, c, zero) | torch.where(tm, red[:, :, None, :],
+                                                   zero)
+    if b < 5:
+        return (moved << (1 << b)) & _FULL
+    out = torch.zeros_like(fr)
+    out[..., hi] = moved
+    return out
+
+
+def retire(fr: torch.Tensor, b: int) -> torch.Tensor:
+    """The planes after slot b returns: the configs lacking b pruned and
+    b's bit cleared."""
+    if b < 5:
+        return (fr & (_INTRA[b] ^ _FULL)) >> (1 << b)
+    hi, lo = _half_words(fr.shape[3], b - 5)
+    out = torch.zeros_like(fr)
+    out[..., lo] = fr[..., hi]
+    return out
+
+
+def round_ops(opened: torch.Tensor, Sn: int, WD: int) -> torch.Tensor:
+    """Integer operations of one round of the open slots (bool[K, R]),
+    per lane: CLOSE_OPS per word of a slot b < 5 pass, CLOSE5_OPS per
+    state row of each receiving word (half the words) at b >= 5."""
+    lo = opened[:, :5].sum(1)
+    return (lo * CLOSE_OPS * Sn * WD
+            + (opened.sum(1) - lo) * CLOSE5_OPS * Sn * max(1, WD // 2))
+
+
+def prune_ops(rs: torch.Tensor, Sn: int, WD: int) -> torch.Tensor:
+    """Integer operations of the returns rs (int64[K], -1 for none), per
+    lane: PRUNE_OPS per word (per receiving word at b >= 5)."""
+    return torch.where(rs >= 5, PRUNE_OPS * Sn * max(1, WD // 2),
+                       torch.where(rs >= 0, PRUNE_OPS * Sn * WD, 0))
+
+
+def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
+               aux: torch.Tensor, *, R: int, Sn: int, UP: int, J: int,
+               rounds: int, work: torch.Tensor | None = None):
+    """`regs_scan`'s function in plain PyTorch on cbuf's device: all K
+    segments walk their rows in step, a segment past its own row count
+    standing still.  The planes are int64[K, J, SnP, WD] holding 32-bit
+    words; a round is the reference's Jacobi round (every open slot's
+    pass reads the plane before the round).  Raises ValueError where
+    the kernel would count a bad segment."""
+    dev = cbuf.device
+    K = offs.numel()
+    SnP, WD = snp(Sn), plane_width(R)
+    wire = decode_wire(cbuf, offs, nrows, R=R, UP=UP)
+    tab = uop_table(aux, UP)
     fr = torch.zeros((K, J, SnP, WD), dtype=torch.int64, device=dev)
     for j in range(min(J, SnP)):
         fr[:, j, j, 0] = 1
-    a1r = torch.zeros((K, R), dtype=torch.int64, device=dev)
-    a2r = torch.zeros_like(a1r)
-    t0r = torch.zeros_like(a1r)
-    openr = torch.zeros((K, R), dtype=torch.bool, device=dev)
-    bits = torch.arange(R, device=dev)
-    s_idx = torch.arange(SnP, device=dev)
+    slots = new_slots(K, R, dev)
     ops = torch.zeros(K, dtype=torch.int64, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
 
-    for row in range(Lmax):
-        act = live[:, row]
-        for i in range(I):
-            m = isl[i][:, row, None] == bits             # [K, R]
-            u = iu[i][:, row].clamp(0, UP - 1)
-            a1r = torch.where(m, a1t[u][:, None], a1r)
-            a2r = torch.where(m, a2t[u][:, None], a2r)
-            t0r = torch.where(m, t0t[u][:, None], t0r)
-            openr = openr | m
-        opened = openr & act[:, None]
+    for row in range(wire.Lmax):
+        slots = register(wire, row, tab, UP, slots)
+        a1r, a2r, t0r, openr = slots
+        opened = openr & wire.live[:, row, None]
         if bool(opened.any()):
             for _ in range(rounds):
                 add = torch.zeros_like(fr)
                 for b in range(R):
                     ob = opened[:, b]
-                    if not bool(ob.any()):
-                        continue
-                    dm = ((a1r[:, b, None] >> s_idx) & 1).bool()  # [K, SnP]
-                    cm = ((a2r[:, b, None] >> s_idx) & 1).bool()
-                    tm = s_idx[None, :] == t0r[:, b, None]
-                    if b < 5:
-                        c = fr & _INTRA[b]
-                        moved = torch.where(dm[:, None, :, None], c, zero)
-                        red = _or_states(
-                            torch.where(cm[:, None, :, None], c, zero))
-                        moved = moved | torch.where(
-                            tm[:, None, :, None], red[:, :, None, :], zero)
-                        lin = (moved << (1 << b)) & _FULL
-                    else:               # slot 5: the word index
-                        c = fr[..., 0]
-                        moved = torch.where(dm[:, None, :], c, zero)
-                        red = _or_states(
-                            torch.where(cm[:, None, :], c, zero)[..., None])
-                        moved = moved | torch.where(tm[:, None, :], red,
-                                                    zero)
-                        lin = torch.stack([torch.zeros_like(moved), moved],
-                                          -1)
-                    add = add | torch.where(ob[:, None, None, None], lin,
-                                            zero)
+                    if bool(ob.any()):
+                        lin = slot_pass(fr, b, a1r[:, b], a2r[:, b],
+                                        t0r[:, b])
+                        add = add | torch.where(ob[:, None, None, None],
+                                                lin, zero)
                 fr = fr | add
-            ops += rounds * (opened[:, :5].sum(1) * pass_ops
-                             + opened[:, 5:].sum(1) * CLOSE5_OPS * Sn)
-        rs = ret[:, row]
+            ops += rounds * round_ops(opened, Sn, WD)
+        rs = wire.ret[:, row]
         for b in range(R):
             mb = rs == b
-            if not bool(mb.any()):
-                continue
-            if b < 5:
-                gone = (fr & (_INTRA[b] ^ _FULL)) >> (1 << b)
-            else:
-                gone = torch.stack([fr[..., 1], torch.zeros_like(fr[..., 1])],
-                                   -1)
-            fr = torch.where(mb[:, None, None, None], gone, fr)
-            openr[:, b] &= ~mb
-        ops += torch.where(rs == 5, PRUNE_OPS * Sn,
-                           torch.where(rs >= 0, prune_ops, 0))
+            if bool(mb.any()):
+                fr = torch.where(mb[:, None, None, None], retire(fr, b), fr)
+                openr[:, b] &= ~mb
+        ops += prune_ops(rs, Sn, WD)
     if work is not None:
         work.copy_(ops * J)
     return (fr[:, :, :Sn, 0] & 1).to(torch.uint8)

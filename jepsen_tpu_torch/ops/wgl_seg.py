@@ -392,15 +392,16 @@ def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
 class _Crashes(NamedTuple):
     """Tier 1's reading of a history with crashed calls: drop marks each
     crashed invoke and its :info completion, crashed lists them
-    (`planner._split_crashed`), and the stripped history's ops and the
-    crashed ops are interned together (seen, rows; crash_uop[i] = -1
-    for an op the model cannot encode) over one state enumeration;
-    inert[i] says the crashed op is legal and the identity on every
-    state."""
+    (`planner._split_crashed`), fk is the stripped history's scan, whose
+    ops are the first n_rows of rows, and the crashed ops are interned
+    after them (crash_uop[i] = -1 for an op the model cannot encode) over
+    one state enumeration; inert[i] says the crashed op is legal and the
+    identity on every state."""
     drop: np.ndarray
     crashed: list
     stripped: list
-    seen: dict
+    fk: Any
+    n_rows: int
     rows: list
     crash_uop: list
     inert: list
@@ -414,15 +415,16 @@ def _split(model, spec, ops, *, max_states, max_open_bits) -> _Crashes:
     stripped = [o for pos, o in enumerate(ops) if not drop[pos]]
     seen: dict = {}
     rows: list = []
-    planner._fast_scan(stripped, spec, seen, rows, max_open_bits)
+    fk = planner._fast_scan(stripped, spec, seen, rows, max_open_bits)
+    n_rows = len(rows)
     crash_uop = planner._intern_crashed(crashed, spec, seen, rows)
     states, legal, next_state, _ = _model_tables(spec, model, rows,
                                                  max_states)
     eye = np.arange(legal.shape[1])
     inert = [u >= 0 and bool(legal[u].all())
              and bool((next_state[u] == eye).all()) for u in crash_uop]
-    return _Crashes(drop, crashed, stripped, seen, rows, crash_uop, inert,
-                    states, legal, next_state)
+    return _Crashes(drop, crashed, stripped, fk, n_rows, rows,
+                    crash_uop, inert, states, legal, next_state)
 
 
 def _check_crashed(model, spec, history, ops, *, max_states, max_open_bits,
@@ -467,8 +469,9 @@ def _check_crashed(model, spec, history, ops, *, max_states, max_open_bits,
                                           + res["dispatch"]["why"])
             return res
     try:
-        res = check(model, History(c.stripped), max_states=max_states,
-                    max_open_bits=max_open_bits, localize=False, device=dev)
+        res = _check_scanned(model, spec, History(c.stripped), c.stripped,
+                             c.fk, c.rows[:c.n_rows], max_states=max_states,
+                             localize=False, dev=dev, t0=time.monotonic())
     except Unsupported:
         res = None
     lap("stripped")
@@ -477,8 +480,7 @@ def _check_crashed(model, spec, history, ops, *, max_states, max_open_bits,
         res["dispatch"]["why"] = (WHY_STRIPPED.format(n=len(c.crashed))
                                   + res["dispatch"]["why"])
         return res
-    res = _relaxed_refute(model, spec, history, ops, c,
-                          max_open_bits=max_open_bits, localize=localize,
+    res = _relaxed_refute(model, history, ops, c, localize=localize,
                           dev=dev, lap=lap)
     if res is None:
         raise Unsupported(
@@ -544,12 +546,10 @@ class _RelaxedWire(NamedTuple):
     Sn: int
 
 
-def _relaxed_wire(spec, ops, c: _Crashes, *, max_open_bits,
-                  target=None) -> Optional[_RelaxedWire]:
-    """The relaxed tier's wire, segments closing `target` returns in
-    (TARGET_RETURNS by default), or None where the tier does not apply
-    (an unencodable crashed op, Sn > 32, a stripped shape outside the
-    segment kernel's nc = 0 gate)."""
+def _relaxed_wire(c: _Crashes) -> Optional[_RelaxedWire]:
+    """The relaxed tier's wire over the stripped history's scan, or None
+    where the tier does not apply (an unencodable crashed op, Sn > 32, a
+    stripped shape outside the segment kernel's nc = 0 gate)."""
     Sn = c.states.shape[0]
     if Sn > 32:
         return None                  # the two-word lift: ROADMAP P5
@@ -557,20 +557,17 @@ def _relaxed_wire(spec, ops, c: _Crashes, *, max_open_bits,
                                                  c.crash_uop) if not ine]
     if any(u < 0 for _, u in eff) or len(eff) > 32767:
         return None
-    keep = np.nonzero(~c.drop)[0]
-    U0 = len(c.rows)
-    fk = planner._fast_scan([ops[i] for i in keep], spec, c.seen, c.rows,
-                            max_open_bits)
-    if fk.n_calls == 0 or len(c.rows) != U0:
+    fk = c.fk
+    if fk.n_calls == 0:
         return None
     R = int(fk.max_open)
     dec = planner._decompose(c.legal, c.next_state)
-    if planner.regs_gate(R, Sn, U0, dec[0] is not None) is not None \
+    if planner.regs_gate(R, Sn, len(c.rows), dec[0] is not None) is not None \
             or not fk.n_rets or fk.cuts[-1] != 1:
         return None
-    seg_ends = planner._segment_ends(
-        fk.cuts, TARGET_RETURNS if target is None else target)
+    seg_ends = planner._segment_ends(fk.cuts, TARGET_RETURNS)
     crash_pos = np.asarray([ip for ip, _ in eff], np.int64)
+    keep = np.nonzero(~c.drop)[0]
     orig_ret_pos = keep[np.asarray(fk.positions, np.int64)]
     crow = np.searchsorted(crash_pos, orig_ret_pos, side="left")
     aux, UP = _aux(planner._pack_uop_tables(c.legal, c.next_state, *dec))
@@ -579,8 +576,8 @@ def _relaxed_wire(spec, ops, c: _Crashes, *, max_open_bits,
                         _prefix_closures(eff, c.legal, c.next_state), R, Sn)
 
 
-def _relaxed_refute(model, spec, history, ops, c: _Crashes, *,
-                    max_open_bits, localize, dev, lap) -> Optional[dict]:
+def _relaxed_refute(model, history, ops, c: _Crashes, *, localize, dev,
+                    lap) -> Optional[dict]:
     """Tier 4: a sound refutation under relaxed crash semantics (the
     reference's `_relaxed_refute`, at Sn <= 32).  Every effect-bearing
     crashed call becomes a jump between states available any number of
@@ -599,7 +596,7 @@ def _relaxed_refute(model, spec, history, ops, c: _Crashes, *,
     Returns None where it proves nothing or does not apply."""
     if all(c.inert):
         return None                  # nothing effect-bearing to relax
-    rw = _relaxed_wire(spec, ops, c, max_open_bits=max_open_bits)
+    rw = _relaxed_wire(c)
     if rw is None:
         return None
     R, Sn, UP = rw.R, rw.Sn, rw.UP

@@ -12,7 +12,9 @@ histories with crashed (:info or unreturned) calls made from a seed:
   `_build_kernel_regs(J=Sn<<nc, nc=nc, rn=rn)` bit for bit at nc = 1..4
   and R + nc up to 8; the relaxed variant's transfer rows, its composed
   verdict words (`_build_kernel_regs_relaxed`) and its death row equal
-  the reference's `crash_closure` and `death_row` kernels;
+  the reference's `crash_closure` and `death_row` kernels; their
+  `work=` counts equal a plain-Python walk of each lane that charges its
+  rounds up to its own fixpoint;
 - `wgl_seg.check` and `Linearizable` agree with the reference's
   `wgl_seg.check` on the verdict, the witness and the tier fields in
   every tier, and `check_pipeline` on a mixed batch.
@@ -234,7 +236,7 @@ def crash_scans():
             R=R, Sn=Sn, UP=UP, nc=nc, rn=rn, work=work)
         out[name] = dict(ref_T=ref_T, T=T.numpy(), bad=int(bad[0]),
                          work=work.numpy(), Sn=Sn, K=K, wire=wire, aux=aux,
-                         UP=UP, R=R, nc=nc, rn=rn,
+                         UP=UP, R=R, nc=nc, rn=rn, rows=rows,
                          vd=regs_kernel.compose(T, [K])[0].numpy(),
                          oracle=ref_cpu.check(ref_models.CASRegister(),
                                               h)["valid?"])
@@ -272,12 +274,12 @@ def relaxed_inputs(h):
     ops = port(h).ops
     c = wgl_seg._split(model, model.device_spec(), ops, max_states=64,
                        max_open_bits=10)
-    rw = wgl_seg._relaxed_wire(model.device_spec(), ops, c,
-                               max_open_bits=10)
+    rw = wgl_seg._relaxed_wire(c)
     tabs = decode(*rw.wire, len(c.rows), crow=True)
     return dict(wire=rw.wire, tabs=tabs, ctab=rw.ctab, aux=rw.aux,
                 UP=rw.UP, Sn=rw.Sn, R=rw.R, nC=len(rw.ctab) // rw.Sn,
-                U=len(c.rows), I=min(2, rw.R),
+                U=len(c.rows), I=min(2, rw.R), legal=c.legal,
+                next_state=c.next_state,
                 uop_tabs=planner._pack_uop_tables(
                     c.legal, c.next_state,
                     *planner._decompose(c.legal, c.next_state)))
@@ -342,6 +344,129 @@ def test_relaxed_plain_matches_reference_kernels(seed):
         args[4], seed_mask, R=R, Sn=Sn, UP=c["UP"])
     assert int(bad[0]) == 0
     assert int(rows[0]) == ref_row >= 0
+
+
+# ---------------------------------------------------------------------------
+# The work= count: each lane's rounds up to its own fixpoint
+# ---------------------------------------------------------------------------
+
+def lane_walk(tabs, k, L, legal, nxt, *, R, Sn, start, ctab=None,
+              stop_empty=False):
+    """One lane of segment k (L rows) walked in plain Python, its plane
+    a list of Sn ints over the 2^R masks: (integer operations, final
+    plane, the row at which it emptied or -1, rounds left unrun).  A
+    row's rounds go on while they change the plane, at most R; each
+    round run is charged."""
+    ret_t, islot_t, iuop_t, crow_t = tabs
+    WD = regs_kernel.plane_width(R)
+    half = max(1, WD // 2)
+    lack = [sum(1 << m for m in range(1 << R) if not m >> b & 1)
+            for b in range(R)]
+    closure_ops = crash_kernel.CLOSURE_OPS * Sn * Sn * WD
+    plane = list(start)
+    uop = {}
+    ops = saved = 0
+
+    def close(plane, masks):
+        return [plane[t] | _or(plane[s] for s in range(Sn)
+                               if masks[s] >> t & 1) for t in range(Sn)]
+
+    for r in range(L):
+        for b, u in zip(islot_t[r, k], iuop_t[r, k]):
+            if b >= 0:
+                uop[int(b)] = int(u)
+        masks = None if ctab is None else ctab[int(crow_t[r, k])]
+        if masks is not None:
+            plane = close(plane, masks)
+            ops += closure_ops
+        if uop:
+            per = sum(regs_kernel.CLOSE_OPS * Sn * WD if b < 5
+                      else regs_kernel.CLOSE5_OPS * Sn * half for b in uop)
+            per += closure_ops if masks is not None else 0
+            for rd in range(R):
+                old = list(plane)
+                for b in sorted(uop):
+                    src = [p & lack[b] for p in plane]
+                    for s in range(Sn):
+                        if legal[uop[b], s]:
+                            plane[nxt[uop[b], s]] |= src[s] << (1 << b)
+                if masks is not None:
+                    plane = close(plane, masks)
+                ops += per
+                if plane == old:
+                    saved += R - rd - 1
+                    break
+        b = int(ret_t[r, k])
+        if b >= 0:
+            plane = [(p & ~lack[b]) >> (1 << b) for p in plane]
+            del uop[b]
+            ops += regs_kernel.PRUNE_OPS * Sn * (half if b >= 5 else WD)
+        if stop_empty and not any(plane):
+            return ops, plane, r, saved
+    return ops, plane, -1, saved
+
+
+def _or(xs):
+    out = 0
+    for x in xs:
+        out |= x
+    return out
+
+
+@pytest.mark.parametrize("name", ["rn1-nc1", "rn7-nc1", "rn3-nc2-bad",
+                                  "rn2-nc3", "rn4-nc4"])
+def test_crash_work_counts_each_lanes_rounds(crash_scans, name):
+    c = crash_scans[name]
+    R, Sn, nc, rn = c["R"], c["Sn"], c["nc"], c["rn"]
+    _, legal, nxt, *_ = uop_tables(c["rows"])
+    tabs = decode(*c["wire"], len(c["rows"]))[:3] + (None,)
+    unrun = 0
+    for k in range(c["K"]):
+        total = 0
+        for j in range(Sn << nc):
+            start = [0] * Sn
+            start[j % Sn] = 1 << ((j // Sn) << rn)
+            ops, plane, _, saved = lane_walk(
+                tabs, k, int(c["wire"][2][k]), legal, nxt, R=R, Sn=Sn,
+                start=start)
+            total += ops
+            unrun += saved
+            row = [(plane[s] >> (cm << rn)) & 1 for cm in range(1 << nc)
+                   for s in range(Sn)]
+            assert row == c["T"][k, j].tolist(), (k, j)
+        assert total == c["work"][k], k
+    assert unrun > 0                    # rows that stop short of R rounds
+
+
+@pytest.mark.parametrize("seed", [41, 47])
+def test_relaxed_work_counts_each_lanes_rounds(seed):
+    c = relaxed_inputs(relaxed_planted(seed))
+    R, Sn, UP = c["R"], c["Sn"], c["UP"]
+    legal, nxt = c["legal"], c["next_state"]
+    nrows = c["wire"][2]
+    ctab = c["ctab"].view(np.uint32).reshape(-1, Sn).astype(np.int64)
+    args = [torch.from_numpy(x) for x in c["wire"] + (c["aux"], c["ctab"])]
+    K = len(c["wire"][1])
+    work = torch.zeros(K, dtype=torch.int64)
+    T, _ = crash_kernel.relaxed_scan(*args, R=R, Sn=Sn, UP=UP, work=work)
+    for k in range(K):
+        lanes = [lane_walk(c["tabs"], k, int(nrows[k]), legal, nxt, R=R,
+                           Sn=Sn,
+                           start=[int(s == j) for s in range(Sn)],
+                           ctab=ctab) for j in range(Sn)]
+        assert sum(x[0] for x in lanes) == int(work[k]), k
+        assert [[p & 1 for p in x[1]] for x in lanes] == T[k].tolist()
+    vd = regs_kernel.compose(T, [K])[0]
+    dead, seed_mask = int(vd[1]), int(vd[2]) & 0xFFFFFFFF
+    dwork = torch.zeros(1, dtype=torch.int64)
+    rows, _ = crash_kernel.death_row(
+        args[0], args[1][dead:dead + 1], args[2][dead:dead + 1], args[3],
+        args[4], seed_mask, R=R, Sn=Sn, UP=UP, work=dwork)
+    ops, _, row, _ = lane_walk(
+        c["tabs"], dead, int(nrows[dead]), legal, nxt, R=R, Sn=Sn,
+        start=[seed_mask >> s & 1 for s in range(Sn)], ctab=ctab,
+        stop_empty=True)
+    assert (ops, row) == (int(dwork[0]), int(rows[0]))
 
 
 # ---------------------------------------------------------------------------
