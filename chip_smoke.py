@@ -24,7 +24,8 @@ any failure exits non-zero:
                copies of the same inputs: 400-call histories at
                R = 1..6 x SnP 8/16/32, valid and planted-invalid, at
                rounds R and 2, and one with more than 255 uop ids:
-               transfer matrices, plane words, the exact verdict;
+               transfer matrices, operation counts (each lane's rounds
+               to its fixpoint), the exact verdict;
   main       - the deep-overlap envelope at full size: 16 etcd-shaped
                register histories of 20,000 calls (concurrency 16, vmax
                9, read/read/write/cas) per depth max_open 8/10/12/14,
@@ -42,13 +43,17 @@ any failure exits non-zero:
                calls (concurrency 5, vmax 9) through wgl_seg.check_pipeline
                (all valid, engine wgl_seg), one through Linearizable, and
                a planted stale read through both whose exact witness must
-               come back; the segment kernel's launches are counted;
+               come back; the segment kernel's and wgl_compose's launches
+               are counted (one composition per scan) and torch.bmm's
+               calls (none);
   seg-grid / seg-timing
              - the batch's first group rebuilt as the pipeline built it:
                chosen segment lanes against the plain version; then the
                group launch and check()'s launch on one history, each
-               against its plain version and its bound, and the
-               composition's time, for the JSON kernel line;
+               against its plain version and its bound, and wgl_compose
+               on the group's matrices beside the torch.bmm levels that
+               composed them before, its plain version and its bound,
+               for the JSON kernel line;
   crash-kernel
              - the segment kernel's crash variants against their plain
                version on CPU copies of the same inputs: the crash
@@ -75,7 +80,11 @@ any failure exits non-zero:
   crash-timing
              - the tier-2 launch of (c), the relaxed launch of (b) and
                its death-row launch against their plain versions and
-               bounds, for the JSON kernel line.
+               bounds, for the JSON kernel line;
+  compose    - wgl_compose against its plain version on CPU copies: the
+               north-star group's matrices, one history's, (c)'s J = 88
+               and (b)'s, and deaths made at the first, a middle and the
+               last segment.
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with
 no result line when torch.cuda.is_available() is false or the package
@@ -863,7 +872,15 @@ def phase_seg_main():
         f"in {time.perf_counter() - t:.1f} s")
     model = CASRegister()
     checker = Linearizable(model)
+    bmm_calls = [0]
+    bmm = torch.bmm
+
+    def counted_bmm(*a, **kw):
+        bmm_calls[0] += 1
+        return bmm(*a, **kw)
+    torch.bmm = counted_bmm
     regs_kernel.LAUNCHES = 0
+    regs_kernel.COMPOSE_LAUNCHES = 0
     st = {}
     t = time.perf_counter()
     res = wgl_seg.check_pipeline(model, hs, stats=st)
@@ -883,7 +900,7 @@ def phase_seg_main():
         f"segments per history {min(r['segments'] for r in res)}.."
         f"{max(r['segments'] for r in res)}): {n_ops / wall:.0f} ops/s, "
         f"wall {wall:.3f} s, kernel {st.get('kernel_ms', 0.0):.3f} ms, "
-        f"compose (bmm) {st.get('compose_ms', 0.0):.3f} ms = "
+        f"compose (wgl_compose) {st.get('compose_ms', 0.0):.3f} ms = "
         f"{st.get('compose_ms', 0.0) / max(dev_ms, 1e-9):.3f} "
         f"of the device time, host share {(wall - dev_ms / 1e3) / wall:.4f}"
         f"; stages: {stages}")
@@ -916,12 +933,16 @@ def phase_seg_main():
     if rp[0]["valid?"] is not True:
         raise SystemExit("[seg-main] the planted batch judged a valid "
                          "history invalid")
+    torch.bmm = bmm
     launches = regs_kernel.LAUNCHES
-    log(f"[seg-main] segment kernel launches on the main path: {launches}")
-    if launches <= 0:
-        raise SystemExit("[seg-main] the main path never launched the "
-                         "segment kernel")
-    return hs, launches
+    compose_launches = regs_kernel.COMPOSE_LAUNCHES
+    log(f"[seg-main] launches on the main path: segment kernel {launches}, "
+        f"wgl_compose {compose_launches}; torch.bmm calls {bmm_calls[0]}")
+    if launches <= 0 or compose_launches != launches or bmm_calls[0]:
+        raise SystemExit("[seg-main] the main path must launch the segment "
+                         "kernel and one composition per launch, and no "
+                         "torch.bmm")
+    return hs, {"wgl_regs": launches, "wgl_compose": compose_launches}
 
 
 def phase_seg_grid(hs, clock_hz):
@@ -958,17 +979,38 @@ def phase_seg_grid(hs, clock_hz):
             seg_scan(inp, DEV, rd)                    # warm
             ms = [seg_scan(inp, DEV, rd)[3] for _ in range(5)]
             Tn, wn, _, _ = seg_scan(inp, DEV, rd)
-            timed[name] = (sum(ms) / len(ms), Tn, wn)
-        # the composition alone, on the group's transfer matrices
+            args = [torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+                    for x in (inp["cbuf"], inp["offs"], inp["nrows"],
+                              inp["aux"])]
+            kw = dict(R=inp["R"], Sn=inp["Sn"], UP=inp["UP"], J=inp["Sn"],
+                      rounds=rd)
+            dev_ms = device_ms(lambda: regs_kernel.regs_scan(*args, **kw),
+                               10)
+            # one lane a segment: one warp walks each segment's rows, the
+            # chain's latency with the card nearly empty
+            chain_ms = device_ms(lambda: regs_kernel.regs_scan(
+                *args, **dict(kw, J=1)), 10)
+            timed[name] = (dev_ms, Tn, wn, sum(ms) / len(ms), chain_ms)
+        # the composition alone, on the group's transfer matrices:
+        # wgl_compose and PR 4's torch.bmm levels in turns
         Tg = torch.from_numpy(T).to(DEV)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        for _ in range(5):
-            regs_kernel.compose(Tg, grp["seg_counts"])
-        ev[1].record()
-        torch.cuda.synchronize()
-        compose_ms = ev[0].elapsed_time(ev[1]) / 5
+        counts = grp["seg_counts"]
+        runs = {"bmm": [], "kernel": []}
+        once = {"bmm": [], "kernel": []}
+        for name in ("bmm", "kernel", "kernel", "bmm"):
+            fn = bmm_levels if name == "bmm" else regs_kernel.compose
+            fn(Tg, counts)                            # warm
+            runs[name].append(device_ms(lambda: fn(Tg, counts), 10))
+            once[name].append(cuda_ms(lambda: fn(Tg, counts), 1))
+        compose_ms = sum(runs["kernel"]) / 2
+        bmm_ms = sum(runs["bmm"]) / 2
+        if not torch.equal(bmm_levels(Tg, counts), regs_kernel.compose(
+                Tg, counts)):
+            raise SystemExit("[seg-timing] wgl_compose and the torch.bmm "
+                             "levels disagree")
+        t = time.perf_counter()
+        regs_kernel.compose_plain(torch.from_numpy(T), counts)
+        compose_plain_ms = 1e3 * (time.perf_counter() - t)
         pT, pwork, psecs = f_picks.result()
         ok = np.array_equal(T[picks], pT) and np.array_equal(work[picks],
                                                              pwork)
@@ -983,7 +1025,7 @@ def phase_seg_grid(hs, clock_hz):
         res = {}
         for name, fut in (("group", f_grp), ("single", f_one)):
             inp = grp if name == "group" else one
-            ms, Tn, wn = timed[name]
+            ms, Tn, wn, launch_ms, chain_ms = timed[name]
             pT, pwork, psecs = fut.result()
             if not (np.array_equal(Tn, pT) and np.array_equal(wn, pwork)):
                 raise SystemExit(f"[seg-grid] {name}: kernel and plain "
@@ -994,20 +1036,162 @@ def phase_seg_grid(hs, clock_hz):
             b = seg_bound_ms(int(wn.sum()), wire_bytes(inp, Kn, Sn),
                              clock_hz)
             res[name] = dict(ms=ms, plain_ms=1e3 * psecs, bound_ms=b,
-                             ops=int(wn.sum()))
+                             ops=int(wn.sum()), launch_ms=launch_ms)
             log(f"[seg-timing] {name} launch: K={Kn} segments, "
                 f"rows={int(inp['nrows'].sum())}, R={inp['R']}, rounds="
                 f"{rounds if name == 'group' else inp['R']}: kernel "
-                f"{ms:.3f} ms (mean of 5), plain (CPU, one thread) "
-                f"{1e3 * psecs:.1f} ms, bound {b:.4f} ms from "
+                f"{ms:.4f} ms on the device (10 back to back), "
+                f"{launch_ms:.4f} ms from an idle card's launch to its "
+                f"end (mean of 5, as PR 4 timed it), plain (CPU, one "
+                f"thread) {1e3 * psecs:.1f} ms, bound {b:.4f} ms from "
                 f"{int(wn.sum())} integer operations ({b / ms:.4f} of "
-                f"it)")
+                f"the device time, {b / launch_ms:.4f} of launch to end); "
+                f"one lane a segment (J = 1) {chain_ms:.4f} ms")
+        cb = compose_bound_ms(T.nbytes, len(counts))
+        res["compose"] = dict(ms=compose_ms, plain_ms=compose_plain_ms,
+                              bound_ms=cb, library_ms=bmm_ms)
         log(f"[seg-timing] composition of the group's {K} transfer "
-            f"matrices (torch.bmm levels): {compose_ms:.3f} ms, "
+            f"matrices (J={Sn}, {len(counts)} histories), on the device "
+            f"(10 back to back, in turns): wgl_compose {compose_ms:.4f} ms "
+            f"({runs['kernel'][0]:.4f}, {runs['kernel'][1]:.4f}), the "
+            f"torch.bmm levels {bmm_ms:.4f} ms ({runs['bmm'][0]:.4f}, "
+            f"{runs['bmm'][1]:.4f}); from an idle card's launch to the "
+            f"end: wgl_compose {once['kernel'][0]:.4f} / "
+            f"{once['kernel'][1]:.4f} ms, the torch.bmm levels "
+            f"{once['bmm'][0]:.4f} / {once['bmm'][1]:.4f} ms; plain (CPU) "
+            f"{compose_plain_ms:.1f} ms, "
+            f"bound {cb:.5f} ms from {T.nbytes} bytes ({cb / compose_ms:.4f}"
+            f" of it); wgl_compose is "
             f"{compose_ms / (compose_ms + res['group']['ms']):.3f} of "
             f"kernel + composition")
     res["err"] = err
+    res["T_group"], res["counts_group"] = T, grp["seg_counts"]
+    res["T_single"] = timed["single"][1]
     return res
+
+
+def device_ms(fn, reps):
+    """Mean device time of `reps` back-to-back calls of fn: the card
+    sleeps while the host enqueues them, so the events hold the device's
+    work and not the host's launch overhead."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t               # host and device, once
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda._sleep(int(2e9 * (2 * reps * one + 1e-3)))
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of `reps` calls of fn on the current stream
+    (CUDA events)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def compose_bound_ms(t_bytes, B):
+    """The composition's least time: each transfer matrix read once and
+    six words a history written (and two of its indices read), over
+    device memory."""
+    return 1e3 * (t_bytes + B * (6 * 4 + 12)) / HBM_BYTES_PER_S
+
+
+def bmm_levels(T, seg_counts):
+    """The composition as the port computed it before wgl_compose, for
+    the timing only (the port no longer calls it): prefix products by
+    doubling, log2(K) levels of torch.bmm on 0/1 float32 matrices,
+    thresholded after each; row 0 gives the six verdict words."""
+    from jepsen_tpu_torch.ops.regs_kernel import to_device
+    dev = T.device
+    B = len(seg_counts)
+    J = T.shape[1]
+    Kmax = max(seg_counts)
+    counts = np.asarray(seg_counts, np.int64)
+    hb = np.repeat(np.arange(B), counts)
+    hk = np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts,
+                                             counts)
+    P = torch.eye(J, dtype=torch.float32, device=dev).repeat(B, Kmax, 1, 1)
+    P[to_device(hb, dev), to_device(hk, dev)] = T.to(torch.float32)
+    d = 1
+    while d < Kmax:
+        prod = torch.bmm(P[:, :Kmax - d].reshape(-1, J, J),
+                         P[:, d:].reshape(-1, J, J))
+        P = torch.cat([P[:, :d], (prod > 0).to(torch.float32)
+                       .reshape(B, Kmax - d, J, J)], dim=1)
+        d *= 2
+    alive = (P[:, :, 0, :] > 0).any(-1)                   # [B, Kmax]
+    valid = alive[:, -1]
+    dead = torch.where(valid, -1, alive.sum(1))
+    idx = (dead - 1).clamp(0, Kmax - 1)
+    reach = P[torch.arange(B, device=dev), idx, 0, :] > 0  # [B, J]
+    entry0 = torch.zeros((B, J), dtype=torch.bool, device=dev)
+    entry0[:, 0] = True
+    entry = torch.where(valid[:, None], False,
+                        torch.where((dead > 0)[:, None], reach, entry0))
+    jj = torch.arange(min(J, 128), device=dev)
+    bit = entry[:, :len(jj)].to(torch.int64) << (jj % 32)
+    words = torch.zeros((B, 4), dtype=torch.int64, device=dev)
+    words.index_add_(1, jj // 32, bit)
+    words = (words + 2 ** 31) % 2 ** 32 - 2 ** 31        # as int32 bits
+    return torch.cat([valid.to(torch.int64)[:, None], dead[:, None],
+                      words], 1).to(torch.int32)
+
+
+def phase_compose(seg, crash):
+    """wgl_compose against its plain version (on CPU copies of the same
+    matrices): the north-star group, one history alone, the crash tier's
+    J = 88 matrices of (c) and the relaxed tier's of (b), and deaths
+    made at the first, a middle and the last segment (the group's and
+    (c)'s matrices with one segment emptied).  Returns the largest
+    disagreement."""
+    from jepsen_tpu_torch.ops import regs_kernel
+    Tg, cg = seg["T_group"], seg["counts_group"]
+    Tc, Tr = crash["T_crash"], crash["T_relaxed"]
+    starts = np.concatenate([[0], np.cumsum(cg)[:-1]])
+    killed = Tg.copy()
+    for b, k in ((0, 0), (1, cg[1] // 2), (2, cg[2] - 1)):
+        killed[starts[b] + k] = 0
+    mid = Tc.copy()
+    mid[len(Tc) // 2] = 0
+    cases = [("north-star group", Tg, cg),
+             ("one history", seg["T_single"], [len(seg["T_single"])]),
+             ("crash (c), J = 88", Tc, [len(Tc)]),
+             ("relaxed (b)", Tr, [len(Tr)]),
+             ("group, deaths at segment 0 / middle / last", killed, cg),
+             ("crash (c), death in the middle", mid, [len(mid)])]
+    err = 0
+    for name, T, counts in cases:
+        got = regs_kernel.compose(torch.from_numpy(T).to(DEV), counts).cpu()
+        want = regs_kernel.compose_plain(torch.from_numpy(T), counts)
+        err = max(err, int((got.to(torch.int64)
+                            - want.to(torch.int64)).abs().max()))
+        ok = torch.equal(got, want)
+        log(f"[compose] {name}: B={len(counts)} K={len(T)} J={T.shape[1]} "
+            f"(valid, dead) {[tuple(r[:2]) for r in got.tolist()]} "
+            f"{'OK' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit("[compose] wgl_compose and the plain version "
+                             "disagree")
+    want_dead = [0, cg[1] // 2, cg[2] - 1] + [-1] * (len(cg) - 3)
+    got_dead = regs_kernel.compose(torch.from_numpy(killed).to(DEV),
+                                   cg).cpu()[:, 1].tolist()
+    if got_dead != want_dead:
+        raise SystemExit(f"[compose] made deaths {want_dead}, found "
+                         f"{got_dead}")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -1544,6 +1728,7 @@ def phase_crash_timing(main, clock_hz):
         if tag != "hists":
             log(f"[crash-timing] {tag}: {m['s']:.3f} s; stages: "
                 f"{stage_line(m['st'])}")
+    res["T_crash"], res["T_relaxed"] = T, Tr
     return res
 
 
@@ -1561,6 +1746,7 @@ def main() -> int:
     crash_main = phase_crash_main(seg_hs)
     crash_launches = phase_crash_pipeline(seg_hs, crash_main)
     crash = phase_crash_timing(crash_main, clock_hz)
+    compose_err = phase_compose(seg, crash)
     kernels = [{"name": f"wgl_deep_{arm}", "route": "cuda",
                 "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",
                 "replaces": "jepsen_tpu/ops/wgl_deep.py:358",
@@ -1573,12 +1759,22 @@ def main() -> int:
     kernels.append({"name": "wgl_regs", "route": "cuda",
                     "source": "jepsen_tpu_torch/csrc/wgl_regs.cu",
                     "replaces": "jepsen_tpu/ops/wgl_seg.py:258",
-                    "launches": seg_launches,
+                    "launches": seg_launches["wgl_regs"],
                     "max_abs_err": max(seg_err, seg["err"]),
                     "ms": seg["group"]["ms"],
                     "plain_ms": seg["group"]["plain_ms"],
                     "bound_ms": seg["group"]["bound_ms"],
                     "bound_by": "operations", "library_ms": None})
+    kernels.append({"name": "wgl_compose", "route": "cuda",
+                    "source": "jepsen_tpu_torch/csrc/wgl_regs.cu",
+                    "replaces": "jepsen_tpu/ops/wgl_seg.py:700",
+                    "launches": seg_launches["wgl_compose"],
+                    "max_abs_err": compose_err,
+                    "ms": seg["compose"]["ms"],
+                    "plain_ms": seg["compose"]["plain_ms"],
+                    "bound_ms": seg["compose"]["bound_ms"],
+                    "bound_by": "bytes",
+                    "library_ms": seg["compose"]["library_ms"]})
     for name, kind in (("wgl_regs_crash", "crash"),
                        ("wgl_regs_relaxed", "relaxed")):
         kernels.append({"name": name, "route": "cuda",

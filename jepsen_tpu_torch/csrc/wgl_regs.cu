@@ -1,13 +1,17 @@
-// Register-delta segment scan for Hopper (sm_90a).
+// Register-delta segment scan and its composition, for Hopper (sm_90a).
 //
-// Replaces jepsen_tpu/ops/wgl_seg.py::_build_kernel_regs (:258, an XLA
-// lax.scan, not Pallas) on the path of its nc = 0 callers: the composed
-// single-history kernel and the grouped pipeline kernel
+// wgl_regs_kernel replaces jepsen_tpu/ops/wgl_seg.py::_build_kernel_regs
+// (:258, an XLA lax.scan, not Pallas) on the path of its nc = 0 callers:
+// the composed single-history kernel and the grouped pipeline kernel
 // _build_kernel_regs_group_c (:641), whose in-kernel wire unpack
 // (_unpack_transfer_bufs, :522) is folded into this kernel's staging.
 // It computes, for every lane (segment k, entry state j), the transfer
 // row T[k, j, :]: the model states reachable at the segment's end, at
-// mask 0, having entered the segment in state j.
+// mask 0, having entered the segment in state j.  wgl_compose_kernel
+// replaces the composition those two functions end in (the
+// jax.lax.associative_scan at :700 and the composed kernel's at :499):
+// each history's chain of transfer matrices, from entry config 0 to the
+// first segment that empties it.
 //
 // State.  A lane's frontier is a bit plane fr[SnP][WD] of 32-bit words:
 // state row s, mask word w (WD = max(1, 2^R / 32), so 1 for R <= 5 and
@@ -20,11 +24,14 @@
 // transfer matrices are equal bit for bit at any round count):
 //   1. register up to I = 2 new invokes: slot b's (a1, a2, t0) words,
 //      and the slot opens;
-//   2. `rounds` closure rounds, Jacobi style: every open slot b adds
-//      set_slot(moved_b) computed from the plane as it was at the start
-//      of the round, where moved_b = (contrib & diag(a1)) plus, at state
-//      t0, the OR over states of (contrib & const(a2)), and contrib is
-//      the configs lacking b;
+//   2. up to `rounds` closure rounds, Jacobi style: every open slot b
+//      adds set_slot(moved_b) computed from the plane as it was at the
+//      start of the round, where moved_b = (contrib & diag(a1)) plus, at
+//      state t0, the OR over states of (contrib & const(a2)), and
+//      contrib is the configs lacking b.  A round that adds nothing
+//      leaves the plane as it was, so every later round adds nothing
+//      too: the rounds stop there, and the rows equal those of all
+//      `rounds` rounds;
 //   3. at a return of slot rs, prune the configs lacking rs and clear
 //      its bit, and retire the slot.  A virtual row (no return) prunes
 //      nothing.
@@ -32,30 +39,35 @@
 // in); the pipeline runs fewer, an under-approximation whose deaths the
 // host re-checks at rounds = R.
 //
-// Layout.  One thread per lane; one warp per segment, lane j < J walking
-// entry state j (J is a launch parameter, at most 32), the other lanes
-// walking an empty plane.  The lanes of a segment share its event rows,
-// which the warp stages CHUNK rows at a time into shared memory (ret,
-// slot, and the slot's three table words gathered from the aux table),
-// between two __syncwarp.  Each warp walks its own segment's row count.
-// Every decision in the walk (which slots are open, the returning slot)
-// is the segment's, so the warp never diverges; no lane reads another
-// lane's plane: the closure's OR over source states stays inside one
-// lane's words.  The kernel is templated on (WD, SnP) and fully
-// unrolled, so the plane and the slot tables stay in registers.
+// Layout.  One CTA per segment; one thread per (lane j, state row s):
+// a lane's SnP rows sit on SnP consecutive threads of one warp (4, 2 or
+// 1 lanes a warp at SnP 8, 16 or 32), and the CTA holds ceil(J * SnP /
+// 32) warps.  Each thread keeps its row's WD words in registers.  The
+// diagonal term and the prune stay inside the thread; the rank-1 term,
+// an OR over the lane's state rows, is log2(SnP) __shfl_xor_sync steps
+// inside the lane's SnP threads, which the whole warp runs together.
+// The CTA stages CHUNK event rows at a time into shared memory, double
+// buffered: the next chunk's wire bytes are loaded into registers before
+// the walk of this one and stored after it, one __syncthreads a chunk.
+// Every decision (which slots are open, the returning slot) is the
+// segment's, so no warp diverges; a warp leaves a row's rounds when a
+// ballot finds no lane of it changed.
 //
-// What bounds it on this card: integer operations.  A closure pass of
-// a slot b < 5 costs six operations per plane word (select the configs
+// What bounds it on this card: integer operations, and the latency of
+// one segment's rows walked as one dependent chain.  A closure pass of a
+// slot b < 5 costs six operations per plane word (select the configs
 // lacking the slot, the diagonal select, the shift, the OR into the
 // round's sum, the rank-1 select, the OR over states), one of slot 5
 // four per state row (no lack mask, no shift: word 0 moves to word 1),
 // and a prune two per word (the and-not and the shift; at slot 5 the
 // move and the clear per state row).  The wire is a few bytes a row,
-// and the plane never leaves registers.  The design gives every lane its
-// own thread and keeps the warp convergent, so the integer lanes do the
-// walk and nothing waits on memory or on a barrier after staging; a
-// segment with J < 32 entry states leaves 32 - J lanes idle, which is
-// the cost of that simplicity.
+// and the plane never leaves registers.  One thread per state row keeps
+// the integer lanes busy where one thread per lane left 21 of 32 idle
+// at J = 11 and walked 16 rows in series; a CTA per segment puts six
+// warps on each of the north star's segments, so the card holds many
+// chains at once, and the fixpoint stop ends each row after the rounds
+// that change something plus one.  The shuffles and ballots are not in
+// the count.
 //
 // Wire.  Segment k's rows lie at byte offs[k] of cbuf in the compact
 // layout of ops/wgl_deep.pack_events_compact with L = nrows[k] rows and
@@ -67,11 +79,29 @@
 //
 // Output: out[K][J][Sn] u8, 1 where state s is reachable at mask 0;
 // work[k] (optional) the integer operations of the walk of segment k
-// under the costs above, summed over its J lanes: per row, rounds passes
-// of every open slot over the Sn state rows that hold configs (rows Sn..
-// SnP-1 of the plane stay empty and are not counted), and a prune at a
-// return.  The per-row mask extraction, the landing at t0 and the OR of
-// a round's sum are left out, so the count is a floor.
+// under the costs above, summed over its J lanes: per row, each lane's
+// rounds up to the first that leaves its plane unchanged (at most
+// `rounds`), each a pass of every open slot over the Sn state rows that
+// hold configs (rows Sn..SnP-1 of the plane stay empty and are not
+// counted), and a prune at a return.  The per-row mask extraction, the
+// landing at t0 and the OR of a round's sum are left out, so the count
+// is a floor.
+//
+// Composition (wgl_compose_kernel).  Only row 0 of the prefix products
+// is ever read, so history b's verdict is a chain of one vector through
+// its matrices: v = {entry config 0}; at segment k, v <- OR over j in v
+// of T[k, j, :]; the first k at which v empties is the dead segment and
+// v before it the entry mask.  One CTA per history: its four warps turn
+// as many of the history's matrix rows as COMPOSE_WORDS hold (a
+// north-star history's 295 matrices of 11 x 11 in one chunk) into bit
+// masks in shared memory, then warp 0 walks the chain: thread j holds
+// row j (and j + 32, ... up to J <= 128, so v is NW <= 4 words), ORs in
+// the rows that v holds, and one __reduce_or_sync per word gives the
+// next v.  What bounds it: T's bytes over device memory, microseconds
+// for a north-star group; in practice the chain of K segments, one
+// shared load and one reduction each.  Output out[B][6] int32: valid,
+// the dead segment (-1 if valid), the entry mask's four words (0 when
+// valid).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -80,9 +110,12 @@ namespace {
 
 constexpr int MAXR = 6;          // deepest overlap the kernel walks
 constexpr int I = 2;             // invoke columns per event row
-constexpr int WARPS = 4;         // segments per block, one per warp
 constexpr int CHUNK = 64;        // event rows staged per step
-constexpr int MAXJ = 32;         // entry states per segment (one warp)
+constexpr int MAXJ = 32;         // entry states per segment
+constexpr int MAXJC = 128;       // entry configs of a composed matrix
+constexpr int COMPOSE_WARPS = 4;  // warps staging a history's matrices
+constexpr int COMPOSE_WORDS = 8192;  // row-mask words staged at once
+constexpr uint32_t FULL = 0xFFFFFFFFu;
 // integer operations of the work count (the bound model of the note)
 constexpr int CLOSE_OPS = 6;     // per plane word of a slot b < 5 pass
 constexpr int CLOSE5_OPS = 4;    // per state row of a slot 5 pass
@@ -94,232 +127,389 @@ __host__ __device__ constexpr uint32_t intra(int b) {
            : b == 2 ? 0x0F0F0F0Fu : b == 3 ? 0x00FF00FFu : 0x0000FFFFu;
 }
 
+// The rank-1 term's sources of a uop, from its const mask a2: none,
+// one state (its index), or many.
+constexpr int SRC_NONE = -1;
+constexpr int SRC_MANY = 32;
+
 struct Stage {
     int32_t ret[CHUNK];
     int32_t slot[CHUNK][I];
+    int32_t t0[CHUNK][I];
+    int32_t src[CHUNK][I];
     uint32_t a1[CHUNK][I];
     uint32_t a2[CHUNK][I];
-    int32_t t0[CHUNK][I];
 };
 
-// One closure pass of slot B over the plane `fr`, added into `add`.
+// OR of v over the SNP consecutive threads of this thread's lane.
+template <int SNP>
+__device__ __forceinline__ uint32_t or_lane(uint32_t v) {
+#pragma unroll
+    for (int m = 1; m < SNP; m <<= 1) v |= __shfl_xor_sync(FULL, v, m, SNP);
+    return v;
+}
+
+// The rank-1 term of one plane word x (the configs lacking the slot):
+// the OR over the lane's rows s in the slot's a2 (c: this row's bit) of
+// their x.  The slot's sources are the CTA's: none, one row (a shuffle
+// from lane thread `src`), or many (an OR over the lane's threads).
+template <int SNP>
+__device__ __forceinline__ uint32_t rank1(uint32_t x, uint32_t cm, int one,
+                                          int many, int src) {
+    if (one) return __shfl_sync(FULL, x, src);
+    if (many) return or_lane<SNP>(x & cm);
+    return 0u;
+}
+
+// One closure pass of slot B over this thread's state row `fr`, added
+// into `add`; dm, cm, tm: all ones where the row is in the slot's a1,
+// in its a2, and is its target state t0; one, many, src: the slot's
+// rank-1 sources (see rank1).
 template <int WD, int SNP, int B>
-__device__ __forceinline__ void close_slot(const uint32_t (&fr)[SNP][WD],
-                                           uint32_t (&add)[SNP][WD],
-                                           uint32_t a1, uint32_t a2,
-                                           int t0) {
+__device__ __forceinline__ void close_slot(const uint32_t (&fr)[WD],
+                                           uint32_t (&add)[WD], uint32_t dm,
+                                           uint32_t cm, uint32_t tm, int one,
+                                           int many, int src) {
     if constexpr (B < 5) {
         constexpr uint32_t LACK = intra(B);
         constexpr int SH = 1 << B;
-        uint32_t red[WD];
 #pragma unroll
-        for (int w = 0; w < WD; ++w) red[w] = 0u;
-#pragma unroll
-        for (int s = 0; s < SNP; ++s) {
-            const uint32_t dm = 0u - ((a1 >> s) & 1u);
-            const uint32_t cm = 0u - ((a2 >> s) & 1u);
-#pragma unroll
-            for (int w = 0; w < WD; ++w) {
-                const uint32_t c = fr[s][w] & LACK;
-                add[s][w] |= (c & dm) << SH;
-                red[w] |= c & cm;
-            }
-        }
-#pragma unroll
-        for (int s = 0; s < SNP; ++s) {
-            const uint32_t tm = s == t0 ? 0xFFFFFFFFu : 0u;
-#pragma unroll
-            for (int w = 0; w < WD; ++w) add[s][w] |= (red[w] & tm) << SH;
+        for (int w = 0; w < WD; ++w) {
+            const uint32_t x = fr[w] & LACK;
+            const uint32_t red = rank1<SNP>(x, cm, one, many, src);
+            add[w] |= ((x & dm) | (red & tm)) << SH;
         }
     } else if constexpr (WD == 2) {
         // slot 5: word 0 lacks it; linearizing moves word 0 to word 1
-        uint32_t red = 0u;
-#pragma unroll
-        for (int s = 0; s < SNP; ++s) {
-            const uint32_t dm = 0u - ((a1 >> s) & 1u);
-            const uint32_t cm = 0u - ((a2 >> s) & 1u);
-            const uint32_t c = fr[s][0];
-            add[s][1] |= c & dm;
-            red |= c & cm;
-        }
-#pragma unroll
-        for (int s = 0; s < SNP; ++s)
-            add[s][1] |= s == t0 ? red : 0u;
+        const uint32_t x = fr[0];
+        const uint32_t red = rank1<SNP>(x, cm, one, many, src);
+        add[1] |= (x & dm) | (red & tm);
     }
 }
 
 // Prune the configs lacking slot B and clear its bit.
-template <int WD, int SNP, int B>
-__device__ __forceinline__ void retire_slot(uint32_t (&fr)[SNP][WD]) {
+template <int WD, int B>
+__device__ __forceinline__ void retire_slot(uint32_t (&fr)[WD]) {
     if constexpr (B < 5) {
 #pragma unroll
-        for (int s = 0; s < SNP; ++s)
-#pragma unroll
-            for (int w = 0; w < WD; ++w)
-                fr[s][w] = (fr[s][w] & ~intra(B)) >> (1 << B);
+        for (int w = 0; w < WD; ++w)
+            fr[w] = (fr[w] & ~intra(B)) >> (1 << B);
     } else if constexpr (WD == 2) {
-#pragma unroll
-        for (int s = 0; s < SNP; ++s) {
-            fr[s][0] = fr[s][1];
-            fr[s][1] = 0u;
-        }
+        fr[0] = fr[1];
+        fr[1] = 0u;
     }
 }
 
 }  // namespace
 
 template <int WD, int SNP>
-__global__ void __launch_bounds__(32 * WARPS)
+__global__ void __launch_bounds__(MAXJ * SNP)
 wgl_regs_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                 const int64_t *__restrict__ offs,
                 const int32_t *__restrict__ nrows,
                 const uint32_t *__restrict__ aux, int UP, int K, int R,
                 int J, int Sn, int rounds, uint8_t *__restrict__ out,
                 long long *__restrict__ work, int32_t *__restrict__ bad) {
-    __shared__ Stage stage[WARPS];
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int k = blockIdx.x * WARPS + warp;
-    if (k >= K) return;                 // the whole warp leaves together
-    Stage &st = stage[warp];
+    __shared__ Stage stage[2];
+    __shared__ long long warp_ops[MAXJ];
+    constexpr int CELLS = CHUNK * I;
+    constexpr int CPT = CELLS / 32;     // staged cells a thread, at most
+    constexpr int RPT = CHUNK / 32;     // staged returns a thread, at most
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int lane = tid & 31;
+    const int j = tid / SNP;            // the lane's entry state
+    const int s = tid % SNP;            // this thread's state row
+    const uint32_t gmask =
+        SNP == 32 ? FULL : ((1u << (SNP & 31)) - 1u) << (lane & ~(SNP - 1));
+    const bool real = j < J;
+    const int k = blockIdx.x;
     const long long off = offs[k];
     const int L = nrows[k];
     if (L < 0 || off < 0 || off + 7LL * L > nbytes) {
-        if (lane == 0) atomicAdd(bad, 1);
-        return;
+        if (tid == 0) atomicAdd(bad, 1);
+        return;                         // the whole CTA leaves together
     }
     const uint8_t *ret_b = cbuf + off;
     const uint8_t *isl_b = ret_b + L;
     const uint8_t *iu_b = ret_b + 3LL * L;
+    int refused = 0;                    // this thread staged a bad cell
 
-    uint32_t fr[SNP][WD];
-#pragma unroll
-    for (int s = 0; s < SNP; ++s)
-#pragma unroll
-        for (int w = 0; w < WD; ++w)
-            fr[s][w] = (w == 0 && s == lane && lane < J) ? 1u : 0u;
-    uint32_t a1r[MAXR], a2r[MAXR];
-    int t0r[MAXR];
-#pragma unroll
-    for (int b = 0; b < MAXR; ++b) {
-        a1r[b] = 0u;
-        a2r[b] = 0u;
-        t0r[b] = 0;
-    }
-    uint32_t open = 0u;                 // bit b: slot b is open
-    long long ops = 0;
-    const long long pass_ops = (long long)CLOSE_OPS * Sn * WD;
-    const long long pass5_ops = (long long)CLOSE5_OPS * Sn;
-    const long long prune_ops = (long long)PRUNE_OPS * Sn * WD;
-    const long long prune5_ops = (long long)PRUNE_OPS * Sn;
-    int ok = 1;
-
-    for (int base = 0; base < L; base += CHUNK) {
+    // the next chunk's wire bytes, loaded before a walk, stored after it
+    int p_ret[RPT], p_sl[CPT], p_u[CPT];
+    auto fetch = [&](int base) {
         const int n = min(CHUNK, L - base);
-        __syncwarp();
-        for (int r = lane; r < n; r += 32) {
-            const long long row = base + r;
-            st.ret[r] = int(ret_b[row]) - 1;
 #pragma unroll
-            for (int i = 0; i < I; ++i) {
-                int sl = int(isl_b[row * I + i]) - 1;
-                const long long c = 2 * (row * I + i);
-                const int u = int(iu_b[c]) | (int(iu_b[c + 1]) << 8);
+        for (int q = 0; q < RPT; ++q) {
+            const int r = tid + q * nt;
+            p_ret[q] = r < n ? int(ret_b[base + r]) - 1 : -1;
+        }
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) {
+            const int x = tid + q * nt;
+            if (x < n * I) {
+                const long long c = (long long)base * I + x;
+                p_sl[q] = int(isl_b[c]) - 1;
+                p_u[q] = int(iu_b[2 * c]) | (int(iu_b[2 * c + 1]) << 8);
+            } else {
+                p_sl[q] = -1;
+                p_u[q] = 0;
+            }
+        }
+    };
+    auto store = [&](Stage &st, int base) {
+        const int n = min(CHUNK, L - base);
+#pragma unroll
+        for (int q = 0; q < RPT; ++q) {
+            const int r = tid + q * nt;
+            if (r < n) {
+                int rs = p_ret[q];
+                if (rs >= R) {
+                    refused = 1;
+                    rs = -1;
+                }
+                st.ret[r] = rs;
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) {
+            const int x = tid + q * nt;
+            if (x < n * I) {
+                int sl = p_sl[q];
+                const int u = p_u[q];
                 if (sl >= 0 && (u >= UP || sl >= R)) {
-                    ok = 0;
+                    refused = 1;
                     sl = -1;
                 }
-                st.slot[r][i] = sl;
+                st.slot[x / I][x % I] = sl;
                 if (sl >= 0) {
-                    st.a1[r][i] = aux[u];
-                    st.a2[r][i] = aux[UP + u];
-                    st.t0[r][i] = int(aux[2 * UP + u]);
+                    const uint32_t a2 = aux[UP + u];
+                    st.a1[x / I][x % I] = aux[u];
+                    st.a2[x / I][x % I] = a2;
+                    st.t0[x / I][x % I] = int(aux[2 * UP + u]);
+                    st.src[x / I][x % I] = a2 == 0u ? SRC_NONE
+                        : (a2 & (a2 - 1u)) ? SRC_MANY : __ffs(a2) - 1;
                 }
             }
         }
-        __syncwarp();
+    };
+
+    uint32_t fr[WD];
+#pragma unroll
+    for (int w = 0; w < WD; ++w) fr[w] = (w == 0 && real && s == j) ? 1u : 0u;
+    // dmk[b] / cmk[b]: all ones where this row is in slot b's a1 / a2;
+    // bit b of tsel: this row is slot b's t0; bit b of one / many: slot
+    // b's rank-1 term has one source row (5-bit field b of srcs) or many
+    uint32_t dmk[MAXR], cmk[MAXR];
+#pragma unroll
+    for (int b = 0; b < MAXR; ++b) dmk[b] = cmk[b] = 0u;
+    uint32_t tsel = 0u, one = 0u, many = 0u, srcs = 0u;
+    const int lane0 = lane & ~(SNP - 1);    // the lane's first thread
+    uint32_t open = 0u;                 // bit b: slot b is open
+    // this thread's lane's passes and prunes at slots b < 5 and b = 5,
+    // the terms of its work count
+    uint32_t n_pass = 0u, n_pass5 = 0u, n_prune = 0u, n_prune5 = 0u;
+
+    if (L > 0) {
+        fetch(0);
+        store(stage[0], 0);
+    }
+    __syncthreads();
+    for (int base = 0, c = 0; base < L; base += CHUNK, ++c) {
+        const int n = min(CHUNK, L - base);
+        const bool more = base + CHUNK < L;
+        if (more) fetch(base + CHUNK);
+        const Stage &st = stage[c & 1];
         for (int r = 0; r < n; ++r) {
 #pragma unroll
             for (int i = 0; i < I; ++i) {
                 const int sl = st.slot[r][i];
                 if (sl < 0) continue;
-                const uint32_t a1 = st.a1[r][i], a2 = st.a2[r][i];
-                const int t0 = st.t0[r][i];
+                const uint32_t bit = 1u << sl;
+                const uint32_t dm = 0u - ((st.a1[r][i] >> s) & 1u);
+                const uint32_t cm = 0u - ((st.a2[r][i] >> s) & 1u);
 #pragma unroll
-                for (int b = 0; b < MAXR; ++b)
+                for (int b = 0; b < MAXR; ++b) {
                     if (sl == b) {
-                        a1r[b] = a1;
-                        a2r[b] = a2;
-                        t0r[b] = t0;
+                        dmk[b] = dm;
+                        cmk[b] = cm;
                     }
-                open |= 1u << sl;
+                }
+                tsel = (tsel & ~bit) | (uint32_t(st.t0[r][i] == s) << sl);
+                const int sv = st.src[r][i];
+                one = (one & ~bit) | (sv >= 0 && sv < SRC_MANY ? bit : 0u);
+                many = (many & ~bit) | (sv == SRC_MANY ? bit : 0u);
+                srcs = (srcs & ~(31u << 5 * sl)) | (uint32_t(sv & 31) << 5 * sl);
+                open |= bit;
             }
             if (open) {
+                const uint32_t lo = __popc(open & 31u), hi = open >> 5;
+                bool run = real;
                 for (int rd = 0; rd < rounds; ++rd) {
-                    uint32_t add[SNP][WD];
+                    uint32_t add[WD];
 #pragma unroll
-                    for (int s = 0; s < SNP; ++s)
+                    for (int w = 0; w < WD; ++w) add[w] = 0u;
+#define WGL_CLOSE(B)                                                      \
+    if (open & (1u << B))                                                 \
+        close_slot<WD, SNP, B>(fr, add, dmk[B], cmk[B],                   \
+                               0u - ((tsel >> B) & 1u), (one >> B) & 1u,  \
+                               (many >> B) & 1u,                          \
+                               lane0 + int((srcs >> 5 * B) & 31u));
+                    WGL_CLOSE(0)
+                    WGL_CLOSE(1)
+                    WGL_CLOSE(2)
+                    WGL_CLOSE(3)
+                    WGL_CLOSE(4)
+                    WGL_CLOSE(5)
+#undef WGL_CLOSE
+                    uint32_t grew = 0u;
 #pragma unroll
-                        for (int w = 0; w < WD; ++w) add[s][w] = 0u;
-                    if (open & 1u)
-                        close_slot<WD, SNP, 0>(fr, add, a1r[0], a2r[0], t0r[0]);
-                    if (open & 2u)
-                        close_slot<WD, SNP, 1>(fr, add, a1r[1], a2r[1], t0r[1]);
-                    if (open & 4u)
-                        close_slot<WD, SNP, 2>(fr, add, a1r[2], a2r[2], t0r[2]);
-                    if (open & 8u)
-                        close_slot<WD, SNP, 3>(fr, add, a1r[3], a2r[3], t0r[3]);
-                    if (open & 16u)
-                        close_slot<WD, SNP, 4>(fr, add, a1r[4], a2r[4], t0r[4]);
-                    if (open & 32u)
-                        close_slot<WD, SNP, 5>(fr, add, a1r[5], a2r[5], t0r[5]);
-#pragma unroll
-                    for (int s = 0; s < SNP; ++s)
-#pragma unroll
-                        for (int w = 0; w < WD; ++w) fr[s][w] |= add[s][w];
+                    for (int w = 0; w < WD; ++w) {
+                        grew |= add[w] & ~fr[w];
+                        fr[w] |= add[w];
+                    }
+                    const uint32_t changed = __ballot_sync(FULL, grew != 0u);
+                    if (run) {
+                        n_pass += lo;
+                        n_pass5 += hi;
+                    }
+                    run = run && (changed & gmask) != 0u;
+                    if (!changed) break;    // the warp's lanes are fixed
                 }
-                ops += rounds * (__popc(open & 31u) * pass_ops
-                                 + ((open >> 5) & 1u) * pass5_ops);
             }
             const int rs = st.ret[r];
-            if (rs >= R) {
-                ok = 0;
-            } else if (rs >= 0) {
+            if (rs >= 0) {
                 switch (rs) {
-                case 0: retire_slot<WD, SNP, 0>(fr); break;
-                case 1: retire_slot<WD, SNP, 1>(fr); break;
-                case 2: retire_slot<WD, SNP, 2>(fr); break;
-                case 3: retire_slot<WD, SNP, 3>(fr); break;
-                case 4: retire_slot<WD, SNP, 4>(fr); break;
-                case 5: retire_slot<WD, SNP, 5>(fr); break;
-                default: ok = 0; break;
+                case 0: retire_slot<WD, 0>(fr); break;
+                case 1: retire_slot<WD, 1>(fr); break;
+                case 2: retire_slot<WD, 2>(fr); break;
+                case 3: retire_slot<WD, 3>(fr); break;
+                case 4: retire_slot<WD, 4>(fr); break;
+                default: retire_slot<WD, 5>(fr); break;
                 }
-                open &= ~(1u << (rs & 31));
-                ops += rs == 5 ? prune5_ops : prune_ops;
+                open &= ~(1u << rs);
+                n_prune += rs < 5;
+                n_prune5 += rs == 5;
             }
         }
+        if (more) store(stage[(c + 1) & 1], base + CHUNK);
+        __syncthreads();
     }
-    if (!__all_sync(0xFFFFFFFFu, ok)) {
-        if (lane == 0) atomicAdd(bad, 1);
+    if (__syncthreads_or(refused)) {
+        if (tid == 0) atomicAdd(bad, 1);
         return;
     }
-    if (lane < J) {
-        uint8_t *o = out + ((long long)k * J + lane) * Sn;
+    if (real && s < Sn)
+        out[((long long)k * J + j) * Sn + s] = uint8_t(fr[0] & 1u);
+    if (work) {
+        // every thread of a lane holds its count: take the first row's
+        long long v = !real || s ? 0LL
+            : (long long)Sn * (n_pass * (long long)(CLOSE_OPS * WD)
+                               + n_pass5 * (long long)CLOSE5_OPS
+                               + n_prune * (long long)(PRUNE_OPS * WD)
+                               + n_prune5 * (long long)PRUNE_OPS);
 #pragma unroll
-        for (int s = 0; s < SNP; ++s)
-            if (s < Sn) o[s] = uint8_t(fr[s][0] & 1u);
+        for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
+        if (lane == 0) warp_ops[tid >> 5] = v;
+        __syncthreads();
+        if (tid == 0) {
+            long long sum = 0;
+            for (int w = 0; w < (nt >> 5); ++w) sum += warp_ops[w];
+            work[k] = sum;
+        }
     }
-    if (lane == 0 && work) work[k] = ops * J;
+}
+
+template <int NW>
+__global__ void __launch_bounds__(32 * COMPOSE_WARPS)
+wgl_compose_kernel(const uint8_t *__restrict__ T, int J,
+                   const int64_t *__restrict__ first,
+                   const int32_t *__restrict__ count,
+                   int32_t *__restrict__ out) {
+    // rows[(k * J + j) * NW + w]: word w of row j of the chunk's
+    // segment k, bit c set where T[k, j, c] is
+    __shared__ uint32_t rows[COMPOSE_WORDS];
+    __shared__ int died_at;
+    const int b = blockIdx.x;
+    const int tid = threadIdx.x, lane = tid & 31;
+    const long long JJ = (long long)J * J;
+    const int K = count[b];
+    const int per = COMPOSE_WORDS / (J * NW);    // segments a chunk
+    const uint8_t *hist = T + first[b] * JJ;
+    uint32_t v[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) v[w] = w == 0 ? 1u : 0u;
+    int dead = -1;
+    if (tid == 0) died_at = -1;
+    for (int k0 = 0; k0 < K; k0 += per) {
+        __syncthreads();                // died_at, and the last walk done
+        if (died_at >= 0) break;
+        const int n = min(per, K - k0);
+        // every (segment, row) of the chunk to its bit mask
+        for (int p = tid; p < n * J; p += blockDim.x) {
+            const uint8_t *src = hist + (long long)k0 * JJ + (long long)p * J;
+            uint32_t m[NW];
+#pragma unroll
+            for (int w = 0; w < NW; ++w) m[w] = 0u;
+            for (int c = 0; c < J; ++c) {
+                const uint32_t bit = src[c] ? 1u << (c & 31) : 0u;
+#pragma unroll
+                for (int w = 0; w < NW; ++w) m[w] |= (c >> 5) == w ? bit : 0u;
+            }
+#pragma unroll
+            for (int w = 0; w < NW; ++w) rows[p * NW + w] = m[w];
+        }
+        __syncthreads();
+        if (tid >= 32) continue;        // one warp walks the chain
+        for (int k = 0; k < n; ++k) {
+            // thread `lane` ORs in its rows lane + 32 q that v holds
+            const uint32_t *rk = rows + k * J * NW;
+            uint32_t acc[NW];
+#pragma unroll
+            for (int w = 0; w < NW; ++w) acc[w] = 0u;
+#pragma unroll
+            for (int q = 0; q < NW; ++q) {
+                const int j = lane + 32 * q;
+                if (j < J && ((v[q] >> lane) & 1u)) {
+#pragma unroll
+                    for (int w = 0; w < NW; ++w) acc[w] |= rk[j * NW + w];
+                }
+            }
+            uint32_t any = 0u, nv[NW];
+#pragma unroll
+            for (int w = 0; w < NW; ++w) {
+                nv[w] = __reduce_or_sync(FULL, acc[w]);
+                any |= nv[w];
+            }
+            if (!any) {                 // v, before it, is the entry mask
+                dead = k0 + k;
+                if (lane == 0) died_at = dead;
+                break;
+            }
+#pragma unroll
+            for (int w = 0; w < NW; ++w) v[w] = nv[w];
+        }
+    }
+    if (tid < 6) {                      // warp 0 holds the verdict
+        int32_t x = dead < 0 ? 1 : 0;
+        if (tid == 1) x = dead;
+        if (tid >= 2) {
+            uint32_t word = 0u;
+#pragma unroll
+            for (int w = 0; w < NW; ++w) word = tid - 2 == w ? v[w] : word;
+            x = dead < 0 ? 0 : int32_t(word);
+        }
+        out[b * 6 + tid] = x;
+    }
 }
 
 namespace {
 
 template <int WD, int SNP>
-void launch_one(dim3 grid, cudaStream_t stream, const void *cbuf,
+void launch_one(int K, int threads, cudaStream_t stream, const void *cbuf,
                 long long nbytes, const void *offs, const void *nrows,
-                const void *aux, int UP, int K, int R, int J, int Sn,
-                int rounds, void *out, void *work, void *bad) {
-    wgl_regs_kernel<WD, SNP><<<grid, 32 * WARPS, 0, stream>>>(
+                const void *aux, int UP, int R, int J, int Sn, int rounds,
+                void *out, void *work, void *bad) {
+    wgl_regs_kernel<WD, SNP><<<K, threads, 0, stream>>>(
         (const uint8_t *)cbuf, nbytes, (const int64_t *)offs,
         (const int32_t *)nrows, (const uint32_t *)aux, UP, K, R, J, Sn,
         rounds, (uint8_t *)out, (long long *)work, (int32_t *)bad);
@@ -327,9 +517,10 @@ void launch_one(dim3 grid, cudaStream_t stream, const void *cbuf,
 
 }  // namespace
 
-// One launch over K segments on `stream`; returns the cudaError_t of the
-// launch (0 on success).  R sizes the plane (WD = 2 at R = 6), SnP is
-// the state-row bucket (8, 16 or 32) and Sn <= SnP the states written.
+// One launch over K segments on `stream`, one CTA a segment; returns the
+// cudaError_t of the launch (0 on success).  R sizes the plane (WD = 2
+// at R = 6), SnP is the state-row bucket (8, 16 or 32) and Sn <= SnP
+// the states written.
 extern "C" int wgl_regs_launch(const void *cbuf, long long nbytes,
                                const void *offs, const void *nrows,
                                const void *aux, int UP, int K, int R,
@@ -339,13 +530,13 @@ extern "C" int wgl_regs_launch(const void *cbuf, long long nbytes,
     if (R < 1 || R > MAXR || J < 1 || J > MAXJ || Sn < 1 || Sn > SnP ||
         rounds < 1 || UP < 1 || (SnP != 8 && SnP != 16 && SnP != 32))
         return (int)cudaErrorInvalidValue;
-    const dim3 grid((K + WARPS - 1) / WARPS);
+    const int threads = (J * SnP + 31) / 32 * 32;
     cudaStream_t s = (cudaStream_t)stream;
     const int wd = R <= 5 ? 1 : 2;
-#define WGL_REGS_CASE(WD, SNP)                                              \
-    if (wd == WD && SnP == SNP)                                             \
-        launch_one<WD, SNP>(grid, s, cbuf, nbytes, offs, nrows, aux, UP, K, \
-                            R, J, Sn, rounds, out, work, bad);
+#define WGL_REGS_CASE(WD, SNP)                                             \
+    if (wd == WD && SnP == SNP)                                            \
+        launch_one<WD, SNP>(K, threads, s, cbuf, nbytes, offs, nrows, aux, \
+                            UP, R, J, Sn, rounds, out, work, bad);
     WGL_REGS_CASE(1, 8)
     WGL_REGS_CASE(1, 16)
     WGL_REGS_CASE(1, 32)
@@ -353,5 +544,28 @@ extern "C" int wgl_regs_launch(const void *cbuf, long long nbytes,
     WGL_REGS_CASE(2, 16)
     WGL_REGS_CASE(2, 32)
 #undef WGL_REGS_CASE
+    return (int)cudaGetLastError();
+}
+
+// The verdict words of B histories, one CTA each, on `stream`: history
+// b's count[b] >= 1 transfer matrices T[first[b] + k] (u8 [J][J], J <=
+// 128).  Returns the cudaError_t of the launch.
+extern "C" int wgl_compose_launch(const void *T, int J, const void *first,
+                                  const void *count, int B, void *out,
+                                  void *stream) {
+    if (B <= 0) return 0;
+    if (J < 1 || J > MAXJC) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int nw = (J + 31) / 32;
+#define WGL_COMPOSE_CASE(NW)                                               \
+    if (nw == NW)                                                          \
+        wgl_compose_kernel<NW><<<B, 32 * COMPOSE_WARPS, 0, s>>>(           \
+            (const uint8_t *)T, J, (const int64_t *)first,                 \
+            (const int32_t *)count, (int32_t *)out);
+    WGL_COMPOSE_CASE(1)
+    WGL_COMPOSE_CASE(2)
+    WGL_COMPOSE_CASE(3)
+    WGL_COMPOSE_CASE(4)
+#undef WGL_COMPOSE_CASE
     return (int)cudaGetLastError();
 }

@@ -10,20 +10,25 @@ state j) the kernel (`jepsen_tpu_torch/csrc/wgl_regs.cu`) walks the
 segment's event rows from the unit config (state j, mask 0) and writes
 the transfer row T[k, j, :], the states reachable at the segment's end.
 
-What bounds it on the H100: integer operations.  A lane's plane is at
-most 32 states by 2 words, so it lives in registers, and the walk costs
-CLOSE_OPS operations per plane word of each closure pass (CLOSE5_OPS per
-state row at slot 5) and PRUNE_OPS per word of each prune; the wire is
-seven bytes a row.  The design gives each lane its own thread, one warp
-per segment, and keeps every decision the segment's, so the warp never
-diverges and nothing waits on memory or a barrier after a chunk of rows
-is staged in shared memory (the source note says more).
+What bounds it on the H100: integer operations, and one segment's rows
+walked as a dependent chain.  A lane's plane is at most 32 states by 2
+words; the walk costs CLOSE_OPS operations per plane word of each
+closure pass (CLOSE5_OPS per state row at slot 5) and PRUNE_OPS per
+word of each prune; the wire is seven bytes a row.  The kernel puts one
+CTA on each segment and one thread on each (lane, state row), so a
+thread holds one row's words in registers and the OR over states is a
+few shuffles inside the lane; a row's rounds stop at the fixpoint (the
+source note says more).
 
-`regs_scan` takes the plain version (`scan_plain`) only for tensors on
-the CPU; for CUDA tensors it launches the kernel on the current stream
-or raises.  `LAUNCHES` counts kernel launches.  `compose` chains the
-per-segment matrices of each history into the reference's six verdict
-words with `torch.bmm`, a plain matrix product outside the kernel."""
+The composition (`compose`, kernel `wgl_compose` in the same source)
+steps each history's vector of entry configs through its segments'
+matrices to the first that empties it: the reference's six verdict
+words.
+
+`regs_scan` and `compose` take their plain versions (`scan_plain`,
+`compose_plain`) only for tensors on the CPU; for CUDA tensors they
+launch their kernels on the current stream or raise.  `LAUNCHES` and
+`COMPOSE_LAUNCHES` count the launches."""
 
 from __future__ import annotations
 
@@ -37,10 +42,13 @@ from jepsen_tpu_torch.ops import cuda_build, planner
 from jepsen_tpu_torch.ops.deep_kernel import _FULL, _INTRA, _check
 from jepsen_tpu_torch.ops.wgl_deep import _snp as snp
 
-#: Kernel launches since import (or since a caller reset it to 0).
+#: Kernel launches since import (or since a caller reset it to 0): the
+#: segment scan's, and the composition's.
 LAUNCHES = 0
+COMPOSE_LAUNCHES = 0
 
-J_MAX = 32                      # entry states per segment, one warp
+J_MAX = 32                      # entry states per segment
+J_COMPOSE_MAX = 128             # entry configs of a composed matrix
 I = 2                           # invoke columns per event row of the wire
 ROW_BYTES = 1 + 3 * I           # ret, I slots, I u16 uop ids
 CROW_ROW_BYTES = ROW_BYTES + 2  # and an i16 crash-prefix index
@@ -111,6 +119,8 @@ def _declare(lib):
     lib.wgl_regs_launch.argtypes = ([ptr, ctypes.c_longlong] + [ptr] * 3
                                     + [i32] * 7 + [ptr] * 4)
     lib.wgl_regs_launch.restype = i32
+    lib.wgl_compose_launch.argtypes = [ptr, i32, ptr, ptr, i32, ptr, ptr]
+    lib.wgl_compose_launch.restype = i32
 
 
 def regs_scan(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
@@ -127,8 +137,9 @@ def regs_scan(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
     raises instead.  `work`, an optional int64[K], receives the integer
     operations of each segment's walk over its J lanes (CLOSE_OPS,
     CLOSE5_OPS and PRUNE_OPS per plane word or state row, over the Sn
-    rows that hold configs).  CUDA tensors launch on the current stream
-    and do not synchronise; CPU tensors run the plain version."""
+    rows that hold configs; each lane's rounds up to the first that
+    leaves its plane unchanged).  CUDA tensors launch on the current
+    stream and do not synchronise; CPU tensors run the plain version."""
     global LAUNCHES
     dev = cbuf.device
     _check(cbuf, "cbuf", torch.uint8, dev)
@@ -331,8 +342,11 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
     segments walk their rows in step, a segment past its own row count
     standing still.  The planes are int64[K, J, SnP, WD] holding 32-bit
     words; a round is the reference's Jacobi round (every open slot's
-    pass reads the plane before the round).  Raises ValueError where
-    the kernel would count a bad segment."""
+    pass reads the plane before the round), and a row's rounds end once
+    a round changes no lane (a round that adds nothing leaves every
+    later one nothing to add).  Each lane's count charges its rounds up
+    to the first that leaves its plane unchanged, at most `rounds`.
+    Raises ValueError where the kernel would count a bad segment."""
     dev = cbuf.device
     K = offs.numel()
     SnP, WD = snp(Sn), plane_width(R)
@@ -342,7 +356,7 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
     for j in range(min(J, SnP)):
         fr[:, j, j, 0] = 1
     slots = new_slots(K, R, dev)
-    ops = torch.zeros(K, dtype=torch.int64, device=dev)
+    ops = torch.zeros((K, J), dtype=torch.int64, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
 
     for row in range(wire.Lmax):
@@ -350,6 +364,8 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
         a1r, a2r, t0r, openr = slots
         opened = openr & wire.live[:, row, None]
         if bool(opened.any()):
+            per_round = round_ops(opened, Sn, WD)[:, None]
+            run = opened.any(1)[:, None].expand(K, J)
             for _ in range(rounds):
                 add = torch.zeros_like(fr)
                 for b in range(R):
@@ -359,68 +375,100 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
                                         t0r[:, b])
                         add = add | torch.where(ob[:, None, None, None],
                                                 lin, zero)
+                ops += torch.where(run, per_round, 0)
+                run = run & (add & ~fr != 0).flatten(2).any(2)
                 fr = fr | add
-            ops += rounds * round_ops(opened, Sn, WD)
+                if not bool(run.any()):
+                    break               # every lane at its fixpoint
         rs = wire.ret[:, row]
         for b in range(R):
             mb = rs == b
             if bool(mb.any()):
                 fr = torch.where(mb[:, None, None, None], retire(fr, b), fr)
                 openr[:, b] &= ~mb
-        ops += prune_ops(rs, Sn, WD)
+        ops += prune_ops(rs, Sn, WD)[:, None]
     if work is not None:
-        work.copy_(ops * J)
+        work.copy_(ops.sum(1))
     return (fr[:, :, :Sn, 0] & 1).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------
-# Composition: prefix products of each history's transfer matrices
+# Composition: each history's chain of transfer matrices
 # ---------------------------------------------------------------------------
 
 def compose(T: torch.Tensor, seg_counts) -> torch.Tensor:
     """The reference's six verdict words per history from the transfer
-    matrices of its segments: T is [sum(seg_counts), J, J] (0/1, the
-    segments of history b consecutive, seg_counts[b] >= 1 of them).
-    Returns int32[B, 6]: valid, the first dead segment (-1 if valid),
-    and the 128-bit entry-config mask of the dead segment (the configs
-    reachable at the cut before it; entry config 0 when it is the
-    first; 0 when valid).
+    matrices of its segments: T is u8[sum(seg_counts), J, J] (0/1, the
+    segments of history b consecutive, seg_counts[b] >= 1 of them, J <=
+    128: the crash variant's Sn * 2^nc entry configs).  Returns
+    int32[B, 6]: valid, the first dead segment (-1 if valid), and the
+    128-bit entry-config mask of the dead segment (the configs reachable
+    at the cut before it; entry config 0 when it is the first; 0 when
+    valid).
 
-    Prefix products by doubling (Hillis-Steele): log2(K) levels of
-    `torch.bmm` on 0/1 float32 matrices, thresholded > 0 after each.
-    The products are exact under TF32 as in full float32: the entries
-    are 0 or 1 and a sum is at most J <= 128 (the crash variant's
-    Sn * 2^nc entry configs).  `alive` is monotone (the
-    empty set is absorbing), so its count IS the first dead index;
-    histories shorter than the longest are padded with identities."""
+    Only row 0 of the reference's prefix products is read, so each
+    history is a chain of one vector through its matrices (kernel
+    `wgl_compose` in csrc/wgl_regs.cu, one warp per history).  CUDA
+    tensors launch it on the current stream without synchronising; CPU
+    tensors run the plain version (`compose_plain`)."""
+    global COMPOSE_LAUNCHES
     dev = T.device
-    B = len(seg_counts)
+    counts = [int(c) for c in seg_counts]
+    B = len(counts)
+    if (T.dtype != torch.uint8 or T.dim() != 3 or T.shape[1] != T.shape[2]
+            or not T.is_contiguous()):
+        raise ValueError(f"T must be a contiguous u8[K, J, J] tensor, got "
+                         f"{T.dtype} {tuple(T.shape)}")
     J = T.shape[1]
-    Kmax = max(seg_counts)
-    counts = np.asarray(seg_counts, np.int64)
-    hb = np.repeat(np.arange(B), counts)
-    hk = np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts,
-                                             counts)
-    P = torch.eye(J, dtype=torch.float32, device=dev).repeat(B, Kmax, 1, 1)
-    P[to_device(hb, dev), to_device(hk, dev)] = T.to(torch.float32)
-    d = 1
-    while d < Kmax:
-        prod = torch.bmm(P[:, :Kmax - d].reshape(-1, J, J),
-                         P[:, d:].reshape(-1, J, J))
-        P = torch.cat([P[:, :d], (prod > 0).to(torch.float32)
-                       .reshape(B, Kmax - d, J, J)], dim=1)
-        d *= 2
-    alive = (P[:, :, 0, :] > 0).any(-1)                   # [B, Kmax]
-    valid = alive[:, -1]
-    dead = torch.where(valid, -1, alive.sum(1))
-    idx = (dead - 1).clamp(0, Kmax - 1)
-    reach = P[torch.arange(B, device=dev), idx, 0, :] > 0  # [B, J]
-    entry0 = torch.zeros((B, J), dtype=torch.bool, device=dev)
-    entry0[:, 0] = True
-    entry = torch.where(valid[:, None], False,
-                        torch.where((dead > 0)[:, None], reach, entry0))
-    jj = torch.arange(min(J, 128), device=dev)
-    bit = entry[:, :len(jj)].to(torch.int64) << (jj % 32)
+    if not (B and 1 <= J <= J_COMPOSE_MAX and min(counts) >= 1
+            and sum(counts) == T.shape[0]):
+        raise ValueError(f"unsupported composition: J={J}, {T.shape[0]} "
+                         f"matrices for segment counts {counts[:8]}")
+    if dev.type == "cpu":
+        return compose_plain(T, counts)
+    if dev.type != "cuda":
+        raise ValueError(f"no composition kernel for device {dev}")
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    first_t = to_device(first, dev)
+    count_t = to_device(np.asarray(counts, np.int32), dev)
+    out = torch.empty((B, 6), dtype=torch.int32, device=dev)
+    lib = cuda_build.load("wgl_regs", _declare)
+    err = lib.wgl_compose_launch(
+        T.data_ptr(), J, first_t.data_ptr(), count_t.data_ptr(), B,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgl_compose launch failed: cudaError {err} "
+                           f"(B={B} J={J})")
+    COMPOSE_LAUNCHES += 1
+    return out
+
+
+def compose_plain(T: torch.Tensor, seg_counts) -> torch.Tensor:
+    """`compose`'s function in plain PyTorch on T's device: every
+    history's vector steps through its segments together, v <- (v @
+    T_k) > 0, a history past its own count standing still."""
+    dev = T.device
+    counts = torch.as_tensor(list(seg_counts), dtype=torch.int64,
+                             device=dev)
+    B, J = counts.numel(), T.shape[1]
+    first = torch.cumsum(counts, 0) - counts
+    Tb = T.bool()
+    v = torch.zeros((B, J), dtype=torch.bool, device=dev)
+    v[:, 0] = True
+    entry = torch.zeros_like(v)
+    dead = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    for k in range(int(counts.max())):
+        on = k < counts
+        Tk = Tb[first + torch.minimum(counts - 1,
+                                      torch.full_like(counts, k))]
+        nv = torch.where(on[:, None], (v[:, :, None] & Tk).any(1), v)
+        died = on & (dead < 0) & ~nv.any(1)
+        entry = torch.where(died[:, None], v, entry)
+        dead = torch.where(died, k, dead)
+        v = nv
+    valid = dead < 0
+    jj = torch.arange(J, device=dev)
+    bit = entry.to(torch.int64) << (jj % 32)
     words = torch.zeros((B, 4), dtype=torch.int64, device=dev)
     words.index_add_(1, jj // 32, bit)
     words = (words + 2 ** 31) % 2 ** 32 - 2 ** 31        # as int32 bits

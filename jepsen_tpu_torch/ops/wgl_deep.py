@@ -233,7 +233,8 @@ def pack_pipeline(model, histories, *, max_open_bits=None,
     histories) and None for the rest; `grid` is the `_Grid` to launch;
     pend[k] = (i, fk, ret_t, ops, R, Sn) describes the grid's k-th CTA,
     history i.  A history with crashed calls is in neither: its entry
-    stays None."""
+    stays None, as does every history from the one whose alphabet the
+    batch's state space could not take."""
     dev = resolve_device(device)
     spec = model.device_spec()
     if spec is None:
@@ -271,15 +272,17 @@ def pack_pipeline(model, histories, *, max_open_bits=None,
         R = int(fk.max_open)
         if len(rows) != U_at:
             uops = np.asarray(rows, np.int32).reshape(len(rows), 4)
+            # the alphabet, and with it the state space, only grows (and
+            # an undecomposable one stays so): past a failure this
+            # history and every later one stay None, stragglers that
+            # check_pipeline checks one by one on their own alphabets
             try:
                 states, legal, next_state = planner._enumerate_states(
                     spec, init, uops, max_states)
-                dw, cw, t0c = planner._decompose(legal, next_state)
-                if dw is None:
-                    raise Unsupported(planner.deep_gate(R, 0, 0, False))
-            except Unsupported as e:
-                for j in range(i, len(histories)):
-                    results[j] = _unsupported(Unsupported(str(e)), j)
+            except Unsupported:
+                break
+            dw, cw, t0c = planner._decompose(legal, next_state)
+            if dw is None:
                 break
             Sn = states.shape[0]
             tables = planner._pack_uop_tables(legal, next_state, dw, cw,
@@ -326,8 +329,9 @@ def check_pipeline(model, histories, *, max_open_bits=None,
     {"valid?": "unknown", "cause": "unsupported", "error": {...}} with
     the Unsupported message naming the ROADMAP item, and the others
     keep their verdicts.  As in the reference pipeline, once the shared
-    alphabet's state space fails (too many states, undecomposable),
-    every later history is out of scope too.
+    alphabet's state space fails (too many states, undecomposable), that
+    history and every later one become stragglers: each goes through
+    `wgl_seg.check` after the grid, on its own alphabet.
 
     `stats`, when given a dict, receives host seconds per stage (scan,
     tables, pack, copy, launch, sync, assemble) and, on a CUDA device,

@@ -380,6 +380,172 @@ def test_work_counts_operations_over_live_state_rows(R, slot, Sn):
     assert work.tolist() == [per_lane * Sn]
 
 
+# ---------------------------------------------------------------------------
+# Every round count, the fixpoint stop and the work= count
+# ---------------------------------------------------------------------------
+
+def every_value_first(h, vmax):
+    """h after a sequential write of every value 0..vmax: the model has
+    vmax + 2 states whatever h writes."""
+    ops = []
+    for v in range(vmax + 1):
+        ops += [invoke_op(0, "write", v), ok_op(0, "write", v)]
+    return RefHistory(ops + list(h.ops)).index()
+
+
+# name -> (R, vmax, seed, buggy): Sn = vmax + 2 is 8, 11 or 32
+ROUND_CASES = {
+    "r1-sn11": (1, 9, 61, False),
+    "r2-sn8-bad": (2, 6, 62, True),
+    "r3-sn32": (3, 30, 63, False),
+    "r4-sn11-bad": (4, 9, 64, True),
+    "r5-sn8": (5, 6, 65, False),
+    "r6-sn32-bad": (6, 30, 66, True),
+}
+
+
+def lane_walk_jacobi(tabs, k, L, legal, nxt, *, R, Sn, rounds, j,
+                     stop=True):
+    """Lane (segment k, entry state j) walked in plain Python with
+    Jacobi rounds, its plane a list of Sn ints over the 2^R masks:
+    (integer operations, the plane after every row).  With `stop` a
+    row's rounds end at the first that changes nothing; each round run
+    is charged."""
+    ret_t, islot_t, iuop_t = tabs
+    WD = regs_kernel.plane_width(R)
+    half = max(1, WD // 2)
+    lack = [sum(1 << m for m in range(1 << R) if not m >> b & 1)
+            for b in range(R)]
+    plane = [int(s == j) for s in range(Sn)]
+    uop = {}
+    ops = 0
+    after = []
+    for r in range(L):
+        for b, u in zip(islot_t[r, k], iuop_t[r, k]):
+            if b >= 0:
+                uop[int(b)] = int(u)
+        if uop:
+            per = sum(regs_kernel.CLOSE_OPS * Sn * WD if b < 5
+                      else regs_kernel.CLOSE5_OPS * Sn * half for b in uop)
+            for _ in range(rounds):
+                add = [0] * Sn
+                for b, u in uop.items():
+                    for s in range(Sn):
+                        if legal[u, s]:
+                            add[nxt[u, s]] |= (plane[s] & lack[b]) << (1 << b)
+                new = [p | a for p, a in zip(plane, add)]
+                ops += per
+                if stop and new == plane:
+                    break
+                plane = new
+        b = int(ret_t[r, k])
+        if b >= 0:
+            plane = [(p & ~lack[b]) >> (1 << b) for p in plane]
+            del uop[b]
+            ops += regs_kernel.PRUNE_OPS * Sn * (half if b >= 5 else WD)
+        after.append(list(plane))
+    return ops, after
+
+
+@pytest.fixture(scope="module")
+def round_scans():
+    out = {}
+    model = models.CASRegister()
+    spec = model.device_spec()
+    for name, (R, vmax, seed, buggy) in ROUND_CASES.items():
+        h = every_value_first(shallow(R, seed, vmax=vmax, n_ops=80,
+                                      buggy=buggy), vmax)
+        h = convert.history_from_dicts(h.to_dicts())
+        seen, rows = {}, []
+        fk = planner._fast_scan(h.ops, spec, seen, rows, 10)
+        assert fk.max_open == R, name
+        states, legal, nxt, dec = wgl_seg._model_tables(spec, model, rows,
+                                                        64)
+        wire = regs_kernel.pack_stream(
+            fk, planner._segment_ends(fk.cuts, 24), 2)
+        aux, UP = wgl_seg._aux(planner._pack_uop_tables(legal, nxt, *dec))
+        out[name] = dict(R=R, Sn=states.shape[0], wire=wire, aux=aux,
+                         UP=UP, legal=legal, nxt=nxt,
+                         uop_tabs=planner._pack_uop_tables(legal, nxt,
+                                                           *dec),
+                         tabs=wire_tables(*wire, 2, len(rows)))
+    return out
+
+
+def plain_scan(c, rounds, work=None):
+    T, bad = regs_kernel.regs_scan(
+        *(torch.from_numpy(x) for x in c["wire"] + (c["aux"],)),
+        R=c["R"], Sn=c["Sn"], UP=c["UP"], J=c["Sn"], rounds=rounds,
+        work=work)
+    assert int(bad[0]) == 0
+    return T.numpy()
+
+
+@pytest.mark.parametrize("name", sorted(ROUND_CASES))
+def test_scan_plain_matches_reference_at_every_round_count(round_scans,
+                                                           name):
+    c = round_scans[name]
+    R, Sn, tabs = c["R"], c["Sn"], c["tabs"]
+    K, Lp = tabs[0].shape[1], tabs[0].shape[0]
+    assert K > 1
+    for rounds in range(1, R + 1):       # the speculative 2 among them
+        ref_T = np.asarray(ref_seg._build_kernel_regs(
+            K, Lp, 2, max(1, (1 << R) // 32), Sn, R, True, rounds, 1,
+            J=Sn)(*tabs, *c["uop_tabs"]))
+        assert np.array_equal(plain_scan(c, rounds),
+                              ref_T.astype(np.uint8)), rounds
+
+
+def test_round_cases_cover_the_edges(round_scans):
+    assert sorted(c["R"] for c in round_scans.values()) == list(range(1, 7))
+    assert {c["Sn"] for c in round_scans.values()} == {8, 11, 32}
+
+
+@pytest.mark.parametrize("name", sorted(ROUND_CASES))
+def test_fixpoint_stop_equals_every_round_row_for_row(round_scans, name):
+    c = round_scans[name]
+    R, Sn = c["R"], c["Sn"]
+    ret_t = c["tabs"][0]
+    nrows = c["wire"][2]
+    for rounds in sorted({R, min(R, 2)}):
+        T = plain_scan(c, rounds)
+        for k in range(ret_t.shape[1]):
+            for j in range(Sn):
+                kw = dict(R=R, Sn=Sn, rounds=rounds, j=j)
+                _, stopped = lane_walk_jacobi(c["tabs"], k, int(nrows[k]),
+                                              c["legal"], c["nxt"], **kw)
+                _, full = lane_walk_jacobi(c["tabs"], k, int(nrows[k]),
+                                           c["legal"], c["nxt"], stop=False,
+                                           **kw)
+                assert stopped == full, (rounds, k, j)
+                assert [p & 1 for p in full[-1]] == T[k, j].tolist()
+
+
+@pytest.mark.parametrize("name", sorted(ROUND_CASES))
+def test_work_counts_each_lanes_rounds_to_its_fixpoint(round_scans, name):
+    c = round_scans[name]
+    R, Sn = c["R"], c["Sn"]
+    nrows = c["wire"][2]
+    K = len(nrows)
+    short = False
+    for rounds in sorted({R, min(R, 2)}):
+        work = torch.zeros(K, dtype=torch.int64)
+        plain_scan(c, rounds, work)
+        for k in range(K):
+            lanes = [lane_walk_jacobi(c["tabs"], k, int(nrows[k]),
+                                      c["legal"], c["nxt"], R=R, Sn=Sn,
+                                      rounds=rounds, j=j)[0]
+                     for j in range(Sn)]
+            assert sum(lanes) == int(work[k]), (rounds, k)
+        full = sum(
+            lane_walk_jacobi(c["tabs"], k, int(nrows[k]), c["legal"],
+                             c["nxt"], R=R, Sn=Sn, rounds=rounds, j=j,
+                             stop=False)[0]
+            for k in range(K) for j in range(Sn))
+        short |= int(work.sum()) < full
+    assert short or R == 1              # rows that stop short of rounds
+
+
 CHECK_CASES = {
     "r1-bad": lambda: shallow(1, 41, buggy=True, n_ops=120),
     "r2": lambda: shallow(2, 42, n_ops=120),
