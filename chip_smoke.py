@@ -18,7 +18,7 @@ any failure exits non-zero:
                SnP 8, 16 and 32 on each arm and the global-memory plane
                at R = 16, SnP = 32; one valid and one planted-invalid
                history each: verdict, first dead row and plane words;
-               kernel time (CUDA events) and bound per case; the R = 3
+               kernel time (launch to end) and bound per case; the R = 3
                verdicts also against the exact CPU oracle;
   seg-kernel - the segment kernel against its plain version on CPU
                copies of the same inputs: 400-call histories at
@@ -83,8 +83,15 @@ any failure exits non-zero:
                bounds, for the JSON kernel line;
   compose    - wgl_compose against its plain version on CPU copies: the
                north-star group's matrices, one history's, (c)'s J = 88
-               and (b)'s, and deaths made at the first, a middle and the
-               last segment.
+               and (b)'s, deaths made at the first, a middle and the last
+               segment, and seeded matrices at J = 1, 33, 88 and 128 on
+               unaligned starts; then (c)'s and (b)'s compositions timed
+               against the torch.bmm levels in turns.
+
+Kernel times come two ways, each a field of the JSON kernel line: "ms",
+from an idle card's launch to its end (CUDA events around one call,
+the host's enqueue included; `launch_ms`), and "device_ms", launches
+enqueued back to back behind a device sleep (`device_ms`).
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero with
 no result line when torch.cuda.is_available() is false or the package
@@ -371,18 +378,14 @@ def run_walk(t, device, work=None):
 
 def timed_walk(t):
     """One kernel launch on inputs already on the card: ((alive, first
-    dead row), plane words touched, kernel ms by CUDA events)."""
+    dead row), plane words touched, kernel ms from launch to end)."""
     from jepsen_tpu_torch.ops import deep_kernel
     args, kw = walk_inputs(t, "cuda")
     work = torch.zeros(1, dtype=torch.int64, device="cuda")
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    torch.cuda.synchronize()
-    ev[0].record()
-    out = deep_kernel.deep_walk(*args, work=work, **kw)
-    ev[1].record()
-    torch.cuda.synchronize()
-    return (tuple(int(x) for x in out[0].cpu()), int(work.item()),
-            ev[0].elapsed_time(ev[1]))
+    out = []
+    ms = launch_ms(lambda: out.append(deep_kernel.deep_walk(
+        *args, work=work, **kw)), 1)
+    return tuple(int(x) for x in out[0][0].cpu()), int(work.item()), ms
 
 
 def abs_err(a, b):
@@ -633,14 +636,9 @@ def phase_timing(batches, clock_hz):
         ins = [walk_inputs(t, "cuda") for t in ts]
         work = [torch.zeros(1, dtype=torch.int64, device="cuda")
                 for _ in ts]
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        for (args, kw), w in zip(ins, work):
+        serial_ms = launch_ms(lambda: [
             deep_kernel.deep_walk(*args, work=w, **kw)
-        ev[1].record()
-        torch.cuda.synchronize()
-        serial_ms = ev[0].elapsed_time(ev[1])
+            for (args, kw), w in zip(ins, work)], 1)
         words = [int(w.item()) for w in work]
         b = max(bound_ms(wd, t[0].nbytes + t[2].nbytes, clock_hz)
                 for wd, t in zip(words, ts))
@@ -668,16 +666,11 @@ def phase_timing(batches, clock_hz):
             words = int(work_card.item())
             args, kw = walk_inputs(t, "cuda")
             reps = 5
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            torch.cuda.synchronize()
-            ev[0].record()
-            for _ in range(reps):
-                deep_kernel.deep_walk(*args, **kw)
-            ev[1].record()
-            torch.cuda.synchronize()
-            ms = ev[0].elapsed_time(ev[1]) / reps
+            ms = launch_ms(lambda: deep_kernel.deep_walk(*args, **kw), reps)
+            dms = device_ms(lambda: deep_kernel.deep_walk(*args, **kw), 3)
             b = bound_ms(words, t[0].nbytes + t[2].nbytes, clock_hz)
-            res[arm] = dict(card=card, words=words, ms=ms, bound_ms=b)
+            res[arm] = dict(card=card, words=words, ms=ms, device_ms=dms,
+                            bound_ms=b)
         for arm, t in ts.items():
             plain, pwords, secs = futs[arm].result()
             r = res[arm]
@@ -688,7 +681,8 @@ def phase_timing(batches, clock_hz):
             r.update(plain_ms=1e3 * secs, err=abs_err(r["card"], plain))
             log(f"[timing] {arm} arm, one depth-{t[3]} history "
                 f"({len(picks[arm])} ops, {len(t[7])} rows): kernel "
-                f"{r['ms']:.3f} ms (mean of {reps} launches), plain (CPU, "
+                f"{r['ms']:.3f} ms launch to end (mean of {reps}), "
+                f"{r['device_ms']:.3f} ms on the device, plain (CPU, "
                 f"one thread) {r['plain_ms']:.1f} ms, bound "
                 f"{r['bound_ms']:.4f} ms from {r['words']} plane words")
     return res
@@ -743,7 +737,7 @@ def seg_inputs(hs, target=None, I=None):
 def seg_scan(inp, device, rounds, ks=None):
     """regs_scan on `device` over the wire of `inp` (only segments `ks`,
     when given): (T u8 numpy, work int64 numpy (integer operations per
-    segment), bad, ms by CUDA events or NaN on the CPU)."""
+    segment), bad, ms from launch to end, NaN on the CPU)."""
     from jepsen_tpu_torch.ops import regs_kernel
     dev = torch.device(device)
     offs, nrows = inp["offs"], inp["nrows"]
@@ -754,17 +748,14 @@ def seg_scan(inp, device, rounds, ks=None):
     work = torch.zeros(len(offs), dtype=torch.int64, device=dev)
     kw = dict(R=inp["R"], Sn=inp["Sn"], UP=inp["UP"], J=inp["Sn"],
               rounds=rounds, work=work)
+    out = []
     ms = float("nan")
     if dev.type == "cuda":
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        T, bad = regs_kernel.regs_scan(*args, **kw)
-        ev[1].record()
-        torch.cuda.synchronize()
-        ms = ev[0].elapsed_time(ev[1])
+        ms = launch_ms(lambda: out.append(regs_kernel.regs_scan(*args, **kw)),
+                       1)
     else:
-        T, bad = regs_kernel.regs_scan(*args, **kw)
+        out.append(regs_kernel.regs_scan(*args, **kw))
+    T, bad = out[0]
     return T.cpu().numpy(), work.cpu().numpy(), int(bad.cpu()[0]), ms
 
 
@@ -976,38 +967,21 @@ def phase_seg_grid(hs, clock_hz):
         timed = {}
         for name, inp, rd in (("group", grp, rounds),
                               ("single", one, one["R"])):
-            seg_scan(inp, DEV, rd)                    # warm
-            ms = [seg_scan(inp, DEV, rd)[3] for _ in range(5)]
             Tn, wn, _, _ = seg_scan(inp, DEV, rd)
             args = [torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
                     for x in (inp["cbuf"], inp["offs"], inp["nrows"],
                               inp["aux"])]
             kw = dict(R=inp["R"], Sn=inp["Sn"], UP=inp["UP"], J=inp["Sn"],
                       rounds=rd)
-            dev_ms = device_ms(lambda: regs_kernel.regs_scan(*args, **kw),
-                               10)
-            # one lane a segment: one warp walks each segment's rows, the
-            # chain's latency with the card nearly empty
-            chain_ms = device_ms(lambda: regs_kernel.regs_scan(
-                *args, **dict(kw, J=1)), 10)
-            timed[name] = (dev_ms, Tn, wn, sum(ms) / len(ms), chain_ms)
+
+            def scan():
+                return regs_kernel.regs_scan(*args, **kw)
+            scan()                                    # warm
+            timed[name] = (launch_ms(scan, 5), device_ms(scan, 10), Tn, wn)
         # the composition alone, on the group's transfer matrices:
         # wgl_compose and PR 4's torch.bmm levels in turns
-        Tg = torch.from_numpy(T).to(DEV)
         counts = grp["seg_counts"]
-        runs = {"bmm": [], "kernel": []}
-        once = {"bmm": [], "kernel": []}
-        for name in ("bmm", "kernel", "kernel", "bmm"):
-            fn = bmm_levels if name == "bmm" else regs_kernel.compose
-            fn(Tg, counts)                            # warm
-            runs[name].append(device_ms(lambda: fn(Tg, counts), 10))
-            once[name].append(cuda_ms(lambda: fn(Tg, counts), 1))
-        compose_ms = sum(runs["kernel"]) / 2
-        bmm_ms = sum(runs["bmm"]) / 2
-        if not torch.equal(bmm_levels(Tg, counts), regs_kernel.compose(
-                Tg, counts)):
-            raise SystemExit("[seg-timing] wgl_compose and the torch.bmm "
-                             "levels disagree")
+        turns = compose_turns(torch.from_numpy(T).to(DEV), counts)
         t = time.perf_counter()
         regs_kernel.compose_plain(torch.from_numpy(T), counts)
         compose_plain_ms = 1e3 * (time.perf_counter() - t)
@@ -1025,7 +999,7 @@ def phase_seg_grid(hs, clock_hz):
         res = {}
         for name, fut in (("group", f_grp), ("single", f_one)):
             inp = grp if name == "group" else one
-            ms, Tn, wn, launch_ms, chain_ms = timed[name]
+            ms, dms, Tn, wn = timed[name]
             pT, pwork, psecs = fut.result()
             if not (np.array_equal(Tn, pT) and np.array_equal(wn, pwork)):
                 raise SystemExit(f"[seg-grid] {name}: kernel and plain "
@@ -1035,38 +1009,31 @@ def phase_seg_grid(hs, clock_hz):
             Kn = len(inp["offs"])
             b = seg_bound_ms(int(wn.sum()), wire_bytes(inp, Kn, Sn),
                              clock_hz)
-            res[name] = dict(ms=ms, plain_ms=1e3 * psecs, bound_ms=b,
-                             ops=int(wn.sum()), launch_ms=launch_ms)
+            res[name] = dict(ms=ms, device_ms=dms, plain_ms=1e3 * psecs,
+                             bound_ms=b, ops=int(wn.sum()))
             log(f"[seg-timing] {name} launch: K={Kn} segments, "
                 f"rows={int(inp['nrows'].sum())}, R={inp['R']}, rounds="
                 f"{rounds if name == 'group' else inp['R']}: kernel "
-                f"{ms:.4f} ms on the device (10 back to back), "
-                f"{launch_ms:.4f} ms from an idle card's launch to its "
-                f"end (mean of 5, as PR 4 timed it), plain (CPU, one "
-                f"thread) {1e3 * psecs:.1f} ms, bound {b:.4f} ms from "
+                f"{ms:.4f} ms launch to end (mean of 5), {dms:.4f} ms on "
+                f"the device (10 back to back), plain (CPU, one thread) "
+                f"{1e3 * psecs:.1f} ms, bound {b:.4f} ms from "
                 f"{int(wn.sum())} integer operations ({b / ms:.4f} of "
-                f"the device time, {b / launch_ms:.4f} of launch to end); "
-                f"one lane a segment (J = 1) {chain_ms:.4f} ms")
+                f"launch to end, {b / dms:.4f} of the device time)")
         cb = compose_bound_ms(T.nbytes, len(counts))
-        res["compose"] = dict(ms=compose_ms, plain_ms=compose_plain_ms,
-                              bound_ms=cb, library_ms=bmm_ms)
+        cdev = turns["kernel"]["device"]
+        res["compose"] = dict(ms=turns["kernel"]["launch"], device_ms=cdev,
+                              plain_ms=compose_plain_ms, bound_ms=cb,
+                              library_ms=turns["bmm"]["launch"])
         log(f"[seg-timing] composition of the group's {K} transfer "
-            f"matrices (J={Sn}, {len(counts)} histories), on the device "
-            f"(10 back to back, in turns): wgl_compose {compose_ms:.4f} ms "
-            f"({runs['kernel'][0]:.4f}, {runs['kernel'][1]:.4f}), the "
-            f"torch.bmm levels {bmm_ms:.4f} ms ({runs['bmm'][0]:.4f}, "
-            f"{runs['bmm'][1]:.4f}); from an idle card's launch to the "
-            f"end: wgl_compose {once['kernel'][0]:.4f} / "
-            f"{once['kernel'][1]:.4f} ms, the torch.bmm levels "
-            f"{once['bmm'][0]:.4f} / {once['bmm'][1]:.4f} ms; plain (CPU) "
-            f"{compose_plain_ms:.1f} ms, "
-            f"bound {cb:.5f} ms from {T.nbytes} bytes ({cb / compose_ms:.4f}"
-            f" of it); wgl_compose is "
-            f"{compose_ms / (compose_ms + res['group']['ms']):.3f} of "
-            f"kernel + composition")
+            f"matrices (J={Sn}, {len(counts)} histories): "
+            f"{turns_line(turns)}; plain (CPU) {compose_plain_ms:.1f} ms, "
+            f"bound {cb:.5f} ms from {T.nbytes} bytes "
+            f"({cb / cdev:.4f} of the device time); wgl_compose is "
+            f"{cdev / (cdev + res['group']['device_ms']):.3f} of kernel + "
+            f"composition on the device")
     res["err"] = err
     res["T_group"], res["counts_group"] = T, grp["seg_counts"]
-    res["T_single"] = timed["single"][1]
+    res["T_single"] = timed["single"][2]
     return res
 
 
@@ -1089,17 +1056,53 @@ def device_ms(fn, reps):
     return ev[0].elapsed_time(ev[1]) / reps
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of `reps` calls of fn on the current stream
-    (CUDA events)."""
+def launch_ms(fn, reps):
+    """Mean of `reps` calls of fn, each timed from an idle card's launch
+    to its end (CUDA events around the one call): the host's enqueue
+    included."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    torch.cuda.synchronize()
-    ev[0].record()
+    total = 0.0
     for _ in range(reps):
+        torch.cuda.synchronize()
+        ev[0].record()
         fn()
-    ev[1].record()
-    torch.cuda.synchronize()
-    return ev[0].elapsed_time(ev[1]) / reps
+        ev[1].record()
+        torch.cuda.synchronize()
+        total += ev[0].elapsed_time(ev[1])
+    return total / reps
+
+
+def compose_turns(T, counts):
+    """wgl_compose and the torch.bmm levels on the same matrices, in the
+    order bmm, kernel, kernel, bmm, each turn warmed first: per route the
+    mean and the readings of the device time (10 back to back) and of
+    one call from launch to end.  Fails if the two disagree."""
+    from jepsen_tpu_torch.ops import regs_kernel
+    fns = {"bmm": bmm_levels, "kernel": regs_kernel.compose}
+    got = {n: {"device_all": [], "launch_all": []} for n in fns}
+    for name in ("bmm", "kernel", "kernel", "bmm"):
+        fn = fns[name]
+        fn(T, counts)
+        got[name]["device_all"].append(device_ms(lambda: fn(T, counts), 10))
+        got[name]["launch_all"].append(launch_ms(lambda: fn(T, counts), 1))
+    if not torch.equal(bmm_levels(T, counts), regs_kernel.compose(T, counts)):
+        raise SystemExit("wgl_compose and the torch.bmm levels disagree")
+    for d in got.values():
+        for k in ("device", "launch"):
+            d[k] = sum(d[k + "_all"]) / len(d[k + "_all"])
+    return got
+
+
+def turns_line(turns):
+    """compose_turns' readings as one log phrase."""
+    def one(n):
+        d = turns[n]
+        return (f"{d['device']:.4f} ms on the device ("
+                f"{', '.join(f'{x:.4f}' for x in d['device_all'])}), "
+                f"{d['launch']:.4f} ms launch to end ("
+                f"{', '.join(f'{x:.4f}' for x in d['launch_all'])})")
+    return (f"in turns, wgl_compose {one('kernel')}; the torch.bmm levels "
+            f"{one('bmm')}")
 
 
 def compose_bound_ms(t_bytes, B):
@@ -1150,13 +1153,34 @@ def bmm_levels(T, seg_counts):
                       words], 1).to(torch.int32)
 
 
+def compose_random_cases():
+    """Seeded 0/1 matrices at J = 1, 33, 88 and 128 (one to four mask
+    words), three histories each, long enough for several staged chunks,
+    one of them dying at a chosen segment; each T a view three bytes into
+    a larger buffer, so no history starts on a 16-byte boundary."""
+    rng = np.random.default_rng(31)
+    cases = []
+    for J in (1, 33, 88, 128):
+        counts = [int(c) for c in rng.integers(40, 120, 3)]
+        K = sum(counts)
+        T = rng.random((K, J, J)) < 2.0 / J
+        T[:, :, 0] |= rng.random((K, J)) < 0.999
+        T[counts[0] + counts[1] // 2] = False
+        buf = torch.zeros(T.size + 3, dtype=torch.uint8)
+        buf[3:] = torch.from_numpy(T.astype(np.uint8).ravel())
+        cases.append((J, counts, buf))
+    return cases
+
+
 def phase_compose(seg, crash):
     """wgl_compose against its plain version (on CPU copies of the same
     matrices): the north-star group, one history alone, the crash tier's
-    J = 88 matrices of (c) and the relaxed tier's of (b), and deaths
-    made at the first, a middle and the last segment (the group's and
-    (c)'s matrices with one segment emptied).  Returns the largest
-    disagreement."""
+    J = 88 matrices of (c) and the relaxed tier's of (b), deaths made at
+    the first, a middle and the last segment (the group's and (c)'s
+    matrices with one segment emptied), and seeded matrices at one to
+    four mask words on unaligned starts.  Then (c)'s and (b)'s
+    compositions timed against the torch.bmm levels in turns.  Returns
+    the largest disagreement."""
     from jepsen_tpu_torch.ops import regs_kernel
     Tg, cg = seg["T_group"], seg["counts_group"]
     Tc, Tr = crash["T_crash"], crash["T_relaxed"]
@@ -1172,10 +1196,17 @@ def phase_compose(seg, crash):
              ("relaxed (b)", Tr, [len(Tr)]),
              ("group, deaths at segment 0 / middle / last", killed, cg),
              ("crash (c), death in the middle", mid, [len(mid)])]
+    for J, counts, buf in compose_random_cases():
+        dev = buf.to(DEV)
+        K = sum(counts)
+        cases.append((f"seeded, unaligned, J = {J}",
+                      dev[3:].view(K, J, J), counts))
     err = 0
     for name, T, counts in cases:
-        got = regs_kernel.compose(torch.from_numpy(T).to(DEV), counts).cpu()
-        want = regs_kernel.compose_plain(torch.from_numpy(T), counts)
+        if not torch.is_tensor(T):
+            T = torch.from_numpy(T).to(DEV)
+        got = regs_kernel.compose(T, counts).cpu()
+        want = regs_kernel.compose_plain(T.cpu(), counts)
         err = max(err, int((got.to(torch.int64)
                             - want.to(torch.int64)).abs().max()))
         ok = torch.equal(got, want)
@@ -1191,6 +1222,11 @@ def phase_compose(seg, crash):
     if got_dead != want_dead:
         raise SystemExit(f"[compose] made deaths {want_dead}, found "
                          f"{got_dead}")
+    for name, T in (("crash (c), J = 88", Tc), ("relaxed (b)", Tr)):
+        turns = compose_turns(torch.from_numpy(T).to(DEV), [len(T)])
+        log(f"[compose] timing, {name}: K={len(T)} J={T.shape[1]}, "
+            f"{T.nbytes} bytes of T, bound "
+            f"{compose_bound_ms(T.nbytes, 1):.5f} ms: {turns_line(turns)}")
     return err
 
 
@@ -1292,9 +1328,10 @@ def crash_run(inp, device, kind, ks=None, seed=None, reps=0):
     """One variant's wrapper on `device` over the wire of `inp` (only
     segments `ks`, when given): kind "crash" (crash_scan), "relaxed"
     (relaxed_scan) or "death" (death_row from the states of `seed`).
-    Returns (output numpy, work numpy, bad, ms): ms is the mean of
-    `reps` timed launches after the counted one (CUDA events), NaN on
-    the CPU or with reps = 0."""
+    Returns (output numpy, work numpy, bad, (launch ms, device ms)):
+    after the counted launch, `reps` launches timed from launch to end
+    and 2 reps back to back on the device; NaN on the CPU or with reps
+    = 0."""
     from jepsen_tpu_torch.ops import crash_kernel
     dev = torch.device(device)
     offs, nrows = inp["offs"], inp["nrows"]
@@ -1316,16 +1353,10 @@ def crash_run(inp, device, kind, ks=None, seed=None, reps=0):
             return crash_kernel.relaxed_scan(*args, **kw)
         return crash_kernel.death_row(*args, seed, **kw)
     out, bad = launch(work)
-    ms = float("nan")
+    ms = (float("nan"), float("nan"))
     if dev.type == "cuda" and reps:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        for _ in range(reps):
-            launch(None)
-        ev[1].record()
-        torch.cuda.synchronize()
-        ms = ev[0].elapsed_time(ev[1]) / reps
+        ms = (launch_ms(lambda: launch(None), reps),
+              device_ms(lambda: launch(None), 2 * reps))
     return out.cpu().numpy(), work.cpu().numpy(), int(bad.cpu()[0]), ms
 
 
@@ -1648,8 +1679,9 @@ def phase_crash_pipeline(seg_hs, main):
 
 
 def phase_crash_timing(main, clock_hz):
-    """The main path's crash launches timed with CUDA events (mean of 5
-    after the counted launch) beside their plain versions and bounds:
+    """The main path's crash launches timed (launch to end, mean of 5
+    after the counted launch; and on the device) beside their plain
+    versions and bounds:
     the tier-2 launch of (c) (all segments, then the first 16 against
     the plain version), the relaxed launch of (b) and its death-row
     launch; and the stage seconds of (a)-(d)."""
@@ -1666,7 +1698,7 @@ def phase_crash_timing(main, clock_hz):
     with ProcessPoolExecutor(3, mp_context=ctx) as pool:
         f_slice = pool.submit(plain_crash_job, ci, "crash", ks)
         f_rel = pool.submit(plain_crash_job, ri, "relaxed")
-        T, work, nbad, ms = crash_run(ci, DEV, "crash", reps=5)
+        T, work, nbad, (ms, dms) = crash_run(ci, DEV, "crash", reps=5)
         vd = regs_kernel.compose(torch.from_numpy(T).to(DEV),
                                  [ci["K"]]).cpu()[0].tolist()
         b_full = seg_bound_ms(int(work.sum()),
@@ -1674,10 +1706,10 @@ def phase_crash_timing(main, clock_hz):
         log(f"[crash-timing] tier-2 launch of (c): K={ci['K']} segments, "
             f"rows={int(ci['nrows'].sum())}, R={ci['R']} (rn={ci['rn']}, "
             f"nc={ci['nc']}), J={ci['Sn'] << ci['nc']}: verdict {vd[:2]}, "
-            f"kernel {ms:.3f} ms (mean of 5), bound {b_full:.4f} ms from "
-            f"{int(work.sum())} integer operations ({b_full / ms:.4f} of "
-            f"it)")
-        Ts, ws, _, ms_s = crash_run(ci, DEV, "crash", ks, reps=5)
+            f"kernel {ms:.3f} ms launch to end (mean of 5), {dms:.3f} ms "
+            f"on the device, bound {b_full:.4f} ms from {int(work.sum())} "
+            f"integer operations ({b_full / ms:.4f} of it)")
+        Ts, ws, _, (ms_s, dms_s) = crash_run(ci, DEV, "crash", ks, reps=5)
         pT, pwork, psecs = f_slice.result()
         if not (np.array_equal(Ts, pT) and np.array_equal(ws, pwork)
                 and np.array_equal(Ts, T[ks])):
@@ -1685,19 +1717,22 @@ def phase_crash_timing(main, clock_hz):
                              "version disagree")
         b = seg_bound_ms(int(ws.sum()), crash_wire_bytes(
             dict(ci, offs=ci["offs"][ks]), Ts.nbytes), clock_hz)
-        res["crash"] = dict(ms=ms_s, plain_ms=1e3 * psecs, bound_ms=b,
+        res["crash"] = dict(ms=ms_s, device_ms=dms_s,
+                            plain_ms=1e3 * psecs, bound_ms=b,
                             err=int(np.abs(Ts.astype(np.int64)
                                            - pT.astype(np.int64)).max()))
         log(f"[crash-timing] tier-2 launch of (c), segments 0..{ks[-1]}: kernel "
-            f"{ms_s:.3f} ms (mean of 5), plain (CPU, one thread) "
+            f"{ms_s:.3f} ms launch to end (mean of 5), {dms_s:.3f} ms on "
+            f"the device, plain (CPU, one thread) "
             f"{1e3 * psecs:.1f} ms, bound {b:.4f} ms from {int(ws.sum())} "
             f"integer operations ({b / ms_s:.4f} of it); equal")
-        Tr, wr, _, ms_r = crash_run(ri, DEV, "relaxed", reps=5)
+        Tr, wr, _, (ms_r, dms_r) = crash_run(ri, DEV, "relaxed", reps=5)
         vdr = regs_kernel.compose(torch.from_numpy(Tr).to(DEV),
                                   [ri["K"]]).cpu()[0].tolist()
         dead = vdr[1]
         seed = vdr[2] & 0xFFFFFFFF
-        dr, dw, _, ms_d = crash_run(ri, DEV, "death", [dead], seed, reps=5)
+        dr, dw, _, (ms_d, dms_d) = crash_run(ri, DEV, "death", [dead],
+                                             seed, reps=5)
         t = time.perf_counter()
         pdr, pdw, _ = plain_crash_job(ri, "death", [dead], seed)
         pd_ms = 1e3 * (time.perf_counter() - t)
@@ -1711,17 +1746,20 @@ def phase_crash_timing(main, clock_hz):
                           clock_hz)
         bd = seg_bound_ms(int(dw.sum()), crash_wire_bytes(
             dict(ri, offs=ri["offs"][[dead]]), 4), clock_hz)
-        res["relaxed"] = dict(ms=ms_r, plain_ms=1e3 * rsecs, bound_ms=br,
+        res["relaxed"] = dict(ms=ms_r, device_ms=dms_r,
+                              plain_ms=1e3 * rsecs, bound_ms=br,
                               err=int(np.abs(Tr.astype(np.int64)
                                              - pTr.astype(np.int64)).max()))
         log(f"[crash-timing] relaxed launch of (b): K={ri['K']} segments, "
             f"rows={int(ri['nrows'].sum())}, R={ri['R']}, Sn={ri['Sn']}, "
             f"{ri['nC']} crash prefixes: dead segment {dead}, kernel "
-            f"{ms_r:.3f} ms (mean of 5), plain {1e3 * rsecs:.1f} ms, bound "
+            f"{ms_r:.3f} ms launch to end (mean of 5), {dms_r:.3f} ms on "
+            f"the device, plain {1e3 * rsecs:.1f} ms, bound "
             f"{br:.4f} ms from {int(wr.sum())} integer operations "
             f"({br / ms_r:.4f} of it); equal")
         log(f"[crash-timing] death-row launch of (b)'s dead segment: row "
-            f"{int(dr[0])}, kernel {ms_d:.3f} ms (mean of 5), plain "
+            f"{int(dr[0])}, kernel {ms_d:.3f} ms launch to end (mean of "
+            f"5), {dms_d:.3f} ms on the device, plain "
             f"{pd_ms:.1f} ms, bound {bd:.5f} ms from {int(dw.sum())} "
             f"integer operations; equal")
     for tag, m in main.items():
@@ -1753,7 +1791,8 @@ def main() -> int:
                 "launches": launches[arm],
                 "max_abs_err": max(err[arm], grid_err[arm],
                                    one[arm]["err"]),
-                "ms": one[arm]["ms"], "plain_ms": one[arm]["plain_ms"],
+                "ms": one[arm]["ms"], "device_ms": one[arm]["device_ms"],
+                "plain_ms": one[arm]["plain_ms"],
                 "bound_ms": one[arm]["bound_ms"], "bound_by": "bytes",
                 "library_ms": None} for arm in ("warp", "block")]
     kernels.append({"name": "wgl_regs", "route": "cuda",
@@ -1762,6 +1801,7 @@ def main() -> int:
                     "launches": seg_launches["wgl_regs"],
                     "max_abs_err": max(seg_err, seg["err"]),
                     "ms": seg["group"]["ms"],
+                    "device_ms": seg["group"]["device_ms"],
                     "plain_ms": seg["group"]["plain_ms"],
                     "bound_ms": seg["group"]["bound_ms"],
                     "bound_by": "operations", "library_ms": None})
@@ -1771,6 +1811,7 @@ def main() -> int:
                     "launches": seg_launches["wgl_compose"],
                     "max_abs_err": compose_err,
                     "ms": seg["compose"]["ms"],
+                    "device_ms": seg["compose"]["device_ms"],
                     "plain_ms": seg["compose"]["plain_ms"],
                     "bound_ms": seg["compose"]["bound_ms"],
                     "bound_by": "bytes",
@@ -1784,6 +1825,7 @@ def main() -> int:
                         "max_abs_err": max(crash_err[kind],
                                            crash[kind]["err"]),
                         "ms": crash[kind]["ms"],
+                        "device_ms": crash[kind]["device_ms"],
                         "plain_ms": crash[kind]["plain_ms"],
                         "bound_ms": crash[kind]["bound_ms"],
                         "bound_by": "operations", "library_ms": None})

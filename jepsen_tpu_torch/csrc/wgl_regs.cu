@@ -91,17 +91,19 @@
 // is ever read, so history b's verdict is a chain of one vector through
 // its matrices: v = {entry config 0}; at segment k, v <- OR over j in v
 // of T[k, j, :]; the first k at which v empties is the dead segment and
-// v before it the entry mask.  One CTA per history: its four warps turn
-// as many of the history's matrix rows as COMPOSE_WORDS hold (a
-// north-star history's 295 matrices of 11 x 11 in one chunk) into bit
-// masks in shared memory, then warp 0 walks the chain: thread j holds
-// row j (and j + 32, ... up to J <= 128, so v is NW <= 4 words), ORs in
-// the rows that v holds, and one __reduce_or_sync per word gives the
-// next v.  What bounds it: T's bytes over device memory, microseconds
-// for a north-star group; in practice the chain of K segments, one
-// shared load and one reduction each.  Output out[B][6] int32: valid,
-// the dead segment (-1 if valid), the entry mask's four words (0 when
-// valid).
+// v before it the entry mask.  One CTA per history.  Its 32 warps stage
+// a chunk of the history's matrices (as many as COMPOSE_WORDS bits
+// hold: a north-star history's 295 matrices of 11 x 11 at once, 33 of
+// (c)'s 88 x 88) as a bit map in shared memory, one bit a byte: each
+// thread reads 16 aligned bytes at a time, coalesced, folds them to 16
+// bits, and pairs of threads write a word.  Then warp 0 walks the
+// chain: thread j takes row j (and j + 32, ... up to J <= 128, so v is
+// NW <= 4 words) out of the map with a funnel shift where v holds it,
+// and one __reduce_or_sync per word gives the next v.  What bounds it:
+// T's bytes, read by the one SM that holds the history (about 2.3 MB
+// for crash tier 2's J = 88), and the chain of K segments, two shared
+// loads and one reduction each.  Output out[B][6] int32: valid, the dead
+// segment (-1 if valid), the entry mask's four words (0 when valid).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -113,8 +115,9 @@ constexpr int I = 2;             // invoke columns per event row
 constexpr int CHUNK = 64;        // event rows staged per step
 constexpr int MAXJ = 32;         // entry states per segment
 constexpr int MAXJC = 128;       // entry configs of a composed matrix
-constexpr int COMPOSE_WARPS = 4;  // warps staging a history's matrices
-constexpr int COMPOSE_WORDS = 8192;  // row-mask words staged at once
+constexpr int COMPOSE_WARPS = 32;   // warps staging a history's matrices
+constexpr int COMPOSE_WORDS = 8192;  // bit-map words staged at once
+constexpr int COMPOSE_UNROLL = 4;   // 16-byte loads in flight a thread
 constexpr uint32_t FULL = 0xFFFFFFFFu;
 // integer operations of the work count (the bound model of the note)
 constexpr int CLOSE_OPS = 6;     // per plane word of a slot b < 5 pass
@@ -419,21 +422,31 @@ wgl_regs_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
     }
 }
 
+// Bits q of the result: byte q of x is nonzero.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+    x |= x >> 4;
+    x |= x >> 2;
+    x |= x >> 1;
+    return ((x & 0x01010101u) * 0x10204080u) >> 28;
+}
+
 template <int NW>
 __global__ void __launch_bounds__(32 * COMPOSE_WARPS)
 wgl_compose_kernel(const uint8_t *__restrict__ T, int J,
                    const int64_t *__restrict__ first,
                    const int32_t *__restrict__ count,
                    int32_t *__restrict__ out) {
-    // rows[(k * J + j) * NW + w]: word w of row j of the chunk's
-    // segment k, bit c set where T[k, j, c] is
-    __shared__ uint32_t rows[COMPOSE_WORDS];
+    // bit i of the map: the byte i of the staged span, which starts at
+    // the 16-byte boundary at or before the chunk's first byte (s bytes
+    // before it), is nonzero; the word past the span pads the walk's
+    // funnel shift
+    __shared__ uint32_t bits[COMPOSE_WORDS + 1];
     __shared__ int died_at;
     const int b = blockIdx.x;
     const int tid = threadIdx.x, lane = tid & 31;
     const long long JJ = (long long)J * J;
     const int K = count[b];
-    const int per = COMPOSE_WORDS / (J * NW);    // segments a chunk
+    const int per = (int)(32LL * (COMPOSE_WORDS - 2) / JJ);  // a chunk
     const uint8_t *hist = T + first[b] * JJ;
     uint32_t v[NW];
 #pragma unroll
@@ -444,25 +457,40 @@ wgl_compose_kernel(const uint8_t *__restrict__ T, int J,
         __syncthreads();                // died_at, and the last walk done
         if (died_at >= 0) break;
         const int n = min(per, K - k0);
-        // every (segment, row) of the chunk to its bit mask
-        for (int p = tid; p < n * J; p += blockDim.x) {
-            const uint8_t *src = hist + (long long)k0 * JJ + (long long)p * J;
-            uint32_t m[NW];
+        const uint8_t *base = hist + (long long)k0 * JJ;
+        const uintptr_t a0 = (uintptr_t)base & ~(uintptr_t)15;
+        const int s = (int)((uintptr_t)base - a0);
+        const int nblk = (int)((s + n * JJ + 15) >> 4);
+        const uint4 *src = (const uint4 *)a0;
+        // 16-byte block i to bits 16 i .. 16 i + 15; the whole warp runs
+        // each step together (its blocks are 32 consecutive ones).  The
+        // blocks at the span's two ends may hold up to 15 bytes outside
+        // the chunk: they lie in T's allocation (the caching allocator
+        // hands out 512-byte multiples), and the walk never reads them
+        for (int i0 = tid - lane; i0 < nblk;
+             i0 += COMPOSE_UNROLL * blockDim.x) {
+            uint4 x[COMPOSE_UNROLL];
 #pragma unroll
-            for (int w = 0; w < NW; ++w) m[w] = 0u;
-            for (int c = 0; c < J; ++c) {
-                const uint32_t bit = src[c] ? 1u << (c & 31) : 0u;
-#pragma unroll
-                for (int w = 0; w < NW; ++w) m[w] |= (c >> 5) == w ? bit : 0u;
+            for (int u = 0; u < COMPOSE_UNROLL; ++u) {
+                const int i = i0 + u * blockDim.x + lane;
+                x[u] = i < nblk ? __ldg(src + i) : make_uint4(0, 0, 0, 0);
             }
 #pragma unroll
-            for (int w = 0; w < NW; ++w) rows[p * NW + w] = m[w];
+            for (int u = 0; u < COMPOSE_UNROLL; ++u) {
+                const int i = i0 + u * blockDim.x + lane;
+                uint32_t h = nonzero_bytes(x[u].x) |
+                             nonzero_bytes(x[u].y) << 4 |
+                             nonzero_bytes(x[u].z) << 8 |
+                             nonzero_bytes(x[u].w) << 12;
+                h <<= 16 * (lane & 1);
+                h |= __shfl_xor_sync(FULL, h, 1);
+                if (!(lane & 1) && i < nblk) bits[i >> 1] = h;
+            }
         }
         __syncthreads();
         if (tid >= 32) continue;        // one warp walks the chain
         for (int k = 0; k < n; ++k) {
             // thread `lane` ORs in its rows lane + 32 q that v holds
-            const uint32_t *rk = rows + k * J * NW;
             uint32_t acc[NW];
 #pragma unroll
             for (int w = 0; w < NW; ++w) acc[w] = 0u;
@@ -470,8 +498,15 @@ wgl_compose_kernel(const uint8_t *__restrict__ T, int J,
             for (int q = 0; q < NW; ++q) {
                 const int j = lane + 32 * q;
                 if (j < J && ((v[q] >> lane) & 1u)) {
+                    const int row = s + (k * J + j) * J;
 #pragma unroll
-                    for (int w = 0; w < NW; ++w) acc[w] |= rk[j * NW + w];
+                    for (int w = 0; w < NW; ++w) {
+                        const int off = row + 32 * w;
+                        const int len = min(32, J - 32 * w);
+                        const uint32_t x = __funnelshift_r(
+                            bits[off >> 5], bits[(off >> 5) + 1], off & 31);
+                        acc[w] |= len == 32 ? x : x & ((1u << len) - 1u);
+                    }
                 }
             }
             uint32_t any = 0u, nv[NW];

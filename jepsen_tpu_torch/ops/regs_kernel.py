@@ -408,7 +408,8 @@ def compose(T: torch.Tensor, seg_counts) -> torch.Tensor:
 
     Only row 0 of the reference's prefix products is read, so each
     history is a chain of one vector through its matrices (kernel
-    `wgl_compose` in csrc/wgl_regs.cu, one warp per history).  CUDA
+    `wgl_compose` in csrc/wgl_regs.cu, one CTA per history: every warp
+    stages the matrices as bits, one warp walks the chain).  CUDA
     tensors launch it on the current stream without synchronising; CPU
     tensors run the plain version (`compose_plain`)."""
     global COMPOSE_LAUNCHES
