@@ -80,7 +80,8 @@ any failure exits non-zero:
   crash-timing
              - the tier-2 launch of (c), the relaxed launch of (b) and
                its death-row launch against their plain versions and
-               bounds, for the JSON kernel line;
+               bounds, with each launch's CTAs and the CTAs an SM holds,
+               for the JSON kernel line;
   compose    - wgl_compose against its plain version on CPU copies: the
                north-star group's matrices, one history's, (c)'s J = 88
                and (b)'s, deaths made at the first, a middle and the last
@@ -1568,11 +1569,8 @@ def phase_crash_main(seg_hs):
     t = time.perf_counter()
     ha = make_history(HARD_N_OPS, 16, seed=23, crash_rate=0.01, max_open=6,
                       vmax=4)
-    hb = make_history(HARD_N_OPS, 16, seed=23, crash_rate=0.01, max_open=6,
-                      vmax=9, crash_vmax=7)
-    wit_b = plant_stale_read(hb, 0.9, 9, forbidden=set(range(8)))
-    hc, vals_c = crash_ops(seg_hs[0], [(0.2, "read"), (0.4, "write"),
-                                       (0.6, "write"), (0.8, "cas")])
+    hb, wit_b = crash_b_history()
+    hc, vals_c = crash_c_history(seg_hs[0])
     hc_bad = copy_history(hc)
     wit_c = plant_stale_read(hc_bad, 0.9, 9, forbidden=vals_c)
     hd0 = make_history(ENV_N_OPS, 16, seed=5100, vmax=9, max_open=8)
@@ -1618,6 +1616,40 @@ def phase_crash_main(seg_hs):
     return out
 
 
+def crash_b_history():
+    """(b): the hard regime's shape at vmax 9, crashed values 0..7, and a
+    stale read planted at 90% depth: (history, the read's index)."""
+    hb = make_history(HARD_N_OPS, 16, seed=23, crash_rate=0.01, max_open=6,
+                      vmax=9, crash_vmax=7)
+    return hb, plant_stale_read(hb, 0.9, 9, forbidden=set(range(8)))
+
+
+def crash_c_history(h0):
+    """(c): north-star history h0 with four ok completions turned :info
+    (a read, two writes, a cas): (history, the crashed values)."""
+    return crash_ops(h0, [(0.2, "read"), (0.4, "write"), (0.6, "write"),
+                          (0.8, "cas")])
+
+
+def crash_timing_inputs(hc, hb):
+    """The wires [crash-timing] launches: (c)'s tier-2 wire (its inert
+    crashed read dropped, as tier 1 drops it) and (b)'s relaxed wire."""
+    span = inert_read_span(hc)
+    red = copy_history(hc)
+    red.ops = [o for o in red.ops if o.index not in span]
+    return crash_inputs(red), relaxed_inputs(hb)
+
+
+def crash_geometry_line(inp, kind):
+    """A crash launch's CTAs a segment, and how many an SM holds."""
+    from jepsen_tpu_torch.ops import crash_kernel
+    ctas, threads, per_sm = crash_kernel.occupancy(
+        inp["R"], inp["Sn"], nc=inp.get("nc", 0), closure=kind != "crash",
+        death=kind == "death")
+    return (f"{ctas} CTA{'s' if ctas > 1 else ''} of {threads} threads a "
+            f"segment, {per_sm} CTAs ({per_sm * threads // 32} warps) an SM")
+
+
 def inert_read_span(h):
     """Op indices of the crashed read's invoke and :info in h."""
     info = next(o for o in h.ops if o.type == "info" and o.f == "read")
@@ -1641,9 +1673,8 @@ def phase_crash_pipeline(seg_hs, main):
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops import crash_kernel, wgl_seg
     model = CASRegister()
-    shaped = [main["hists"]["c"]] + [
-        crash_ops(h, [(0.2, "read"), (0.4, "write"), (0.6, "write"),
-                      (0.8, "cas")])[0] for h in seg_hs[1:4]]
+    shaped = [main["hists"]["c"]] + [crash_c_history(h)[0]
+                                     for h in seg_hs[1:4]]
     batch = shaped + list(seg_hs[4:SEG_BATCH])
     st = {}
     t = time.perf_counter()
@@ -1686,12 +1717,7 @@ def phase_crash_timing(main, clock_hz):
     the plain version), the relaxed launch of (b) and its death-row
     launch; and the stage seconds of (a)-(d)."""
     from jepsen_tpu_torch.ops import regs_kernel
-    hc = main["hists"]["c"]
-    info_read = inert_read_span(hc)
-    red = copy_history(hc)
-    red.ops = [o for o in red.ops if o.index not in info_read]
-    ci = crash_inputs(red)
-    ri = relaxed_inputs(main["hists"]["b"])
+    ci, ri = crash_timing_inputs(main["hists"]["c"], main["hists"]["b"])
     ks = list(range(min(16, ci["K"])))
     ctx = multiprocessing.get_context("spawn")
     res = {}
@@ -1708,7 +1734,8 @@ def phase_crash_timing(main, clock_hz):
             f"nc={ci['nc']}), J={ci['Sn'] << ci['nc']}: verdict {vd[:2]}, "
             f"kernel {ms:.3f} ms launch to end (mean of 5), {dms:.3f} ms "
             f"on the device, bound {b_full:.4f} ms from {int(work.sum())} "
-            f"integer operations ({b_full / ms:.4f} of it)")
+            f"integer operations ({b_full / ms:.4f} of it); "
+            f"{crash_geometry_line(ci, 'crash')}")
         Ts, ws, _, (ms_s, dms_s) = crash_run(ci, DEV, "crash", ks, reps=5)
         pT, pwork, psecs = f_slice.result()
         if not (np.array_equal(Ts, pT) and np.array_equal(ws, pwork)
@@ -1756,12 +1783,14 @@ def phase_crash_timing(main, clock_hz):
             f"{ms_r:.3f} ms launch to end (mean of 5), {dms_r:.3f} ms on "
             f"the device, plain {1e3 * rsecs:.1f} ms, bound "
             f"{br:.4f} ms from {int(wr.sum())} integer operations "
-            f"({br / ms_r:.4f} of it); equal")
+            f"({br / ms_r:.4f} of it); {crash_geometry_line(ri, 'relaxed')}; "
+            f"equal")
         log(f"[crash-timing] death-row launch of (b)'s dead segment: row "
             f"{int(dr[0])}, kernel {ms_d:.3f} ms launch to end (mean of "
             f"5), {dms_d:.3f} ms on the device, plain "
             f"{pd_ms:.1f} ms, bound {bd:.5f} ms from {int(dw.sum())} "
-            f"integer operations; equal")
+            f"integer operations; {crash_geometry_line(ri, 'death')}; "
+            f"equal")
     for tag, m in main.items():
         if tag != "hists":
             log(f"[crash-timing] {tag}: {m['s']:.3f} s; stages: "

@@ -28,42 +28,80 @@
 // The walk, per event row: register up to I = 2 invokes (slot b's a1, a2,
 // t0 words; the slot opens); [relaxed, death: close the states]; when a
 // slot is open, rounds to the fixpoint (at most R), each a pass of every
-// open slot b (the configs lacking b: moved = contrib & diag(a1), and at
-// state t0 the OR over states of contrib & const(a2), set into b) [then
-// close the states]; at a return of slot rs, prune the configs lacking rs
-// and clear its bit, and retire the slot.  R rounds reach the fixpoint,
-// so each pass updates the plane in place (Gauss-Seidel): a round then
-// holds at least what the reference's Jacobi round holds and no more than
-// the fixpoint, and the transfer rows are the same bit for bit.  Inside
-// one pass the update is the Jacobi one, since a pass only sets bits its
-// sources lack.  A round only sets bits, so a lane changed iff its plane's
-// popcount grew; a warp leaves the row's rounds when a ballot finds no
-// lane changed (a lane that did not change is at its fixpoint and stays
-// there).
+// open slot b in order (the configs lacking b: moved = contrib & diag(a1),
+// and at state t0 the OR over states of contrib & const(a2), set into b)
+// [then close the states]; at a return of slot rs, prune the configs
+// lacking rs and clear its bit, and retire the slot.  R rounds reach the
+// fixpoint, so each pass updates the plane in place (Gauss-Seidel): a
+// round then holds at least what the reference's Jacobi round holds and
+// no more than the fixpoint, and the transfer rows are the same bit for
+// bit.  Inside one pass the update is the Jacobi one, since a pass only
+// sets bits its sources lack.  A warp leaves the row's rounds when a
+// ballot finds that no lane of it changed (a lane that did not change is
+// at its fixpoint and stays there).
 //
-// Layout.  One thread per (lane, word column): thread g of a segment owns
-// word w = g % WD of every state row of lane j = g / WD, SnP registers.
-// A slot b < 5 pass, a prune and the state closure stay inside the
-// thread; a slot b >= 5 pass and its prune read the partner column
-// w ^ (1 << (b - 5)) with one shuffle per state row (the WD threads of a
-// lane are consecutive lanes of one warp).  A segment spans
-// ceil(J * WD / 128) blocks of at most 128 threads (grid y); every block
-// of a segment stages the same rows, CHUNK at a time, into shared memory
-// (ret, slots, the slots' table words and, with the closure, the row's
-// ctab masks) between two barriers, and every decision in the walk is the
-// segment's, so no warp diverges.  Warps past J * WD lanes stage and wait
-// at the barriers but do not walk.
+// Layout.  One thread per (lane j, state row s), as wgl_regs.cu: a
+// lane's SnP rows sit on SnP consecutive threads of one warp (4, 2 or 1
+// lanes a warp at SnP 8, 16 or 32), and each thread keeps its row's WD
+// words in registers.  Every pass is then inside the thread at any slot:
+// a slot b < 5 pass moves bits inside each word, a slot b >= 5 pass and
+// prune move whole words between registers (word w to w | (1 << (b -
+// 5))), with no shuffle.  The rank-1 term, an OR over the lane's state
+// rows, is a __shfl_xor_sync tree inside the lane's SnP threads where
+// the slot's const mask holds several states, one indexed shuffle where
+// it holds one, none where it holds none; the branch is the slot's, so
+// each pass runs one of three straight loops over the words.  The state
+// closure is computed across the lane's threads: target row t ORs in
+// row s's words (an indexed shuffle) for each source s whose ctab mask
+// allows s -> t; row t reads its column of the row's masks once a row.
+// A row whose masks let no state jump skips the closure, and so does a
+// round whose passes changed no lane of the warp (the plane was closed
+// when the round began), so each row's last round is passes only.
+//
+// CTAs.  A segment's J lanes (J * SnP threads, up to 4096) split over
+// the fewest CTAs of at most MAXT = 128 threads, on grid y ((c)'s J = 88
+// at SnP 16: 11 CTAs of 8 lanes), and every CTA stages the same rows.
+// Small CTAs pack an SM's warps finely (a CTA leaves its SM when its
+// segment ends) and spread a launch of few segments, as the relaxed
+// tier's, over more SMs, so fewer of its chains share one.  Not a
+// thread-block cluster: the rows a CTA stages are a few bytes each (7,
+// or 9 and the row's SnP masks with the closure), read from L2 once per
+// 64 rows, so one copy shared over distributed shared memory would save
+// a load per chunk, cost a cluster barrier per chunk, and tie a
+// segment's CTAs to neighbouring SMs.  A CTA stages CHUNK event rows at
+// a time into shared memory, double buffered: the next chunk's wire
+// bytes are loaded into registers before the walk of this one and
+// stored after it, one __syncthreads a chunk.  Every decision in the
+// walk (the open slots, the returning slot, the closure's sources) is
+// the segment's, so no warp diverges.
+//
+// What bounds it on this card.  The crash variant at (c)'s shapes:
+// integer operations, issued by 295 x 88 lanes of 16 threads (11 rows
+// that hold configs, 5 padding): the counted ones below, plus what the
+// count leaves out (the rank-1 shuffles, the mask selects, ballots and
+// the row's shared loads).  It is capped at 64 registers a thread, so
+// an SM holds 8 of its CTAs (32 warps) to hide each warp's latency.  The
+// relaxed variant and the death row: the latency of one segment's rows
+// walked as one dependent chain ((b)'s longest segment has 1577 rows).
+// The design shortens that chain where it can: passes need no shuffle
+// at b >= 5, the closure's shuffles are independent of each other (one
+// step deep, not a loop over the rows in one thread), the row's closure
+// column is read once for all its rounds, the last round skips the
+// closure, and a warp leaves a row's rounds at its lanes' fixpoint.  The slot passes of one round stay a
+// chain (each reads the plane the previous pass left, as the plain
+// version's count needs).
 //
 // The work= count, the integer operations the walk needs: a lane's plane
-// is at most 32 words per thread, in registers; the wire is 7 (9 with the
+// is at most 8 words per thread, in registers; the wire is 7 (9 with the
 // closure) bytes a row.  Per row and lane it charges a pass of slot b < 5
 // CLOSE_OPS per word of the Sn live state rows, of slot b >= 5 CLOSE5_OPS
 // per state row of each receiving word (WD / 2), a prune PRUNE_OPS per
 // word (per state row and receiving word at b >= 5), a state closure
 // CLOSURE_OPS per (source, target) pair and word; and each round the lane
 // runs up to the first that leaves its plane unchanged (at most R), not
-// the rounds its warp runs on for other lanes.  Each lane adds its count
-// to work[k], which the caller zeroes.
+// the rounds its warp runs on for other lanes.  Each lane's count is
+// added once, from its first row's thread (a warp's sum, one atomic a
+// warp), to work[k], which the caller zeroes.
 //
 // Wire: segment k's L = nrows[k] rows at byte offs[k]: ret+1 u8[L] ++
 // islot+1 u8[L * 2] ++ iuop u16-LE[L * 2] (++ crow i16-LE[L] with the
@@ -79,309 +117,434 @@ namespace {
 constexpr int MAXR = 8;          // deepest R = rn + nc the kernel walks
 constexpr int I = 2;             // invoke columns per event row
 constexpr int CHUNK = 64;        // event rows staged per step
-constexpr int THREADS = 128;     // threads per block at most
-constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int MAXT = 128;        // threads a CTA at most
+// CTAs an SM must hold at once (the crash variant: at most 64 registers
+// a thread; the relaxed variant and the death row take what they need)
+constexpr int MIN_CTAS = 65536 / (64 * MAXT);
+constexpr uint32_t FULL = 0xFFFFFFFFu;
 // integer operations of the work count (the bound model of the note)
 constexpr int CLOSE_OPS = 6;     // per word of a slot b < 5 pass
 constexpr int CLOSE5_OPS = 4;    // per state row and receiving word, b >= 5
 constexpr int PRUNE_OPS = 2;     // per word (receiving word at b >= 5)
 constexpr int CLOSURE_OPS = 2;   // per (source, target) pair and word
 
+// Bit i of intra(b) is set iff mask index i lacks bit b (b < 5).
 __host__ __device__ constexpr uint32_t intra(int b) {
     return b == 0 ? 0x55555555u : b == 1 ? 0x33333333u
            : b == 2 ? 0x0F0F0F0Fu : b == 3 ? 0x00FF00FFu : 0x0000FFFFu;
 }
 
+// The rank-1 term's sources of a uop, from its const mask a2: none,
+// one state (its index), or many; a slot's kind of sources.
+constexpr int SRC_NONE = -1;
+constexpr int SRC_MANY = 32;
+constexpr int SRC_KIND_NONE = 0;
+constexpr int SRC_KIND_ONE = 1;
+constexpr int SRC_KIND_MANY = 2;
+
 template <int SNP, bool CLOSE>
 struct Stage {
     int32_t ret[CHUNK];
     int32_t slot[CHUNK][I];
+    int32_t t0[CHUNK][I];
+    int32_t src[CHUNK][I];
     uint32_t a1[CHUNK][I];
     uint32_t a2[CHUNK][I];
-    int32_t t0[CHUNK][I];
+    // the row's ctab masks (0 past Sn), and bit s: source s may jump to
+    // another live state
     uint32_t cmask[CLOSE ? CHUNK : 1][SNP];
+    uint32_t csrc[CLOSE ? CHUNK : 1];
 };
 
-// One pass of slot B over this thread's word column, in place.
+// OR of v over the SNP consecutive threads of this thread's lane.
+template <int SNP>
+__device__ __forceinline__ uint32_t or_lane(uint32_t v) {
+#pragma unroll
+    for (int m = 1; m < SNP; m <<= 1) v |= __shfl_xor_sync(FULL, v, m, SNP);
+    return v;
+}
+
+// All ones where bit B of x is set.
+template <int B>
+__device__ __forceinline__ uint32_t ones_if(uint32_t x) {
+    return uint32_t(int32_t(x << (31 - B)) >> 31);
+}
+
+// One pass of slot B over this thread's state row, in place, OR-ing the
+// bits it adds into `grew`.  Bit B of dbits / cbits / tbits: the row is
+// in the slot's a1, in its a2, is its target state t0; kind, src: the
+// slot's rank-1 sources (the segment's, so the branch is uniform): none,
+// one row (a shuffle from warp thread src), or many (an OR over the
+// lane of the words of the rows in a2).
 template <int WD, int SNP, int B>
-__device__ __forceinline__ void pass(uint32_t (&fr)[SNP], uint32_t a1,
-                                     uint32_t a2, int t0, int w) {
-    if constexpr (B < 5) {
-        constexpr uint32_t LACK = intra(B);
-        constexpr int SH = 1 << B;
-        uint32_t red = 0u;
+__device__ __forceinline__ void pass(uint32_t (&fr)[WD], uint32_t &grew,
+                                     uint32_t dbits, uint32_t cbits,
+                                     uint32_t tbits, int kind, int src) {
+    const uint32_t dm = ones_if<B>(dbits), tm = ones_if<B>(tbits);
+    // word w holds configs lacking the slot (all of them at b < 5, none
+    // at b >= 5 if bit b - 5 of w is set) and sends them to word w | H
+    constexpr int H = B < 5 ? 0 : 1 << (B - 5);
+    auto src_word = [&](int w) {
+        if constexpr (B < 5) return fr[w] & intra(B);
+        else return fr[w];
+    };
+    auto add = [&](int w, uint32_t moved) {
+        if constexpr (B < 5) moved <<= 1 << B;
+        grew |= moved & ~fr[w];
+        fr[w] |= moved;
+    };
+    if constexpr (B >= 5 && H >= WD) {
+        return;
+    } else if (kind == SRC_KIND_MANY) {
+        const uint32_t cm = ones_if<B>(cbits);
 #pragma unroll
-        for (int s = 0; s < SNP; ++s) {
-            const uint32_t c = fr[s] & LACK;
-            red |= c & (0u - ((a2 >> s) & 1u));
-            fr[s] |= (c & (0u - ((a1 >> s) & 1u))) << SH;
+        for (int w = 0; w < WD; ++w) {
+            if (w & H) continue;
+            const uint32_t x = src_word(w);
+            add(w | H, (x & dm) | (or_lane<SNP>(x & cm) & tm));
         }
+    } else if (kind == SRC_KIND_ONE) {
 #pragma unroll
-        for (int s = 0; s < SNP; ++s)
-            fr[s] |= s == t0 ? red << SH : 0u;
-    } else if constexpr ((1 << (B - 5)) < WD) {
-        constexpr int Q = B - 5;
-        const uint32_t has = 0u - uint32_t((w >> Q) & 1);
-        uint32_t red = 0u;
-#pragma unroll
-        for (int s = 0; s < SNP; ++s) {
-            const uint32_t c = __shfl_xor_sync(FULL, fr[s], 1 << Q) & has;
-            red |= c & (0u - ((a2 >> s) & 1u));
-            fr[s] |= c & (0u - ((a1 >> s) & 1u));
+        for (int w = 0; w < WD; ++w) {
+            if (w & H) continue;
+            const uint32_t x = src_word(w);
+            add(w | H, (x & dm) | (__shfl_sync(FULL, x, src) & tm));
         }
+    } else {
 #pragma unroll
-        for (int s = 0; s < SNP; ++s)
-            fr[s] |= s == t0 ? red : 0u;
+        for (int w = 0; w < WD; ++w) {
+            if (w & H) continue;
+            add(w | H, src_word(w) & dm);
+        }
     }
 }
 
 // Prune the configs lacking slot B and clear its bit.
-template <int WD, int SNP, int B>
-__device__ __forceinline__ void retire(uint32_t (&fr)[SNP], int w) {
+template <int WD, int B>
+__device__ __forceinline__ void retire(uint32_t (&fr)[WD]) {
     if constexpr (B < 5) {
 #pragma unroll
-        for (int s = 0; s < SNP; ++s)
-            fr[s] = (fr[s] & ~intra(B)) >> (1 << B);
+        for (int w = 0; w < WD; ++w)
+            fr[w] = (fr[w] & ~intra(B)) >> (1 << B);
     } else if constexpr ((1 << (B - 5)) < WD) {
-        constexpr int Q = B - 5;
-        const bool has = (w >> Q) & 1;
+        constexpr int H = 1 << (B - 5);
 #pragma unroll
-        for (int s = 0; s < SNP; ++s) {
-            const uint32_t v = __shfl_xor_sync(FULL, fr[s], 1 << Q);
-            fr[s] = has ? 0u : v;
+        for (int w = 0; w < WD; ++w) {
+            if (w & H) continue;
+            fr[w] = fr[w | H];
+            fr[w | H] = 0u;
         }
     }
 }
 
-// Close the column's states under the row's jumps, in place: row t takes
-// every row s with s -> t allowed.  Reading rows already closed gives the
-// same set, since the jumps are transitive.
-template <int SNP>
-__device__ __forceinline__ void close_states(uint32_t (&fr)[SNP],
-                                             const uint32_t *cmask) {
-    uint32_t cm[SNP];
+// Close the lane's states under the row's jumps, in place: row t takes
+// every row s with s -> t allowed (bit s of col).  The SNP shuffles of a
+// word are independent of each other, so they issue back to back.
+// Reading rows before the closure gives the closed set, since the jumps
+// are transitive.
+template <int WD, int SNP>
+__device__ __forceinline__ void close_states(uint32_t (&fr)[WD],
+                                             uint32_t col, int lane0) {
+    uint32_t acc[WD];
 #pragma unroll
-    for (int s = 0; s < SNP; ++s) cm[s] = cmask[s];
+    for (int w = 0; w < WD; ++w) acc[w] = fr[w];
 #pragma unroll
-    for (int t = 0; t < SNP; ++t) {
-        uint32_t acc = fr[t];
+    for (int q = 0; q < SNP; ++q) {
+        const uint32_t sel = 0u - ((col >> q) & 1u);
 #pragma unroll
-        for (int s = 0; s < SNP; ++s)
-            acc |= fr[s] & (0u - ((cm[s] >> t) & 1u));
-        fr[t] = acc;
+        for (int w = 0; w < WD; ++w)
+            acc[w] |= __shfl_sync(FULL, fr[w], lane0 + q) & sel;
     }
+#pragma unroll
+    for (int w = 0; w < WD; ++w) fr[w] = acc[w];
 }
 
 }  // namespace
 
 template <int WD, int SNP, bool CLOSE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MAXT, CLOSE ? 1 : MIN_CTAS)
 wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                  const int64_t *__restrict__ offs,
                  const int32_t *__restrict__ nrows,
                  const uint32_t *__restrict__ aux, int UP,
                  const uint32_t *__restrict__ ctab, int nC, int R, int Sn,
-                 int nc, int rn, int J, int death, uint32_t seed,
+                 int nc, int rn, int J, int LPC, int death, uint32_t seed,
                  void *__restrict__ out, long long *__restrict__ work,
                  int32_t *__restrict__ bad) {
-    __shared__ Stage<SNP, CLOSE> st;
+    __shared__ Stage<SNP, CLOSE> stage[2];
+    constexpr int CELLS = CHUNK * I;
+    constexpr int CPT = CELLS / 32;     // staged cells a thread, at most
+    constexpr int RPT = CHUNK / 32;     // staged rows a thread, at most
+    constexpr int RB = 1 + 3 * I + (CLOSE ? 2 : 0);
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int lane = tid & 31;
+    const int jl = tid / SNP;           // the lane inside this CTA
+    const int j = blockIdx.y * LPC + jl;
+    const int s = tid % SNP;            // this thread's state row
+    const uint32_t gmask =
+        SNP == 32 ? FULL : ((1u << (SNP & 31)) - 1u) << (lane & ~(SNP - 1));
+    const bool real = jl < LPC && j < J;
     const int k = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int g = blockIdx.y * blockDim.x + tid;
-    const int j = g / WD;
-    const int w = g % WD;
-    const bool walker = blockIdx.y * blockDim.x + (tid & ~31) < J * WD;
-    // this lane's WD threads in the warp's ballot
-    const uint32_t grp = ((1u << WD) - 1u) << ((tid & 31) & ~(WD - 1));
     const long long off = offs[k];
     const int L = nrows[k];
-    constexpr int RB = 1 + 3 * I + (CLOSE ? 2 : 0);
     if (L < 0 || off < 0 || off + (long long)RB * L > nbytes) {
         if (tid == 0 && blockIdx.y == 0) atomicAdd(bad, 1);
-        return;                         // the whole block leaves together
+        return;                         // the whole CTA leaves together
     }
     const uint8_t *ret_b = cbuf + off;
     const uint8_t *isl_b = ret_b + L;
     const uint8_t *iu_b = ret_b + 3LL * L;
     const uint8_t *cr_b = ret_b + 7LL * L;
+    const uint32_t live = Sn >= 32 ? FULL : (1u << Sn) - 1u;
+    int refused = 0;                    // this thread staged a bad cell
 
-    uint32_t fr[SNP];
-    const int cm0 = j / Sn, s0 = j % Sn, m0 = cm0 << rn;
-#pragma unroll
-    for (int s = 0; s < SNP; ++s) {
-        uint32_t v = 0u;
-        if (j < J) {
-            if (death)
-                v = (w == 0 && s < Sn) ? (seed >> s) & 1u : 0u;
-            else
-                v = (s == s0 && w == (m0 >> 5)) ? 1u << (m0 & 31) : 0u;
-        }
-        fr[s] = v;
-    }
-    uint32_t a1r[MAXR], a2r[MAXR];
-    int t0r[MAXR];
-#pragma unroll
-    for (int b = 0; b < MAXR; ++b) {
-        a1r[b] = 0u;
-        a2r[b] = 0u;
-        t0r[b] = 0;
-    }
-    uint32_t open = 0u;                 // bit b: slot b is open
-    long long ops = 0;                  // this lane's integer operations
-    const long long half = WD > 1 ? WD / 2 : 1;
-    const long long pass_ops = (long long)CLOSE_OPS * Sn * WD;
-    const long long pass5_ops = (long long)CLOSE5_OPS * Sn * half;
-    const long long prune_ops = (long long)PRUNE_OPS * Sn * WD;
-    const long long prune5_ops = (long long)PRUNE_OPS * Sn * half;
-    const long long close_ops =
-        CLOSE ? (long long)CLOSURE_OPS * Sn * Sn * WD : 0;
-    int ok = 1;
-    int dead = -1;
-
-    for (int base = 0; base < L && dead < 0; base += CHUNK) {
+    // the next chunk's wire bytes, loaded before a walk, stored after it:
+    // a row's ret+1 byte (and crow u16 above it), a cell's islot+1 byte
+    // and iuop u16 above it
+    uint32_t p_row[RPT], p_cell[CPT];
+    auto fetch = [&](int base) {
         const int n = min(CHUNK, L - base);
-        __syncthreads();
-        for (int r = tid; r < n; r += blockDim.x) {
-            const long long row = base + r;
-            int rs = int(ret_b[row]) - 1;
+#pragma unroll
+        for (int q = 0; q < RPT; ++q) {
+            const int r = tid + q * nt;
+            p_row[q] = 0u;
+            if (r < n) {
+                p_row[q] = ret_b[base + r];
+                if (CLOSE) {
+                    const long long c = 2LL * (base + r);
+                    p_row[q] |= uint32_t(cr_b[c]) << 8
+                                | uint32_t(cr_b[c + 1]) << 16;
+                }
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) {
+            const int x = tid + q * nt;
+            p_cell[q] = 0u;
+            if (x < n * I) {
+                const long long c = (long long)base * I + x;
+                p_cell[q] = uint32_t(isl_b[c]) | uint32_t(iu_b[2 * c]) << 8
+                            | uint32_t(iu_b[2 * c + 1]) << 16;
+            }
+        }
+    };
+    auto store = [&](Stage<SNP, CLOSE> &st, int base) {
+        const int n = min(CHUNK, L - base);
+#pragma unroll
+        for (int q = 0; q < RPT; ++q) {
+            const int r = tid + q * nt;
+            if (r >= n) continue;
+            int rs = int(p_row[q] & 0xFFu) - 1;
             if (rs >= R) {
-                ok = 0;
+                refused = 1;
                 rs = -1;
             }
             st.ret[r] = rs;
-#pragma unroll
-            for (int i = 0; i < I; ++i) {
-                int sl = int(isl_b[row * I + i]) - 1;
-                const long long c = 2 * (row * I + i);
-                const int u = int(iu_b[c]) | (int(iu_b[c + 1]) << 8);
-                if (sl >= 0 && (u >= UP || sl >= R)) {
-                    ok = 0;
-                    sl = -1;
-                }
-                st.slot[r][i] = sl;
-                if (sl >= 0) {
-                    st.a1[r][i] = aux[u];
-                    st.a2[r][i] = aux[UP + u];
-                    st.t0[r][i] = int(aux[2 * UP + u]);
-                }
-            }
             if constexpr (CLOSE) {
-                int cr = int(int16_t(uint16_t(cr_b[2 * row])
-                                     | (uint16_t(cr_b[2 * row + 1]) << 8)));
+                int cr = int(int16_t(uint16_t(p_row[q] >> 8)));
                 if (cr < 0 || cr >= nC) {
-                    ok = 0;
+                    refused = 1;
                     cr = 0;
                 }
+                uint32_t jumps = 0u;
 #pragma unroll
-                for (int s = 0; s < SNP; ++s)
-                    st.cmask[r][s] = s < Sn ? ctab[(long long)cr * Sn + s]
-                                            : 0u;
+                for (int q2 = 0; q2 < SNP; ++q2) {
+                    const uint32_t m =
+                        q2 < Sn ? ctab[(long long)cr * Sn + q2] : 0u;
+                    st.cmask[r][q2] = m;
+                    jumps |= (m & live & ~(1u << q2)) ? 1u << q2 : 0u;
+                }
+                st.csrc[r] = jumps;
             }
         }
-        __syncthreads();
-        if (!walker) continue;
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) {
+            const int x = tid + q * nt;
+            if (x >= n * I) continue;
+            int sl = int(p_cell[q] & 0xFFu) - 1;
+            const int u = int(p_cell[q] >> 8);
+            if (sl >= 0 && (u >= UP || sl >= R)) {
+                refused = 1;
+                sl = -1;
+            }
+            st.slot[x / I][x % I] = sl;
+            if (sl >= 0) {
+                const uint32_t a2 = aux[UP + u];
+                st.a1[x / I][x % I] = aux[u];
+                st.a2[x / I][x % I] = a2;
+                st.t0[x / I][x % I] = int(aux[2 * UP + u]);
+                st.src[x / I][x % I] = a2 == 0u ? SRC_NONE
+                    : (a2 & (a2 - 1u)) ? SRC_MANY : __ffs(a2) - 1;
+            }
+        }
+    };
+
+    uint32_t fr[WD];
+    {
+        int w0 = -1;                    // the word of the entry config
+        uint32_t v = 0u;
+        if (real && death) {
+            w0 = 0;
+            v = s < Sn ? (seed >> s) & 1u : 0u;
+        } else if (real && s == j % Sn) {
+            const int m0 = (j / Sn) << rn;
+            w0 = m0 >> 5;
+            v = 1u << (m0 & 31);
+        }
+#pragma unroll
+        for (int w = 0; w < WD; ++w) fr[w] = w == w0 ? v : 0u;
+    }
+    // bit b of dbits / cbits / tbits: this row is in slot b's a1, in its
+    // a2, is its t0; 2-bit field b of kinds: slot b's rank-1 sources
+    // (none, one, many), 5-bit field b of srcs: the warp thread of the one
+    uint32_t dbits = 0u, cbits = 0u, tbits = 0u, kinds = 0u;
+    unsigned long long srcs = 0ull;
+    const int lane0 = lane & ~(SNP - 1);    // the lane's first thread
+    uint32_t open = 0u;                 // bit b: slot b is open
+    // this thread's lane's passes and prunes at slots b < 5 and b >= 5,
+    // and its closures: the terms of its work count
+    uint32_t n_pass = 0u, n_pass5 = 0u, n_prune = 0u, n_prune5 = 0u;
+    uint32_t n_close = 0u;
+    int dead = -1;
+
+    if (L > 0) {
+        fetch(0);
+        store(stage[0], 0);
+    }
+    __syncthreads();
+    for (int base = 0, c = 0; base < L; base += CHUNK, ++c) {
+        const int n = min(CHUNK, L - base);
+        const bool more = base + CHUNK < L;
+        if (more) fetch(base + CHUNK);
+        const Stage<SNP, CLOSE> &st = stage[c & 1];
         for (int r = 0; r < n; ++r) {
 #pragma unroll
             for (int i = 0; i < I; ++i) {
                 const int sl = st.slot[r][i];
                 if (sl < 0) continue;
-                const uint32_t a1 = st.a1[r][i], a2 = st.a2[r][i];
-                const int t0 = st.t0[r][i];
-#pragma unroll
-                for (int b = 0; b < MAXR; ++b)
-                    if (sl == b) {
-                        a1r[b] = a1;
-                        a2r[b] = a2;
-                        t0r[b] = t0;
-                    }
-                open |= 1u << sl;
+                const uint32_t bit = 1u << sl, keep = ~bit;
+                dbits = (dbits & keep) | (((st.a1[r][i] >> s) & 1u) << sl);
+                cbits = (cbits & keep) | (((st.a2[r][i] >> s) & 1u) << sl);
+                tbits = (tbits & keep) | (uint32_t(st.t0[r][i] == s) << sl);
+                const int sv = st.src[r][i];
+                const uint32_t kind = sv == SRC_NONE ? SRC_KIND_NONE
+                    : sv == SRC_MANY ? SRC_KIND_MANY : SRC_KIND_ONE;
+                kinds = (kinds & ~(3u << 2 * sl)) | (kind << 2 * sl);
+                srcs = (srcs & ~(31ull << 5 * sl))
+                       | ((unsigned long long)((lane0 + sv) & 31) << 5 * sl);
+                open |= bit;
             }
+            uint32_t col = 0u, csrc = 0u;
             if constexpr (CLOSE) {
-                close_states<SNP>(fr, st.cmask[r]);
-                ops += close_ops;
+                // bit q of col: the jump q -> s is allowed
+                csrc = st.csrc[r];
+                if (csrc) {
+#pragma unroll
+                    for (int q = 0; q < SNP; ++q)
+                        col |= ((st.cmask[r][q] >> s) & 1u) << q;
+                    col = s < Sn ? col : 0u;
+                    close_states<WD, SNP>(fr, col, lane0);
+                }
+                ++n_close;
             }
             if (open) {
-                const long long per_round = __popc(open & 31u) * pass_ops
-                                            + __popc(open >> 5) * pass5_ops
-                                            + close_ops;
-                int bits = 0;
-#pragma unroll
-                for (int s = 0; s < SNP; ++s) bits += __popc(fr[s]);
-                bool run = true;        // the lane is short of its fixpoint
+                const uint32_t lo = __popc(open & 31u), hi = __popc(open >> 5);
+                bool run = real;
                 for (int rd = 0; rd < R; ++rd) {
-                    if (open & 1u)
-                        pass<WD, SNP, 0>(fr, a1r[0], a2r[0], t0r[0], w);
-                    if (open & 2u)
-                        pass<WD, SNP, 1>(fr, a1r[1], a2r[1], t0r[1], w);
-                    if (open & 4u)
-                        pass<WD, SNP, 2>(fr, a1r[2], a2r[2], t0r[2], w);
-                    if (open & 8u)
-                        pass<WD, SNP, 3>(fr, a1r[3], a2r[3], t0r[3], w);
-                    if (open & 16u)
-                        pass<WD, SNP, 4>(fr, a1r[4], a2r[4], t0r[4], w);
-                    if (open & 32u)
-                        pass<WD, SNP, 5>(fr, a1r[5], a2r[5], t0r[5], w);
-                    if (open & 64u)
-                        pass<WD, SNP, 6>(fr, a1r[6], a2r[6], t0r[6], w);
-                    if (open & 128u)
-                        pass<WD, SNP, 7>(fr, a1r[7], a2r[7], t0r[7], w);
-                    if constexpr (CLOSE) close_states<SNP>(fr, st.cmask[r]);
-                    int now = 0;
-#pragma unroll
-                    for (int s = 0; s < SNP; ++s) now += __popc(fr[s]);
-                    const uint32_t grew = __ballot_sync(FULL, now != bits);
-                    bits = now;
-                    if (run) ops += per_round;
-                    run = run && (grew & grp) != 0u;
-                    if (!grew) break;   // every lane of the warp is fixed
+                    uint32_t grew = 0u;
+#define WGL_PASS(B)                                                       \
+    if (open & (1u << B))                                                 \
+        pass<WD, SNP, B>(fr, grew, dbits, cbits, tbits,                   \
+                         int((kinds >> 2 * B) & 3u),                      \
+                         int((srcs >> 5 * B) & 31u));
+                    WGL_PASS(0)
+                    WGL_PASS(1)
+                    WGL_PASS(2)
+                    WGL_PASS(3)
+                    WGL_PASS(4)
+                    WGL_PASS(5)
+                    WGL_PASS(6)
+                    WGL_PASS(7)
+#undef WGL_PASS
+                    // the plane was closed when the round began, so a
+                    // lane the passes left unchanged stays closed and
+                    // unchanged: only the passes decide, and a round that
+                    // changed no lane of the warp needs no closure
+                    const uint32_t changed = __ballot_sync(FULL, grew != 0u);
+                    if constexpr (CLOSE) {
+                        if (csrc && changed)
+                            close_states<WD, SNP>(fr, col, lane0);
+                    }
+                    if (run) {
+                        n_pass += lo;
+                        n_pass5 += hi;
+                        n_close += CLOSE;
+                    }
+                    run = run && (changed & gmask) != 0u;
+                    if (!changed) break;    // the warp's lanes are fixed
                 }
             }
             const int rs = st.ret[r];
             if (rs >= 0) {
                 switch (rs) {
-                case 0: retire<WD, SNP, 0>(fr, w); break;
-                case 1: retire<WD, SNP, 1>(fr, w); break;
-                case 2: retire<WD, SNP, 2>(fr, w); break;
-                case 3: retire<WD, SNP, 3>(fr, w); break;
-                case 4: retire<WD, SNP, 4>(fr, w); break;
-                case 5: retire<WD, SNP, 5>(fr, w); break;
-                case 6: retire<WD, SNP, 6>(fr, w); break;
-                case 7: retire<WD, SNP, 7>(fr, w); break;
-                default: break;
+                case 0: retire<WD, 0>(fr); break;
+                case 1: retire<WD, 1>(fr); break;
+                case 2: retire<WD, 2>(fr); break;
+                case 3: retire<WD, 3>(fr); break;
+                case 4: retire<WD, 4>(fr); break;
+                case 5: retire<WD, 5>(fr); break;
+                case 6: retire<WD, 6>(fr); break;
+                default: retire<WD, 7>(fr); break;
                 }
                 open &= ~(1u << rs);
-                ops += rs >= 5 ? prune5_ops : prune_ops;
+                n_prune += rs < 5;
+                n_prune5 += rs >= 5;
             }
             if (death) {
                 uint32_t any = 0u;
 #pragma unroll
-                for (int s = 0; s < SNP; ++s) any |= fr[s];
+                for (int w = 0; w < WD; ++w) any |= fr[w];
                 if (!__any_sync(FULL, any != 0u)) {
                     dead = base + r;    // one warp walks: uniform
                     break;
                 }
             }
         }
+        if (dead >= 0) break;           // the death row's CTA is one warp
+        if (more) store(stage[(c + 1) & 1], base + CHUNK);
+        __syncthreads();
     }
-    if (__syncthreads_or(!ok)) {
+    if (__syncthreads_or(refused)) {
         if (tid == 0 && blockIdx.y == 0) atomicAdd(bad, 1);
         return;
     }
     if (death) {
-        if (g == 0) static_cast<int32_t *>(out)[k] = dead;
-    } else if (j < J) {
+        if (tid == 0) static_cast<int32_t *>(out)[k] = dead;
+    } else if (real && s < Sn) {
         uint8_t *o = static_cast<uint8_t *>(out) + ((long long)k * J + j) * J;
         for (int cm = 0; cm < (1 << nc); ++cm) {
             const int m = cm << rn;
-            if (w != (m >> 5)) continue;
+            uint32_t word = 0u;
 #pragma unroll
-            for (int s = 0; s < SNP; ++s)
-                if (s < Sn) o[cm * Sn + s] = uint8_t((fr[s] >> (m & 31)) & 1u);
+            for (int w = 0; w < WD; ++w) word = w == (m >> 5) ? fr[w] : word;
+            o[cm * Sn + s] = uint8_t((word >> (m & 31)) & 1u);
         }
     }
-    if (work && j < J && w == 0)
-        atomicAdd(reinterpret_cast<unsigned long long *>(work) + k,
-                  static_cast<unsigned long long>(ops));
+    if (work) {
+        // every thread of a lane holds its count: take the first row's
+        constexpr long long HALF = WD > 1 ? WD / 2 : 1;
+        long long v = !real || s ? 0LL
+            : (long long)Sn * (n_pass * (long long)(CLOSE_OPS * WD)
+                               + n_pass5 * (CLOSE5_OPS * HALF)
+                               + n_prune * (long long)(PRUNE_OPS * WD)
+                               + n_prune5 * (PRUNE_OPS * HALF))
+              + (long long)n_close * CLOSURE_OPS * Sn * Sn * WD;
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
+        if (lane == 0 && v)
+            atomicAdd(reinterpret_cast<unsigned long long *>(work) + k,
+                      static_cast<unsigned long long>(v));
+    }
 }
 
 namespace {
@@ -390,65 +553,78 @@ template <int WD, int SNP, bool CLOSE>
 void launch_one(dim3 grid, int threads, cudaStream_t stream,
                 const void *cbuf, long long nbytes, const void *offs,
                 const void *nrows, const void *aux, int UP, const void *ctab,
-                int nC, int R, int Sn, int nc, int rn, int J, int death,
-                unsigned seed, void *out, void *work, void *bad) {
+                int nC, int R, int Sn, int nc, int rn, int J, int LPC,
+                int death, unsigned seed, void *out, void *work, void *bad) {
     wgl_crash_kernel<WD, SNP, CLOSE><<<grid, threads, 0, stream>>>(
         (const uint8_t *)cbuf, nbytes, (const int64_t *)offs,
         (const int32_t *)nrows, (const uint32_t *)aux, UP,
-        (const uint32_t *)ctab, nC, R, Sn, nc, rn, J, death, seed, out,
+        (const uint32_t *)ctab, nC, R, Sn, nc, rn, J, LPC, death, seed, out,
         (long long *)work, (int32_t *)bad);
 }
 
 }  // namespace
 
-// One launch over K segments on `stream`; returns the cudaError_t of the
-// launch (0 on success).  `work`, when given, must hold K zeros.  ctab == NULL walks without the state closure
-// (the crash variant, nc >= 0); with ctab (nC rows of Sn masks) nc must be
-// 0 and R <= 6, and `death` != 0 seeds one lane with `seed` and writes
-// int32 death rows instead of u8 transfer rows.  SnP is the state-row
-// bucket (8, 16 or 32), Sn <= SnP the live states.
+// Every instance the source builds: (WD, SnP, closure).
+#define WGL_CRASH_INSTANCES(X)                                              \
+    X(1, 8, false) X(1, 16, false) X(1, 32, false) X(2, 8, false)           \
+    X(2, 16, false) X(2, 32, false) X(4, 8, false) X(4, 16, false)          \
+    X(4, 32, false) X(8, 8, false) X(8, 16, false) X(8, 32, false)          \
+    X(1, 8, true) X(1, 16, true) X(1, 32, true) X(2, 8, true)               \
+    X(2, 16, true) X(2, 32, true)
+
+// One launch over K segments on `stream`, each segment's J lanes split
+// over CTAs of lpc lanes (crash_kernel.launch_geometry: the fewest CTAs
+// of at most MAXT threads, lanes spread evenly); returns the cudaError_t
+// of the launch (0 on success).  `work`, when given, must hold K zeros.
+// ctab == NULL walks without the state closure (the crash variant, nc >=
+// 0); with ctab (nC rows of Sn masks) nc must be 0 and R <= 6, and
+// `death` != 0 seeds one lane with `seed` and writes int32 death rows
+// instead of u8 transfer rows.  SnP is the state-row bucket (8, 16 or
+// 32), Sn <= SnP the live states.
 extern "C" int wgl_crash_launch(const void *cbuf, long long nbytes,
                                 const void *offs, const void *nrows,
                                 const void *aux, int UP, const void *ctab,
                                 int nC, int K, int R, int SnP, int Sn, int nc,
-                                int rn, int death, unsigned seed, void *out,
-                                void *work, void *bad, void *stream) {
+                                int rn, int lpc, int death, unsigned seed,
+                                void *out, void *work, void *bad,
+                                void *stream) {
     if (K <= 0) return 0;
     const bool close = ctab != nullptr;
     const int J = death ? 1 : (Sn << nc);
     if (R < 1 || R > MAXR || Sn < 1 || Sn > SnP || nc < 0 || nc > 4 ||
         rn < 0 || rn + nc > R || J > 128 || UP < 1 ||
         (SnP != 8 && SnP != 16 && SnP != 32) ||
-        (close && (nc != 0 || R > 6 || nC < 1)) || (death && !close))
+        (close && (nc != 0 || R > 6 || nC < 1)) || (death && !close) ||
+        lpc < 1 || lpc * SnP > MAXT)
         return (int)cudaErrorInvalidValue;
     const int wd = R <= 5 ? 1 : 1 << (R - 5);
-    const int lanes = J * wd;
-    const int threads = lanes >= THREADS ? THREADS : ((lanes + 31) / 32) * 32;
-    const dim3 grid(K, (lanes + threads - 1) / threads);
+    const int threads = (lpc * SnP + 31) / 32 * 32;
+    const dim3 grid(K, (J + lpc - 1) / lpc);
     cudaStream_t s = (cudaStream_t)stream;
 #define WGL_CRASH_CASE(WD, SNP, CL)                                          \
     if (wd == WD && SnP == SNP && close == CL)                               \
         launch_one<WD, SNP, CL>(grid, threads, s, cbuf, nbytes, offs, nrows, \
-                                aux, UP, ctab, nC, R, Sn, nc, rn, J, death,  \
-                                seed, out, work, bad);
-    WGL_CRASH_CASE(1, 8, false)
-    WGL_CRASH_CASE(1, 16, false)
-    WGL_CRASH_CASE(1, 32, false)
-    WGL_CRASH_CASE(2, 8, false)
-    WGL_CRASH_CASE(2, 16, false)
-    WGL_CRASH_CASE(2, 32, false)
-    WGL_CRASH_CASE(4, 8, false)
-    WGL_CRASH_CASE(4, 16, false)
-    WGL_CRASH_CASE(4, 32, false)
-    WGL_CRASH_CASE(8, 8, false)
-    WGL_CRASH_CASE(8, 16, false)
-    WGL_CRASH_CASE(8, 32, false)
-    WGL_CRASH_CASE(1, 8, true)
-    WGL_CRASH_CASE(1, 16, true)
-    WGL_CRASH_CASE(1, 32, true)
-    WGL_CRASH_CASE(2, 8, true)
-    WGL_CRASH_CASE(2, 16, true)
-    WGL_CRASH_CASE(2, 32, true)
+                                aux, UP, ctab, nC, R, Sn, nc, rn, J, lpc,    \
+                                death, seed, out, work, bad);
+    WGL_CRASH_INSTANCES(WGL_CRASH_CASE)
 #undef WGL_CRASH_CASE
     return (int)cudaGetLastError();
+}
+
+// CTAs of `threads` threads that one SM holds at once, for the instance
+// that walks R slots at SnP state rows (with the closure or without), as
+// the runtime computes it from the kernel's registers and shared memory;
+// -1 for an instance the source does not build.
+extern "C" int wgl_crash_occupancy(int R, int SnP, int closure,
+                                   int threads) {
+    const int wd = R <= 5 ? 1 : 1 << (R - 5);
+    int n = -1;
+#define WGL_CRASH_OCC(WD, SNP, CL)                                       \
+    if (wd == WD && SnP == SNP && (closure != 0) == CL &&                \
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
+            &n, wgl_crash_kernel<WD, SNP, CL>, threads, 0) != cudaSuccess) \
+        n = -1;
+    WGL_CRASH_INSTANCES(WGL_CRASH_OCC)
+#undef WGL_CRASH_OCC
+    return n;
 }

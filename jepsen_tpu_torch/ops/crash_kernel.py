@@ -31,9 +31,12 @@ row's rounds end early once a round changes no lane of a warp.  The
 below, over the Sn state rows that hold configs): its rounds up to the
 first that leaves its plane unchanged, at most R.
 
-The wrappers take the plain version (`walk_plain`) only for tensors on
-the CPU; for CUDA tensors they launch the kernel on the current stream
-or raise.  `LAUNCHES` counts each kernel's launches."""
+The kernel runs one thread per (lane, state row), a lane's SnP threads
+in one warp; `launch_geometry` splits a segment's lanes over CTAs of at
+most CTA_THREADS threads.  The wrappers take the plain version
+(`walk_plain`) only for tensors on the CPU; for CUDA tensors they launch
+the kernel on the current stream or raise.  `LAUNCHES` counts each
+kernel's launches."""
 
 from __future__ import annotations
 
@@ -55,13 +58,41 @@ LAUNCHES = {"wgl_regs_crash": 0, "wgl_regs_relaxed": 0}
 #: word that receives (half the words), and its prune PRUNE_OPS.
 CLOSURE_OPS = 2
 
+#: Threads a CTA at most (the kernel's MAXT): a segment's J lanes of SnP
+#: threads each split over CTAs on grid y past it.
+CTA_THREADS = 128
+
+
+def launch_geometry(J: int, SnP: int):
+    """How a segment's J lanes of SnP threads (one per state row) lie on
+    CTAs: the fewest CTAs of at most CTA_THREADS threads, with the lanes
+    spread evenly.  Returns (lanes a CTA, threads a CTA, a multiple of
+    32, CTAs a segment)."""
+    split = -(-J * SnP // CTA_THREADS)
+    lpc = -(-J // split)
+    return lpc, -(-lpc * SnP // 32) * 32, -(-J // lpc)
+
 
 def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.wgl_crash_launch.argtypes = (
         [ptr, ctypes.c_longlong] + [ptr] * 3 + [i32] + [ptr, i32]
-        + [i32] * 7 + [ctypes.c_uint] + [ptr] * 4)
+        + [i32] * 8 + [ctypes.c_uint] + [ptr] * 4)
     lib.wgl_crash_launch.restype = i32
+    lib.wgl_crash_occupancy.argtypes = [i32] * 4
+    lib.wgl_crash_occupancy.restype = i32
+
+
+def occupancy(R: int, Sn: int, *, nc: int = 0, closure: bool = False,
+              death: bool = False):
+    """A launch's place on the card: (CTAs a segment, threads a CTA,
+    CTAs one SM holds at once), the last as the CUDA runtime computes it
+    from the instance's registers and shared memory.  Needs the card."""
+    SnP = snp(Sn)
+    _, threads, ctas = launch_geometry(1 if death else Sn << nc, SnP)
+    lib = cuda_build.load("wgl_crash", _declare)
+    return ctas, threads, lib.wgl_crash_occupancy(R, SnP, int(closure),
+                                                  threads)
 
 
 def _launch(name, cbuf, offs, nrows, aux, ctab, *, R, Sn, UP, nc, rn,
@@ -118,7 +149,8 @@ def _launch(name, cbuf, offs, nrows, aux, ctab, *, R, Sn, UP, nc, rn,
     err = lib.wgl_crash_launch(
         cbuf.data_ptr(), cbuf.numel(), offs.data_ptr(), nrows.data_ptr(),
         aux.data_ptr(), UP, None if ctab is None else ctab.data_ptr(), nC,
-        K, R, snp(Sn), Sn, nc, rn, int(seed is not None),
+        K, R, snp(Sn), Sn, nc, rn, launch_geometry(J, snp(Sn))[0],
+        int(seed is not None),
         0 if seed is None else int(seed) & _FULL, out.data_ptr(),
         None if work is None else work.data_ptr(), bad.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)

@@ -15,11 +15,18 @@ histories with crashed (:info or unreturned) calls made from a seed:
   the reference's `crash_closure` and `death_row` kernels; their
   `work=` counts equal a plain-Python walk of each lane that charges its
   rounds up to its own fixpoint;
+- the same at the kernel's layout edges: segments past 1024 threads
+  (J = 88 at Sn = 11, J = 128 at Sn = 32), every normal slot b >= 5
+  returning, and a death at a segment's first and last row; and
+  `crash_kernel.launch_geometry` places every lane on one CTA of at
+  most the kernel's MAXT threads;
 - `wgl_seg.check` and `Linearizable` agree with the reference's
   `wgl_seg.check` on the verdict, the witness and the tier fields in
   every tier, and `check_pipeline` on a mixed batch.
 
-The one test that needs the card skips without one."""
+The one test that needs the card (every kernel against its plain
+version: transfer rows, death rows and `work=` counts, at the cases
+above and the layout edges) skips without one."""
 
 import random
 
@@ -37,7 +44,8 @@ from jepsen_tpu.ops import wgl_seg as ref_seg
 from jepsen_tpu_torch import convert, models
 from jepsen_tpu_torch.checker import Linearizable
 from jepsen_tpu_torch.errors import Unsupported
-from jepsen_tpu_torch.ops import crash_kernel, planner, regs_kernel, wgl_seg
+from jepsen_tpu_torch.ops import (crash_kernel, cuda_build, planner,
+                                  regs_kernel, wgl_seg)
 
 TARGET = 24                     # returns per segment in the kernel cases
 
@@ -212,46 +220,61 @@ KERNEL_CASES = {
 }
 
 
+def every_value(h, vmax):
+    """h after one process writes 0..vmax in turn, so every value is a
+    model state: vmax + 2 states with the initial None."""
+    ops = [o for v in range(vmax + 1)
+           for o in (invoke_op(90, "write", v), ok_op(90, "write", v))]
+    return RefHistory(ops + list(h)).index()
+
+
+def crash_scan_case(h, rn, nc, name):
+    """The crash wire of h, the reference kernel's transfer rows and the
+    plain version's rows, work= counts and composed verdict."""
+    fk, rows = port_scan(h)
+    assert (fk.rn, fk.nc) == (rn, nc), name
+    R = rn + nc
+    seg_ends = planner._segment_ends(fk.cuts, TARGET)
+    wire = regs_kernel.pack_stream(fk, seg_ends, 2)
+    states, _, _, uop_tabs, aux, UP = uop_tables(rows)
+    Sn = states.shape[0]
+    tabs = decode(*wire, len(rows))[:3]
+    K, Lp = tabs[0].shape[1], tabs[0].shape[0]
+    kern = ref_seg._build_kernel_regs(
+        K, Lp, 2, max(1, (1 << R) // 32), Sn, R, True, R, 1,
+        J=Sn << nc, nc=nc, rn=rn)
+    ref_T = np.asarray(kern(*tabs, *uop_tabs))
+    work = torch.zeros(K, dtype=torch.int64)
+    T, bad = crash_kernel.crash_scan(
+        *(torch.from_numpy(x) for x in wire), torch.from_numpy(aux),
+        R=R, Sn=Sn, UP=UP, nc=nc, rn=rn, work=work)
+    return dict(ref_T=ref_T, T=T.numpy(), bad=int(bad[0]),
+                work=work.numpy(), Sn=Sn, K=K, wire=wire, aux=aux,
+                UP=UP, R=R, nc=nc, rn=rn, rows=rows,
+                vd=regs_kernel.compose(T, [K])[0].numpy(),
+                oracle=ref_cpu.check(ref_models.CASRegister(),
+                                     h)["valid?"])
+
+
 @pytest.fixture(scope="module")
 def crash_scans():
-    out = {}
-    for name, (rn, nc, vmax, buggy) in KERNEL_CASES.items():
-        h = crash_case(rn, nc, 40 + rn * 7 + nc, vmax, buggy=buggy)
-        fk, rows = port_scan(h)
-        assert (fk.rn, fk.nc) == (rn, nc), name
-        R = rn + nc
-        seg_ends = planner._segment_ends(fk.cuts, TARGET)
-        wire = regs_kernel.pack_stream(fk, seg_ends, 2)
-        states, _, _, uop_tabs, aux, UP = uop_tables(rows)
-        Sn = states.shape[0]
-        tabs = decode(*wire, len(rows))[:3]
-        K, Lp = tabs[0].shape[1], tabs[0].shape[0]
-        kern = ref_seg._build_kernel_regs(
-            K, Lp, 2, max(1, (1 << R) // 32), Sn, R, True, R, 1,
-            J=Sn << nc, nc=nc, rn=rn)
-        ref_T = np.asarray(kern(*tabs, *uop_tabs))
-        work = torch.zeros(K, dtype=torch.int64)
-        T, bad = crash_kernel.crash_scan(
-            *(torch.from_numpy(x) for x in wire), torch.from_numpy(aux),
-            R=R, Sn=Sn, UP=UP, nc=nc, rn=rn, work=work)
-        out[name] = dict(ref_T=ref_T, T=T.numpy(), bad=int(bad[0]),
-                         work=work.numpy(), Sn=Sn, K=K, wire=wire, aux=aux,
-                         UP=UP, R=R, nc=nc, rn=rn, rows=rows,
-                         vd=regs_kernel.compose(T, [K])[0].numpy(),
-                         oracle=ref_cpu.check(ref_models.CASRegister(),
-                                              h)["valid?"])
-    return out
+    return {name: crash_scan_case(
+        crash_case(rn, nc, 40 + rn * 7 + nc, vmax, buggy=buggy), rn, nc,
+        name) for name, (rn, nc, vmax, buggy) in KERNEL_CASES.items()}
 
 
-@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
-def test_crash_plain_matches_reference_kernel(crash_scans, name):
-    c = crash_scans[name]
+def assert_matches_reference(c):
     J = c["Sn"] << c["nc"]
     assert c["T"].shape == c["ref_T"].shape == (c["K"], J, J)
     assert np.array_equal(c["T"], c["ref_T"].astype(np.uint8))
     assert c["bad"] == 0 and (c["work"] > 0).all()
     # exact rounds: the composed verdict is the oracle's
     assert bool(c["vd"][0]) is c["oracle"]
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+def test_crash_plain_matches_reference_kernel(crash_scans, name):
+    assert_matches_reference(crash_scans[name])
 
 
 def test_crash_cases_cover_the_edges(crash_scans):
@@ -261,6 +284,72 @@ def test_crash_cases_cover_the_edges(crash_scans):
         {8, 16}
     assert max(c["Sn"] << c["nc"] for c in crash_scans.values()) == 128
     assert any(not c["oracle"] for c in crash_scans.values())
+
+
+# ---------------------------------------------------------------------------
+# The kernel's layout edges (one thread per lane and state row)
+# ---------------------------------------------------------------------------
+
+# name -> (rn, nc, vmax, buggy), with every value 0..vmax a state (Sn =
+# vmax + 2): segments past 1024 threads (J * SnP, 88 x 16 at nc = 3 and
+# Sn = 11, 128 x 32 at nc = 2 and Sn = 32), which the kernel splits over
+# CTAs, and every normal slot b >= 5 returning (rn = 7)
+EDGE_CASES = {
+    "rn2-nc3-Sn11": (2, 3, 9, False),
+    "rn3-nc3-Sn11-bad": (3, 3, 9, True),
+    "rn1-nc2-Sn32": (1, 2, 30, False),
+    "rn7-nc1-Sn11-bad": (7, 1, 9, True),
+}
+
+
+@pytest.fixture(scope="module")
+def crash_edges():
+    return {name: crash_scan_case(every_value(
+        crash_case(rn, nc, 70 + rn * 7 + nc, vmax, buggy=buggy), vmax), rn,
+        nc, name) for name, (rn, nc, vmax, buggy) in EDGE_CASES.items()}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_crash_edges_plain_matches_reference_kernel(crash_edges, name):
+    assert crash_edges[name]["Sn"] == EDGE_CASES[name][2] + 2
+    assert_matches_reference(crash_edges[name])
+
+
+def test_crash_edges_cover_the_layout(crash_edges):
+    width = {name: (c["Sn"] << c["nc"]) * regs_kernel.snp(c["Sn"])
+             for name, c in crash_edges.items()}
+    assert width == {"rn2-nc3-Sn11": 1408, "rn3-nc3-Sn11-bad": 1408,
+                     "rn1-nc2-Sn32": 4096, "rn7-nc1-Sn11-bad": 352}
+    split = {name: crash_kernel.launch_geometry(
+        c["Sn"] << c["nc"], regs_kernel.snp(c["Sn"]))[2]
+        for name, c in crash_edges.items()}
+    assert split == {"rn2-nc3-Sn11": 11, "rn3-nc3-Sn11-bad": 11,
+                     "rn1-nc2-Sn32": 32, "rn7-nc1-Sn11-bad": 3}
+    c = crash_edges["rn7-nc1-Sn11-bad"]
+    ret_t = decode(*c["wire"], len(c["rows"]))[0]
+    # every normal slot returns, 5 and 6 among them; the crashed slot 7
+    # never does
+    assert set(ret_t[ret_t >= 0].tolist()) == set(range(c["rn"]))
+    assert any(not c["oracle"] for c in crash_edges.values())
+
+
+def test_launch_geometry_covers_every_lane_once():
+    import re
+    src = (cuda_build.CSRC / "wgl_crash.cu").read_text()
+    maxt = int(re.search(r"constexpr int MAXT = (\d+);", src).group(1))
+    assert crash_kernel.CTA_THREADS == maxt
+    for SnP in (8, 16, 32):
+        for J in range(1, planner.CRASH_J_MAX + 1):
+            lpc, threads, ctas = crash_kernel.launch_geometry(J, SnP)
+            assert threads % 32 == 0 and lpc * SnP <= threads <= maxt
+            assert threads - lpc * SnP < 32
+            # the CTAs hold the J lanes, none empty, spread evenly
+            assert (ctas - 1) * lpc < J <= ctas * lpc
+            assert ctas == -(-J * SnP // maxt)
+            assert ctas * lpc - J < ctas
+    assert crash_kernel.launch_geometry(88, 16) == (8, 128, 11)
+    assert crash_kernel.launch_geometry(11, 16) == (6, 96, 2)
+    assert crash_kernel.launch_geometry(1, 8) == (1, 32, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +433,52 @@ def test_relaxed_plain_matches_reference_kernels(seed):
         args[4], seed_mask, R=R, Sn=Sn, UP=c["UP"])
     assert int(bad[0]) == 0
     assert int(rows[0]) == ref_row >= 0
+
+
+def death_edge(where):
+    """A relaxed-tier history whose one segment dies at its first row
+    ("first": it opens with a read of a value never written) or at its
+    last ("last": it ends with one), its relaxed inputs, and the death
+    row's seed (the composed entry states of the dead segment)."""
+    ops = list(crash_history(43, n_calls=40, conc=3, crash_rate=0.15,
+                             effect_rate=0.6))
+    stale = [invoke_op(9, "read", None), ok_op(9, "read", 99)]
+    c = relaxed_inputs(RefHistory(stale + ops if where == "first"
+                                  else ops + stale).index())
+    args = [torch.from_numpy(x) for x in c["wire"] + (c["aux"], c["ctab"])]
+    T, _ = crash_kernel.relaxed_scan(*args, R=c["R"], Sn=c["Sn"],
+                                     UP=c["UP"])
+    vd = regs_kernel.compose(T, [len(c["wire"][1])])[0]
+    return c, int(vd[1]), int(vd[2]) & 0xFFFFFFFF
+
+
+def ref_death_row(c, dead, seed_mask):
+    """The reference's death_row kernel on segment `dead` of c."""
+    R, Sn, I = c["R"], c["Sn"], c["I"]
+    ret_t, islot_t, iuop_t, crow_t = c["tabs"]
+    Lp = ret_t.shape[0]
+    ctab_u = c["ctab"].view(np.uint32).reshape(-1, Sn)
+    return int(np.asarray(ref_seg._build_kernel_regs(
+        1, Lp, I, max(1, (1 << R) // 32), Sn, R, True, rounds=R, unroll=1,
+        J=1, crash_closure=True, death_row=True)(
+        ret_t[:, dead:dead + 1], islot_t[:, dead:dead + 1, :I],
+        iuop_t[:, dead:dead + 1, :I], *c["uop_tabs"],
+        crow_t[:, dead:dead + 1], ctab_u[..., None],
+        np.asarray([seed_mask], np.uint32))))
+
+
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_death_row_at_segment_edges(where):
+    c, dead, seed_mask = death_edge(where)
+    args = [torch.from_numpy(x) for x in c["wire"] + (c["aux"], c["ctab"])]
+    work = torch.zeros(1, dtype=torch.int64)
+    rows, bad = crash_kernel.death_row(
+        args[0], args[1][dead:dead + 1], args[2][dead:dead + 1], args[3],
+        args[4], seed_mask, R=c["R"], Sn=c["Sn"], UP=c["UP"], work=work)
+    L = int(c["wire"][2][dead])
+    assert int(bad[0]) == 0 and int(work[0]) > 0
+    assert int(rows[0]) == ref_death_row(c, dead, seed_mask) \
+        == (0 if where == "first" else L - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -587,11 +722,12 @@ def test_pipeline_matches_reference_on_a_mixed_batch():
 
 
 @pytest.mark.cuda
-def test_crash_kernels_match_plain_on_card(crash_scans):
+def test_crash_kernels_match_plain_on_card(crash_scans, crash_edges):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     launches = dict(crash_kernel.LAUNCHES)
-    for name, c in sorted(crash_scans.items()):
+    scans = {**crash_scans, **crash_edges}
+    for name, c in sorted(scans.items()):
         args = [torch.from_numpy(x).cuda() for x in c["wire"] + (c["aux"],)]
         work = torch.zeros(c["K"], dtype=torch.int64, device="cuda")
         T, bad = crash_kernel.crash_scan(*args, R=c["R"], Sn=c["Sn"],
@@ -602,18 +738,35 @@ def test_crash_kernels_match_plain_on_card(crash_scans):
         assert int(bad.cpu()[0]) == 0
     for seed in (41, 44, 47):
         c = relaxed_inputs(relaxed_planted(seed))
+        K = len(c["wire"][1])
         outs = []
         for dev in ("cuda", "cpu"):
             args = [torch.from_numpy(x).to(dev)
                     for x in c["wire"] + (c["aux"], c["ctab"])]
+            work = torch.zeros(K, dtype=torch.int64, device=dev)
+            dwork = torch.zeros(K, dtype=torch.int64, device=dev)
             T, _ = crash_kernel.relaxed_scan(*args, R=c["R"], Sn=c["Sn"],
-                                             UP=c["UP"])
+                                             UP=c["UP"], work=work)
             rows, _ = crash_kernel.death_row(*args, 1, R=c["R"], Sn=c["Sn"],
-                                             UP=c["UP"])
-            outs.append((T.cpu(), rows.cpu()))
-        assert torch.equal(outs[0][0], outs[1][0])
-        assert torch.equal(outs[0][1], outs[1][1])
+                                             UP=c["UP"], work=dwork)
+            outs.append([x.cpu() for x in (T, work, rows, dwork)])
+        for got, want in zip(*outs):
+            assert torch.equal(got, want), seed
+    for where in ("first", "last"):
+        c, dead, seed_mask = death_edge(where)
+        outs = []
+        for dev in ("cuda", "cpu"):
+            args = [torch.from_numpy(x).to(dev)
+                    for x in c["wire"] + (c["aux"], c["ctab"])]
+            work = torch.zeros(1, dtype=torch.int64, device=dev)
+            rows, _ = crash_kernel.death_row(
+                args[0], args[1][dead:dead + 1], args[2][dead:dead + 1],
+                args[3], args[4], seed_mask, R=c["R"], Sn=c["Sn"],
+                UP=c["UP"], work=work)
+            outs.append((rows.cpu(), work.cpu()))
+        assert torch.equal(outs[0][0], outs[1][0]), where
+        assert torch.equal(outs[0][1], outs[1][1]), where
     assert crash_kernel.LAUNCHES["wgl_regs_crash"] == \
-        launches["wgl_regs_crash"] + len(crash_scans)
+        launches["wgl_regs_crash"] + len(scans)
     assert crash_kernel.LAUNCHES["wgl_regs_relaxed"] == \
-        launches["wgl_regs_relaxed"] + 6
+        launches["wgl_regs_relaxed"] + 8
