@@ -80,8 +80,8 @@ any failure exits non-zero:
   crash-timing
              - the tier-2 launch of (c), the relaxed launch of (b) and
                its death-row launch against their plain versions and
-               bounds, with each launch's CTAs and the CTAs an SM holds,
-               for the JSON kernel line;
+               bounds, for the JSON kernel line (the relaxed bound from
+               the operations the walk needs, beside the work= count's);
   compose    - wgl_compose against its plain version on CPU copies: the
                north-star group's matrices, one history's, (c)'s J = 88
                and (b)'s, deaths made at the first, a middle and the last
@@ -1335,15 +1335,8 @@ def crash_run(inp, device, kind, ks=None, seed=None, reps=0):
     = 0."""
     from jepsen_tpu_torch.ops import crash_kernel
     dev = torch.device(device)
-    offs, nrows = inp["offs"], inp["nrows"]
-    if ks is not None:
-        offs, nrows = offs[ks], nrows[ks]
-    names = ("cbuf", "offs", "nrows", "aux") + (
-        ("ctab",) if kind != "crash" else ())
-    arrs = dict(inp, offs=offs, nrows=nrows)
-    args = [torch.from_numpy(np.ascontiguousarray(arrs[n])).to(dev)
-            for n in names]
-    work = torch.zeros(len(offs), dtype=torch.int64, device=dev)
+    args = crash_args(inp, kind, ks, dev)
+    work = torch.zeros(args[1].numel(), dtype=torch.int64, device=dev)
 
     def launch(w):
         kw = dict(R=inp["R"], Sn=inp["Sn"], UP=inp["UP"], work=w)
@@ -1361,13 +1354,35 @@ def crash_run(inp, device, kind, ks=None, seed=None, reps=0):
     return out.cpu().numpy(), work.cpu().numpy(), int(bad.cpu()[0]), ms
 
 
+def crash_args(inp, kind, ks, dev):
+    """The wire of `inp` (only segments `ks`, when given) as tensors on
+    dev: cbuf, offs, nrows, aux (and ctab but for kind "crash")."""
+    offs, nrows = inp["offs"], inp["nrows"]
+    if ks is not None:
+        offs, nrows = offs[ks], nrows[ks]
+    names = ("cbuf", "offs", "nrows", "aux") + (
+        ("ctab",) if kind != "crash" else ())
+    arrs = dict(inp, offs=offs, nrows=nrows)
+    return [torch.from_numpy(np.ascontiguousarray(arrs[n])).to(dev)
+            for n in names]
+
+
 def plain_crash_job(inp, kind, ks=None, seed=None):
-    """The plain version on CPU copies, in a worker process: (output,
-    work, seconds)."""
+    """The plain version (`crash_kernel.walk_plain`) on CPU copies, in a
+    worker process: (output, work, the operations the walk needs,
+    seconds)."""
+    from jepsen_tpu_torch.ops import crash_kernel
     torch.set_num_threads(1)
     t = time.perf_counter()
-    out, work, _, _ = crash_run(inp, "cpu", kind, ks, seed)
-    return out, work, time.perf_counter() - t
+    args = crash_args(inp, kind, ks, torch.device("cpu"))
+    work, need = (torch.zeros(args[1].numel(), dtype=torch.int64)
+                  for _ in range(2))
+    out = crash_kernel.walk_plain(
+        *args, R=inp["R"], Sn=inp["Sn"], UP=inp["UP"], nc=inp.get("nc", 0),
+        rn=inp.get("rn", 0), seed=seed if kind == "death" else None,
+        work=work, need=need)
+    return (out.numpy(), work.numpy(), need.numpy(),
+            time.perf_counter() - t)
 
 
 def crash_wire_bytes(inp, out_bytes):
@@ -1458,7 +1473,7 @@ def phase_crash_kernel(clock_hz):
                 for kind, bad, inp in cases]
         for kind, bad, inp, fut in jobs:
             T, work, nbad, _ = crash_run(inp, DEV, kind)
-            pT, pwork, secs = fut.result()
+            pT, pwork, _, secs = fut.result()
             K, Sn = inp["K"], inp["Sn"]
             vd = regs_kernel.compose(torch.from_numpy(T).to(DEV),
                                      [K]).cpu()[0].tolist()
@@ -1477,7 +1492,8 @@ def phase_crash_kernel(clock_hz):
                 seed = (vd[2] & 0xFFFFFFFF) if vd[1] >= 0 else 1
                 drow, dwork, dbad, _ = crash_run(inp, DEV, "death", [dead],
                                                  seed)
-                pdrow, pdwork, _ = plain_crash_job(inp, "death", [dead], seed)
+                pdrow, pdwork, _, _ = plain_crash_job(inp, "death", [dead],
+                                                      seed)
                 e = max(e, abs(int(drow[0]) - int(pdrow[0])))
                 ok &= (int(drow[0]) == int(pdrow[0]) and dbad == 0
                        and np.array_equal(dwork, pdwork))
@@ -1640,16 +1656,6 @@ def crash_timing_inputs(hc, hb):
     return crash_inputs(red), relaxed_inputs(hb)
 
 
-def crash_geometry_line(inp, kind):
-    """A crash launch's CTAs a segment, and how many an SM holds."""
-    from jepsen_tpu_torch.ops import crash_kernel
-    ctas, threads, per_sm = crash_kernel.occupancy(
-        inp["R"], inp["Sn"], nc=inp.get("nc", 0), closure=kind != "crash",
-        death=kind == "death")
-    return (f"{ctas} CTA{'s' if ctas > 1 else ''} of {threads} threads a "
-            f"segment, {per_sm} CTAs ({per_sm * threads // 32} warps) an SM")
-
-
 def inert_read_span(h):
     """Op indices of the crashed read's invoke and :info in h."""
     info = next(o for o in h.ops if o.type == "info" and o.f == "read")
@@ -1734,12 +1740,11 @@ def phase_crash_timing(main, clock_hz):
             f"nc={ci['nc']}), J={ci['Sn'] << ci['nc']}: verdict {vd[:2]}, "
             f"kernel {ms:.3f} ms launch to end (mean of 5), {dms:.3f} ms "
             f"on the device, bound {b_full:.4f} ms from {int(work.sum())} "
-            f"integer operations ({b_full / ms:.4f} of it); "
-            f"{crash_geometry_line(ci, 'crash')}")
+            f"integer operations ({b_full / ms:.4f} of it)")
         Ts, ws, _, (ms_s, dms_s) = crash_run(ci, DEV, "crash", ks, reps=5)
-        pT, pwork, psecs = f_slice.result()
+        pT, pwork, pneed, psecs = f_slice.result()
         if not (np.array_equal(Ts, pT) and np.array_equal(ws, pwork)
-                and np.array_equal(Ts, T[ks])):
+                and np.array_equal(ws, pneed) and np.array_equal(Ts, T[ks])):
             raise SystemExit("[crash-timing] tier-2 slice: kernel and plain "
                              "version disagree")
         b = seg_bound_ms(int(ws.sum()), crash_wire_bytes(
@@ -1761,18 +1766,22 @@ def phase_crash_timing(main, clock_hz):
         dr, dw, _, (ms_d, dms_d) = crash_run(ri, DEV, "death", [dead],
                                              seed, reps=5)
         t = time.perf_counter()
-        pdr, pdw, _ = plain_crash_job(ri, "death", [dead], seed)
+        pdr, pdw, pdn, _ = plain_crash_job(ri, "death", [dead], seed)
         pd_ms = 1e3 * (time.perf_counter() - t)
-        pTr, pwr, rsecs = f_rel.result()
+        pTr, pwr, pnr, rsecs = f_rel.result()
         if not (np.array_equal(Tr, pTr) and np.array_equal(wr, pwr)
                 and int(dr[0]) == int(pdr[0])
                 and np.array_equal(dw, pdw)):
             raise SystemExit("[crash-timing] relaxed: kernel and plain "
                              "version disagree")
-        br = seg_bound_ms(int(wr.sum()), crash_wire_bytes(ri, Tr.nbytes),
-                          clock_hz)
-        bd = seg_bound_ms(int(dw.sum()), crash_wire_bytes(
-            dict(ri, offs=ri["offs"][[dead]]), 4), clock_hz)
+        # the bound from the operations the walk needs; the work= count's
+        # beside it charges every closure, needed or not
+        rbytes = crash_wire_bytes(ri, Tr.nbytes)
+        dbytes = crash_wire_bytes(dict(ri, offs=ri["offs"][[dead]]), 4)
+        br = seg_bound_ms(int(pnr.sum()), rbytes, clock_hz)
+        br_w = seg_bound_ms(int(wr.sum()), rbytes, clock_hz)
+        bd = seg_bound_ms(int(pdn.sum()), dbytes, clock_hz)
+        bd_w = seg_bound_ms(int(dw.sum()), dbytes, clock_hz)
         res["relaxed"] = dict(ms=ms_r, device_ms=dms_r,
                               plain_ms=1e3 * rsecs, bound_ms=br,
                               err=int(np.abs(Tr.astype(np.int64)
@@ -1782,15 +1791,16 @@ def phase_crash_timing(main, clock_hz):
             f"{ri['nC']} crash prefixes: dead segment {dead}, kernel "
             f"{ms_r:.3f} ms launch to end (mean of 5), {dms_r:.3f} ms on "
             f"the device, plain {1e3 * rsecs:.1f} ms, bound "
-            f"{br:.4f} ms from {int(wr.sum())} integer operations "
-            f"({br / ms_r:.4f} of it); {crash_geometry_line(ri, 'relaxed')}; "
-            f"equal")
+            f"{br:.4f} ms from the {int(pnr.sum())} integer operations it "
+            f"needs ({br / ms_r:.4f} of it, {br / dms_r:.4f} on the "
+            f"device), {br_w:.4f} ms from work={int(wr.sum())} "
+            f"({br_w / ms_r:.4f}, {br_w / dms_r:.4f}); equal")
         log(f"[crash-timing] death-row launch of (b)'s dead segment: row "
             f"{int(dr[0])}, kernel {ms_d:.3f} ms launch to end (mean of "
             f"5), {dms_d:.3f} ms on the device, plain "
-            f"{pd_ms:.1f} ms, bound {bd:.5f} ms from {int(dw.sum())} "
-            f"integer operations; {crash_geometry_line(ri, 'death')}; "
-            f"equal")
+            f"{pd_ms:.1f} ms, bound {bd:.5f} ms from the {int(pdn.sum())} "
+            f"integer operations it needs, {bd_w:.5f} ms from "
+            f"work={int(dw.sum())}; equal")
     for tag, m in main.items():
         if tag != "hists":
             log(f"[crash-timing] {tag}: {m['s']:.3f} s; stages: "

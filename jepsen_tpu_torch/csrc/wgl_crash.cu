@@ -91,17 +91,22 @@
 // chain (each reads the plane the previous pass left, as the plain
 // version's count needs).
 //
-// The work= count, the integer operations the walk needs: a lane's plane
-// is at most 8 words per thread, in registers; the wire is 7 (9 with the
-// closure) bytes a row.  Per row and lane it charges a pass of slot b < 5
-// CLOSE_OPS per word of the Sn live state rows, of slot b >= 5 CLOSE5_OPS
-// per state row of each receiving word (WD / 2), a prune PRUNE_OPS per
-// word (per state row and receiving word at b >= 5), a state closure
-// CLOSURE_OPS per (source, target) pair and word; and each round the lane
-// runs up to the first that leaves its plane unchanged (at most R), not
-// the rounds its warp runs on for other lanes.  Each lane's count is
-// added once, from its first row's thread (a warp's sum, one atomic a
-// warp), to work[k], which the caller zeroes.
+// The work= count, the plain version's (crash_kernel.walk_plain), which
+// the kernel is held to: a lane's plane is at most 8 words per thread,
+// in registers; the wire is 7 (9 with the closure) bytes a row.  Per row
+// and lane it charges a pass of slot b < 5 CLOSE_OPS per word of the Sn
+// live state rows, of slot b >= 5 CLOSE5_OPS per state row of each
+// receiving word (WD / 2), a prune PRUNE_OPS per word (per state row and
+// receiving word at b >= 5), a state closure CLOSURE_OPS per (source,
+// target) pair and word, before the rounds and in every round; and each
+// round the lane runs up to the first that leaves its plane unchanged (at
+// most R), not the rounds its warp runs on for other lanes.  It charges
+// closures that change nothing, which the walk skips: at a row whose
+// masks let no state jump, and in a round whose passes left the lane
+// unchanged.  walk_plain's `need` count leaves those out; the bound is
+// taken from it.  Each lane's count is added once, from its first row's
+// thread (a warp's sum, one atomic a warp), to work[k], which the caller
+// zeroes.
 //
 // Wire: segment k's L = nrows[k] rows at byte offs[k]: ret+1 u8[L] ++
 // islot+1 u8[L * 2] ++ iuop u16-LE[L * 2] (++ crow i16-LE[L] with the
@@ -573,9 +578,8 @@ void launch_one(dim3 grid, int threads, cudaStream_t stream,
     X(2, 16, true) X(2, 32, true)
 
 // One launch over K segments on `stream`, each segment's J lanes split
-// over CTAs of lpc lanes (crash_kernel.launch_geometry: the fewest CTAs
-// of at most MAXT threads, lanes spread evenly); returns the cudaError_t
-// of the launch (0 on success).  `work`, when given, must hold K zeros.
+// over the fewest CTAs of at most MAXT threads, the lanes spread evenly
+// (grid y); returns the cudaError_t of the launch (0 on success).  `work`, when given, must hold K zeros.
 // ctab == NULL walks without the state closure (the crash variant, nc >=
 // 0); with ctab (nC rows of Sn masks) nc must be 0 and R <= 6, and
 // `death` != 0 seeds one lane with `seed` and writes int32 death rows
@@ -585,7 +589,7 @@ extern "C" int wgl_crash_launch(const void *cbuf, long long nbytes,
                                 const void *offs, const void *nrows,
                                 const void *aux, int UP, const void *ctab,
                                 int nC, int K, int R, int SnP, int Sn, int nc,
-                                int rn, int lpc, int death, unsigned seed,
+                                int rn, int death, unsigned seed,
                                 void *out, void *work, void *bad,
                                 void *stream) {
     if (K <= 0) return 0;
@@ -594,10 +598,11 @@ extern "C" int wgl_crash_launch(const void *cbuf, long long nbytes,
     if (R < 1 || R > MAXR || Sn < 1 || Sn > SnP || nc < 0 || nc > 4 ||
         rn < 0 || rn + nc > R || J > 128 || UP < 1 ||
         (SnP != 8 && SnP != 16 && SnP != 32) ||
-        (close && (nc != 0 || R > 6 || nC < 1)) || (death && !close) ||
-        lpc < 1 || lpc * SnP > MAXT)
+        (close && (nc != 0 || R > 6 || nC < 1)) || (death && !close))
         return (int)cudaErrorInvalidValue;
     const int wd = R <= 5 ? 1 : 1 << (R - 5);
+    const int split = (J * SnP + MAXT - 1) / MAXT;   // CTAs a segment
+    const int lpc = (J + split - 1) / split;         // lanes a CTA
     const int threads = (lpc * SnP + 31) / 32 * 32;
     const dim3 grid(K, (J + lpc - 1) / lpc);
     cudaStream_t s = (cudaStream_t)stream;
@@ -609,22 +614,4 @@ extern "C" int wgl_crash_launch(const void *cbuf, long long nbytes,
     WGL_CRASH_INSTANCES(WGL_CRASH_CASE)
 #undef WGL_CRASH_CASE
     return (int)cudaGetLastError();
-}
-
-// CTAs of `threads` threads that one SM holds at once, for the instance
-// that walks R slots at SnP state rows (with the closure or without), as
-// the runtime computes it from the kernel's registers and shared memory;
-// -1 for an instance the source does not build.
-extern "C" int wgl_crash_occupancy(int R, int SnP, int closure,
-                                   int threads) {
-    const int wd = R <= 5 ? 1 : 1 << (R - 5);
-    int n = -1;
-#define WGL_CRASH_OCC(WD, SNP, CL)                                       \
-    if (wd == WD && SnP == SNP && (closure != 0) == CL &&                \
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
-            &n, wgl_crash_kernel<WD, SNP, CL>, threads, 0) != cudaSuccess) \
-        n = -1;
-    WGL_CRASH_INSTANCES(WGL_CRASH_OCC)
-#undef WGL_CRASH_OCC
-    return n;
 }

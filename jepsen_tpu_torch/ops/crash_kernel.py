@@ -31,12 +31,17 @@ row's rounds end early once a round changes no lane of a warp.  The
 below, over the Sn state rows that hold configs): its rounds up to the
 first that leaves its plane unchanged, at most R.
 
+The `work=` count charges a closure at every row and in every round,
+and the kernel is held to it; `walk_plain`'s `need` count charges only
+the closures that can change the plane (at a row whose masks let a
+state jump, in a round whose passes changed the lane), and the bound is
+taken from it.
+
 The kernel runs one thread per (lane, state row), a lane's SnP threads
-in one warp; `launch_geometry` splits a segment's lanes over CTAs of at
-most CTA_THREADS threads.  The wrappers take the plain version
-(`walk_plain`) only for tensors on the CPU; for CUDA tensors they launch
-the kernel on the current stream or raise.  `LAUNCHES` counts each
-kernel's launches."""
+in one warp, a segment's lanes over CTAs of at most 128 threads.  The
+wrappers take the plain version (`walk_plain`) only for tensors on the
+CPU; for CUDA tensors they launch the kernel on the current stream or
+raise.  `LAUNCHES` counts each kernel's launches."""
 
 from __future__ import annotations
 
@@ -58,41 +63,13 @@ LAUNCHES = {"wgl_regs_crash": 0, "wgl_regs_relaxed": 0}
 #: word that receives (half the words), and its prune PRUNE_OPS.
 CLOSURE_OPS = 2
 
-#: Threads a CTA at most (the kernel's MAXT): a segment's J lanes of SnP
-#: threads each split over CTAs on grid y past it.
-CTA_THREADS = 128
-
-
-def launch_geometry(J: int, SnP: int):
-    """How a segment's J lanes of SnP threads (one per state row) lie on
-    CTAs: the fewest CTAs of at most CTA_THREADS threads, with the lanes
-    spread evenly.  Returns (lanes a CTA, threads a CTA, a multiple of
-    32, CTAs a segment)."""
-    split = -(-J * SnP // CTA_THREADS)
-    lpc = -(-J // split)
-    return lpc, -(-lpc * SnP // 32) * 32, -(-J // lpc)
-
 
 def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.wgl_crash_launch.argtypes = (
         [ptr, ctypes.c_longlong] + [ptr] * 3 + [i32] + [ptr, i32]
-        + [i32] * 8 + [ctypes.c_uint] + [ptr] * 4)
+        + [i32] * 7 + [ctypes.c_uint] + [ptr] * 4)
     lib.wgl_crash_launch.restype = i32
-    lib.wgl_crash_occupancy.argtypes = [i32] * 4
-    lib.wgl_crash_occupancy.restype = i32
-
-
-def occupancy(R: int, Sn: int, *, nc: int = 0, closure: bool = False,
-              death: bool = False):
-    """A launch's place on the card: (CTAs a segment, threads a CTA,
-    CTAs one SM holds at once), the last as the CUDA runtime computes it
-    from the instance's registers and shared memory.  Needs the card."""
-    SnP = snp(Sn)
-    _, threads, ctas = launch_geometry(1 if death else Sn << nc, SnP)
-    lib = cuda_build.load("wgl_crash", _declare)
-    return ctas, threads, lib.wgl_crash_occupancy(R, SnP, int(closure),
-                                                  threads)
 
 
 def _launch(name, cbuf, offs, nrows, aux, ctab, *, R, Sn, UP, nc, rn,
@@ -149,8 +126,7 @@ def _launch(name, cbuf, offs, nrows, aux, ctab, *, R, Sn, UP, nc, rn,
     err = lib.wgl_crash_launch(
         cbuf.data_ptr(), cbuf.numel(), offs.data_ptr(), nrows.data_ptr(),
         aux.data_ptr(), UP, None if ctab is None else ctab.data_ptr(), nC,
-        K, R, snp(Sn), Sn, nc, rn, launch_geometry(J, snp(Sn))[0],
-        int(seed is not None),
+        K, R, snp(Sn), Sn, nc, rn, int(seed is not None),
         0 if seed is None else int(seed) & _FULL, out.data_ptr(),
         None if work is None else work.data_ptr(), bad.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -201,14 +177,19 @@ def death_row(cbuf, offs, nrows, aux, ctab, seed: int, *, R: int, Sn: int,
 # ---------------------------------------------------------------------------
 
 def walk_plain(cbuf, offs, nrows, aux, ctab=None, *, R: int, Sn: int,
-               UP: int, nc: int = 0, rn: int = 0, seed=None, work=None):
+               UP: int, nc: int = 0, rn: int = 0, seed=None, work=None,
+               need=None):
     """The kernel's function in plain PyTorch on cbuf's device: all K
     segments walk their rows in step, a segment past its own row count
     (or, with `seed`, past its death) standing still.  The planes are
     int64[K, J, SnP, WD] holding 32-bit words; closure passes update
     them in place, slot by slot, as the kernel does, and a row's rounds
     end when no lane changes.  Each lane's count charges the rounds up
-    to the first that leaves its plane unchanged.  Raises ValueError
+    to the first that leaves its plane unchanged (into `work`, as the
+    kernel counts), and `need` (int64[K], optional) receives the same
+    count with only the closures that can change the plane: at a row
+    whose masks let a live state jump to another, before the rounds and
+    in each round whose passes changed the lane.  Raises ValueError
     where the kernel would count a bad segment."""
     dev = cbuf.device
     K = offs.numel()
@@ -228,6 +209,10 @@ def walk_plain(cbuf, offs, nrows, aux, ctab=None, *, R: int, Sn: int,
         csel = torch.zeros((nC, SnP, SnP), dtype=torch.bool, device=dev)
         csel[:, :Sn, :] = ((cm[:, :, None] >> s_idx) & 1).bool()
         csel[:, :, Sn:] = False
+        # jump[c]: prefix c lets a live state jump to another
+        jump = (csel[:, :Sn, :Sn]
+                & ~torch.eye(Sn, dtype=torch.bool, device=dev)).flatten(1)
+        jump = jump.any(1)
 
     fr = torch.zeros((K, J, SnP, WD), dtype=torch.int64, device=dev)
     if seed is not None:
@@ -239,6 +224,7 @@ def walk_plain(cbuf, offs, nrows, aux, ctab=None, *, R: int, Sn: int,
             fr[:, j, j % Sn, m0 >> 5] = 1 << (m0 & 31)
     slots = rk.new_slots(K, R, dev)
     ops = torch.zeros((K, J), dtype=torch.int64, device=dev)
+    needed = torch.zeros((K, J), dtype=torch.int64, device=dev)
     close_ops = CLOSURE_OPS * Sn * Sn * WD if ctab is not None else 0
     died = torch.full((K,), -1, dtype=torch.int64, device=dev)
 
@@ -256,12 +242,16 @@ def walk_plain(cbuf, offs, nrows, aux, ctab=None, *, R: int, Sn: int,
         slots = rk.register(wire, row, tab, UP, slots)
         a1r, a2r, t0r, openr = slots
         opened = openr & act[:, None]
+        jumps = torch.zeros_like(act)
         if ctab is not None:
             fr = torch.where(act4, close(fr, row), fr)
             ops += torch.where(act, close_ops, 0)[:, None]
+            jumps = act & jump[wire.crow[:, row]]
+            needed += torch.where(jumps, close_ops, 0)[:, None]
         if bool(opened.any()):
-            per_round = (rk.round_ops(opened, Sn, WD)
-                         + torch.where(opened.any(1), close_ops, 0))[:, None]
+            pass_ops = rk.round_ops(opened, Sn, WD)[:, None]
+            per_round = pass_ops + torch.where(opened.any(1), close_ops,
+                                               0)[:, None]
             run = opened.any(1)[:, None].expand(K, J)
             for _ in range(R):
                 before = fr
@@ -271,9 +261,15 @@ def walk_plain(cbuf, offs, nrows, aux, ctab=None, *, R: int, Sn: int,
                         lin = rk.slot_pass(fr, b, a1r[:, b], a2r[:, b],
                                            t0r[:, b])
                         fr = torch.where(ob, fr | lin, fr)
+                # the plane was closed when the round began: only the
+                # passes can leave the closure something to add
+                grew = (fr != before).flatten(2).any(2)
                 if ctab is not None:
                     fr = torch.where(act4, close(fr, row), fr)
                 ops += torch.where(run, per_round, 0)
+                needed += torch.where(run, pass_ops, 0)
+                needed += torch.where(run & grew & jumps[:, None],
+                                      close_ops, 0)
                 run = run & (fr != before).flatten(2).any(2)
                 if not bool(run.any()):
                     break               # every lane at its fixpoint
@@ -285,11 +281,14 @@ def walk_plain(cbuf, offs, nrows, aux, ctab=None, *, R: int, Sn: int,
                                  fr)
                 openr[:, b] &= ~mb
         ops += rk.prune_ops(rs, Sn, WD)[:, None]
+        needed += rk.prune_ops(rs, Sn, WD)[:, None]
         if seed is not None:
             empty = ~(fr != 0).flatten(1).any(1)
             died = torch.where(act & empty, row, died)
     if work is not None:
         work.copy_(ops.sum(1))
+    if need is not None:
+        need.copy_(needed.sum(1))
     if seed is not None:
         return died.to(torch.int32)
     # the 2^nc crashed-mask planes at zero normal bits: j' = cm * Sn + s

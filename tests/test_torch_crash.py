@@ -17,9 +17,11 @@ histories with crashed (:info or unreturned) calls made from a seed:
   rounds up to its own fixpoint;
 - the same at the kernel's layout edges: segments past 1024 threads
   (J = 88 at Sn = 11, J = 128 at Sn = 32), every normal slot b >= 5
-  returning, and a death at a segment's first and last row; and
-  `crash_kernel.launch_geometry` places every lane on one CTA of at
-  most the kernel's MAXT threads;
+  returning, and a death at a segment's first and last row;
+- the plain version's `need=` count: the `work=` count with only the
+  closures that can change a lane's plane (at a row whose masks let a
+  state jump, in a round whose passes changed the lane), against the
+  same plain-Python walk; with no closure it is the `work=` count;
 - `wgl_seg.check` and `Linearizable` agree with the reference's
   `wgl_seg.check` on the verdict, the witness and the tier fields in
   every tier, and `check_pipeline` on a mixed batch.
@@ -44,8 +46,7 @@ from jepsen_tpu.ops import wgl_seg as ref_seg
 from jepsen_tpu_torch import convert, models
 from jepsen_tpu_torch.checker import Linearizable
 from jepsen_tpu_torch.errors import Unsupported
-from jepsen_tpu_torch.ops import (crash_kernel, cuda_build, planner,
-                                  regs_kernel, wgl_seg)
+from jepsen_tpu_torch.ops import crash_kernel, planner, regs_kernel, wgl_seg
 
 TARGET = 24                     # returns per segment in the kernel cases
 
@@ -320,36 +321,12 @@ def test_crash_edges_cover_the_layout(crash_edges):
              for name, c in crash_edges.items()}
     assert width == {"rn2-nc3-Sn11": 1408, "rn3-nc3-Sn11-bad": 1408,
                      "rn1-nc2-Sn32": 4096, "rn7-nc1-Sn11-bad": 352}
-    split = {name: crash_kernel.launch_geometry(
-        c["Sn"] << c["nc"], regs_kernel.snp(c["Sn"]))[2]
-        for name, c in crash_edges.items()}
-    assert split == {"rn2-nc3-Sn11": 11, "rn3-nc3-Sn11-bad": 11,
-                     "rn1-nc2-Sn32": 32, "rn7-nc1-Sn11-bad": 3}
     c = crash_edges["rn7-nc1-Sn11-bad"]
     ret_t = decode(*c["wire"], len(c["rows"]))[0]
     # every normal slot returns, 5 and 6 among them; the crashed slot 7
     # never does
     assert set(ret_t[ret_t >= 0].tolist()) == set(range(c["rn"]))
     assert any(not c["oracle"] for c in crash_edges.values())
-
-
-def test_launch_geometry_covers_every_lane_once():
-    import re
-    src = (cuda_build.CSRC / "wgl_crash.cu").read_text()
-    maxt = int(re.search(r"constexpr int MAXT = (\d+);", src).group(1))
-    assert crash_kernel.CTA_THREADS == maxt
-    for SnP in (8, 16, 32):
-        for J in range(1, planner.CRASH_J_MAX + 1):
-            lpc, threads, ctas = crash_kernel.launch_geometry(J, SnP)
-            assert threads % 32 == 0 and lpc * SnP <= threads <= maxt
-            assert threads - lpc * SnP < 32
-            # the CTAs hold the J lanes, none empty, spread evenly
-            assert (ctas - 1) * lpc < J <= ctas * lpc
-            assert ctas == -(-J * SnP // maxt)
-            assert ctas * lpc - J < ctas
-    assert crash_kernel.launch_geometry(88, 16) == (8, 128, 11)
-    assert crash_kernel.launch_geometry(11, 16) == (6, 96, 2)
-    assert crash_kernel.launch_geometry(1, 8) == (1, 32, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -489,9 +466,11 @@ def lane_walk(tabs, k, L, legal, nxt, *, R, Sn, start, ctab=None,
               stop_empty=False):
     """One lane of segment k (L rows) walked in plain Python, its plane
     a list of Sn ints over the 2^R masks: (integer operations, final
-    plane, the row at which it emptied or -1, rounds left unrun).  A
-    row's rounds go on while they change the plane, at most R; each
-    round run is charged."""
+    plane, the row at which it emptied or -1, rounds left unrun, the
+    operations it needs).  A row's rounds go on while they change the
+    plane, at most R; each round run is charged.  The needed count
+    charges a closure only where the row's masks let a state jump to
+    another, and in a round only when its passes changed the plane."""
     ret_t, islot_t, iuop_t, crow_t = tabs
     WD = regs_kernel.plane_width(R)
     half = max(1, WD // 2)
@@ -500,7 +479,7 @@ def lane_walk(tabs, k, L, legal, nxt, *, R, Sn, start, ctab=None,
     closure_ops = crash_kernel.CLOSURE_OPS * Sn * Sn * WD
     plane = list(start)
     uop = {}
-    ops = saved = 0
+    ops = saved = need = 0
 
     def close(plane, masks):
         return [plane[t] | _or(plane[s] for s in range(Sn)
@@ -511,13 +490,18 @@ def lane_walk(tabs, k, L, legal, nxt, *, R, Sn, start, ctab=None,
             if b >= 0:
                 uop[int(b)] = int(u)
         masks = None if ctab is None else ctab[int(crow_t[r, k])]
+        jumps = masks is not None and any(
+            masks[s] >> t & 1 for s in range(Sn) for t in range(Sn)
+            if s != t)
         if masks is not None:
             plane = close(plane, masks)
             ops += closure_ops
+            need += closure_ops if jumps else 0
         if uop:
-            per = sum(regs_kernel.CLOSE_OPS * Sn * WD if b < 5
-                      else regs_kernel.CLOSE5_OPS * Sn * half for b in uop)
-            per += closure_ops if masks is not None else 0
+            passes = sum(regs_kernel.CLOSE_OPS * Sn * WD if b < 5
+                         else regs_kernel.CLOSE5_OPS * Sn * half
+                         for b in uop)
+            per = passes + (closure_ops if masks is not None else 0)
             for rd in range(R):
                 old = list(plane)
                 for b in sorted(uop):
@@ -525,9 +509,11 @@ def lane_walk(tabs, k, L, legal, nxt, *, R, Sn, start, ctab=None,
                     for s in range(Sn):
                         if legal[uop[b], s]:
                             plane[nxt[uop[b], s]] |= src[s] << (1 << b)
+                grew = plane != old
                 if masks is not None:
                     plane = close(plane, masks)
                 ops += per
+                need += passes + (closure_ops if jumps and grew else 0)
                 if plane == old:
                     saved += R - rd - 1
                     break
@@ -536,9 +522,10 @@ def lane_walk(tabs, k, L, legal, nxt, *, R, Sn, start, ctab=None,
             plane = [(p & ~lack[b]) >> (1 << b) for p in plane]
             del uop[b]
             ops += regs_kernel.PRUNE_OPS * Sn * (half if b >= 5 else WD)
+            need += regs_kernel.PRUNE_OPS * Sn * (half if b >= 5 else WD)
         if stop_empty and not any(plane):
-            return ops, plane, r, saved
-    return ops, plane, -1, saved
+            return ops, plane, r, saved, need
+    return ops, plane, -1, saved, need
 
 
 def _or(xs):
@@ -561,7 +548,7 @@ def test_crash_work_counts_each_lanes_rounds(crash_scans, name):
         for j in range(Sn << nc):
             start = [0] * Sn
             start[j % Sn] = 1 << ((j // Sn) << rn)
-            ops, plane, _, saved = lane_walk(
+            ops, plane, _, saved, _ = lane_walk(
                 tabs, k, int(c["wire"][2][k]), legal, nxt, R=R, Sn=Sn,
                 start=start)
             total += ops
@@ -597,11 +584,55 @@ def test_relaxed_work_counts_each_lanes_rounds(seed):
     rows, _ = crash_kernel.death_row(
         args[0], args[1][dead:dead + 1], args[2][dead:dead + 1], args[3],
         args[4], seed_mask, R=R, Sn=Sn, UP=UP, work=dwork)
-    ops, _, row, _ = lane_walk(
+    ops, _, row, _, _ = lane_walk(
         c["tabs"], dead, int(nrows[dead]), legal, nxt, R=R, Sn=Sn,
         start=[seed_mask >> s & 1 for s in range(Sn)], ctab=ctab,
         stop_empty=True)
     assert (ops, row) == (int(dwork[0]), int(rows[0]))
+
+
+@pytest.mark.parametrize("seed", [41, 47])
+def test_relaxed_need_counts_only_closures_that_can_change(seed):
+    c = relaxed_inputs(relaxed_planted(seed))
+    R, Sn, UP = c["R"], c["Sn"], c["UP"]
+    legal, nxt = c["legal"], c["next_state"]
+    nrows = c["wire"][2]
+    ctab = c["ctab"].view(np.uint32).reshape(-1, Sn).astype(np.int64)
+    args = [torch.from_numpy(x) for x in c["wire"] + (c["aux"], c["ctab"])]
+    K = len(c["wire"][1])
+    work = torch.zeros(K, dtype=torch.int64)
+    need = torch.zeros(K, dtype=torch.int64)
+    T = crash_kernel.walk_plain(*args, R=R, Sn=Sn, UP=UP, work=work,
+                                need=need)
+    for k in range(K):
+        lanes = [lane_walk(c["tabs"], k, int(nrows[k]), legal, nxt, R=R,
+                           Sn=Sn,
+                           start=[int(s == j) for s in range(Sn)],
+                           ctab=ctab) for j in range(Sn)]
+        assert sum(x[4] for x in lanes) == int(need[k]), k
+    assert bool((need <= work).all()) and int(need.sum()) < int(work.sum())
+    vd = regs_kernel.compose(T, [K])[0]
+    dead, seed_mask = int(vd[1]), int(vd[2]) & 0xFFFFFFFF
+    dneed = torch.zeros(1, dtype=torch.int64)
+    crash_kernel.walk_plain(
+        args[0], args[1][dead:dead + 1], args[2][dead:dead + 1], args[3],
+        args[4], R=R, Sn=Sn, UP=UP, seed=seed_mask, need=dneed)
+    lane = lane_walk(
+        c["tabs"], dead, int(nrows[dead]), legal, nxt, R=R, Sn=Sn,
+        start=[seed_mask >> s & 1 for s in range(Sn)], ctab=ctab,
+        stop_empty=True)
+    assert lane[4] == int(dneed[0])
+
+
+@pytest.mark.parametrize("name", ["rn2-nc3", "rn4-nc4"])
+def test_crash_need_is_work_without_closure(crash_scans, name):
+    c = crash_scans[name]
+    need = torch.zeros(c["K"], dtype=torch.int64)
+    T = crash_kernel.walk_plain(
+        *(torch.from_numpy(x) for x in c["wire"] + (c["aux"],)), R=c["R"],
+        Sn=c["Sn"], UP=c["UP"], nc=c["nc"], rn=c["rn"], need=need)
+    assert np.array_equal(T.numpy(), c["T"])
+    assert need.tolist() == c["work"].tolist()
 
 
 # ---------------------------------------------------------------------------
