@@ -10,7 +10,13 @@ any failure exits non-zero:
                csrc/wgl_crash.cu), started together, for sm_90a
                (timed); ptxas registers and
                spill bytes of each kernel instantiation; a spill in the
-               deep kernel's warp arm fails;
+               deep kernel's warp arm fails; then the native history
+               scanner (native/histscan.c) with the host C compiler
+               (timed, the compiler named);
+  columns    - printed by each phase that builds full-size histories:
+               the seconds pack_history and attach_packed take to give
+               them their columns, as a run that journals its ops has
+               them (a cost moved off the check, not saved);
   kernel     - each deep arm against the plain PyTorch version (on CPU
                copies of the same inputs) on 600-call histories at its
                edges and plane sizes: warp arm R = 3, 5, 8, 10 (twice),
@@ -26,6 +32,14 @@ any failure exits non-zero:
                rounds R and 2, and one with more than 255 uop ids:
                transfer matrices, operation counts (each lane's rounds
                to its fixpoint), the exact verdict;
+  scan       - the C scanners (the stream pass, the column scan, the
+               object walk) against the plain Python scan with
+               pack_stream on the same histories in one call: the whole
+               north-star batch and the envelope at max_open 12; every
+               field (n_calls, max_open, cuts, positions, the return and
+               open-set arrays, the delta stream), seen, rows, the
+               segment wire's bytes and the envelope's deep tables must
+               be equal; seconds of each scanner;
   main       - the deep-overlap envelope at full size: 16 etcd-shaped
                register histories of 20,000 calls (concurrency 16, vmax
                9, read/read/write/cas) per depth max_open 8/10/12/14,
@@ -243,8 +257,23 @@ def plant_stale_read(h, frac, vmax, forbidden=()):
         if w is None:
             continue
         ops[i].value = w
+        h.invalidate_packed()        # the columns no longer match
         return ops[lo].index
     return None
+
+
+def attach_columns(tag, hs):
+    """Give each history its columns (pack_history, attach_packed), as a
+    run that journals its ops has them; print the seconds on a
+    [columns] line: a cost moved off the check, not saved."""
+    from jepsen_tpu_torch.history import pack_history
+    t = time.perf_counter()
+    for h in hs:
+        h.attach_packed(pack_history(h))
+    dt = time.perf_counter() - t
+    log(f"[columns] {tag}: {len(hs)} histories, "
+        f"{sum(len(h) for h in hs)} ops packed and attached in {dt:.3f} s")
+    return dt
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +335,15 @@ def phase_build():
                if k.startswith("wgl_warp") and v["spill"]]
     if spilled:
         raise SystemExit(f"[build] the register plane spills: {spilled}")
+    from jepsen_tpu_torch import native
+    cc = native.compiler()
+    version = subprocess.run([cc, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[:1]
+    t = time.perf_counter()
+    lib = native.build()
+    native.histscan()
+    log(f"[build] {lib.name} in {time.perf_counter() - t:.2f} s by {cc} "
+        f"({' '.join(version)}; {' '.join(native.FLAGS)})")
 
 
 def ptxas_kernels(text):
@@ -340,7 +378,8 @@ def tables_for(h, max_open_bits=16):
     model = CASRegister()
     spec = model.device_spec()
     seen, rows = {}, []
-    fk = planner._fast_scan(h, spec, seen, rows, max_open_bits)
+    fk = planner._scan_history(planner.columns_of(h), h.ops, spec, seen,
+                               rows, max_open_bits)
     uops = np.asarray(rows, np.int32).reshape(-1, 4)
     states, legal, nxt = planner._enumerate_states(
         spec, np.asarray(spec.encode(model), np.int32), uops, 64)
@@ -465,6 +504,8 @@ def phase_main():
         planted[mo] = (h, plant_stale_read(h, 0.9, 9))
         if planted[mo][1] is None:
             raise SystemExit(f"[main] no plantable read at depth {mo}")
+    attach_columns("the envelope", [h for mo in depths for h in batches[mo]]
+                   + [h for h, _ in planted.values()])
     model = CASRegister()
     checker = Linearizable(model, max_open_bits=16)
     verdicts = {}
@@ -721,7 +762,8 @@ def seg_inputs(hs, target=None, I=None):
     model = CASRegister()
     spec = model.device_spec()
     seen, rows = {}, []
-    fks = [planner._fast_scan(h.ops, spec, seen, rows, 10) for h in hs]
+    fks = [planner._scan_history(planner.columns_of(h), h.ops, spec, seen,
+                                 rows, 10) for h in hs]
     states, legal, nxt, dec = wgl_seg._model_tables(spec, model, rows, 64)
     R = max(fk.max_open for fk in fks)
     grid = wgl_seg._SegGrid()
@@ -862,6 +904,7 @@ def phase_seg_main():
         raise SystemExit("[seg-main] no plantable read")
     log(f"[seg-main] made {SEG_BATCH + 1} histories of {SEG_N_OPS} calls "
         f"in {time.perf_counter() - t:.1f} s")
+    attach_columns("the north-star batch", hs + [planted])
     model = CASRegister()
     checker = Linearizable(model)
     bmm_calls = [0]
@@ -884,7 +927,7 @@ def phase_seg_main():
                          f"the pipelined segment kernel")
     n_ops = sum(len(h) for h in hs)
     dev_ms = st.get("kernel_ms", 0.0) + st.get("compose_ms", 0.0)
-    stages = ", ".join(f"{k} {st[k]:.3f} s" for k in (
+    stages = ", ".join(f"{k} {st.get(k, 0.0):.3f} s" for k in (
         "scan", "segment", "tables", "pack", "copy", "launch", "sync",
         "assemble"))
     log(f"[seg-main] check_pipeline {SEG_BATCH}x{len(hs[0])} ops "
@@ -935,6 +978,106 @@ def phase_seg_main():
                          "kernel and one composition per launch, and no "
                          "torch.bmm")
     return hs, {"wgl_regs": launches, "wgl_compose": compose_launches}
+
+
+def same_scan(fk, want):
+    """The fields of two scans of one history equal: n_calls, max_open,
+    cuts, positions, the return and open-set arrays and the delta
+    stream."""
+    from jepsen_tpu_torch.ops import planner
+    return ((fk.n_calls, fk.max_open, fk.n_rets)
+            == (want.n_calls, want.max_open, want.n_rets)
+            and np.array_equal(fk.cuts, want.cuts)
+            and np.array_equal(fk.positions, want.positions)
+            and all(np.array_equal(a, b) for a, b in zip(
+                planner._fk_arrays(fk), planner._fk_arrays(want)))
+            and all(np.array_equal(a, b) for a, b in zip(
+                planner._deltas(fk), planner._deltas(want))))
+
+
+def phase_scan(seg_hs, env_hs):
+    """The C scanners against the plain Python scan, on the same
+    histories in one call (host times move between calls): the stream
+    pass (scan, cuts and segment wire), the column scan and the object
+    walk beside `_fast_scan` with `_segment_ends` and `pack_stream` on
+    the north-star batch, and the same with the deep tables
+    (`_pack_regs_single` beside `_pack_regs`) on the envelope at
+    max_open 12.  Each scanner interns into its own seen/rows, shared
+    across the batch as the pipelines share them.  Any difference
+    fails."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import deep_kernel, planner, regs_kernel, wgl_seg
+    spec = CASRegister().device_spec()
+    out = {}
+    for tag, hs, mob, deep in (("north-star", seg_hs, 10, False),
+                               ("envelope max_open=12", env_hs, 16, True)):
+        names = ("streams", "columns", "objects", "python")
+        secs = dict.fromkeys(names + ("python wire", "tables",
+                                      "python tables"), 0.0)
+        intern = {k: ({}, []) for k in names}
+        bad = []
+        for i, h in enumerate(hs):
+            pk = h.packed_columns()
+            if pk is None:
+                raise SystemExit(f"[scan] {tag}: history {i} has no columns")
+            scans = {
+                "streams": lambda s, r: planner._native_scan_streams(
+                    pk, h.ops, spec, s, r, mob, wgl_seg.TARGET_RETURNS),
+                "columns": lambda s, r: planner._native_scan_cols(
+                    pk, h.ops, spec, s, r, mob),
+                "objects": lambda s, r: planner._native_scan(
+                    h.ops, spec, s, r, mob),
+                "python": lambda s, r: planner._fast_scan(
+                    h.ops, spec, s, r, mob)}
+            got = {}
+            for k, scan in scans.items():
+                t = time.perf_counter()
+                got[k] = scan(*intern[k])
+                secs[k] += time.perf_counter() - t
+            fk = got["python"]
+            t = time.perf_counter()
+            seg_ends = planner._segment_ends(fk.cuts, wgl_seg.TARGET_RETURNS)
+            wire = regs_kernel.pack_stream(fk, seg_ends, 1)
+            secs["python wire"] += time.perf_counter() - t
+            sk = got["streams"]
+            if not (list(sk.seg_ends) == list(seg_ends)
+                    and (sk.n_calls, sk.max_open, sk.n_rets)
+                    == (fk.n_calls, fk.max_open, fk.n_rets)
+                    and np.array_equal(sk.positions, fk.positions)
+                    and all(a.tobytes() == b.tobytes()
+                            for a, b in zip(sk.wire, wire))):
+                bad.append((i, "streams"))
+            bad += [(i, k) for k in ("columns", "objects")
+                    if not same_scan(got[k], fk)]
+            if deep:
+                R, U = int(fk.max_open), len(intern["python"][1])
+                t = time.perf_counter()
+                tabs = planner._pack_regs_single(got["columns"], R, U,
+                                                 deep_kernel.I)
+                secs["tables"] += time.perf_counter() - t
+                t = time.perf_counter()
+                want = planner._pack_regs([(0, fk)], 1, R, U, deep_kernel.I)
+                secs["python tables"] += time.perf_counter() - t
+                if tabs[3] != want[3] or any(
+                        a.tobytes() != b.tobytes()
+                        for a, b in zip(tabs[:3], want[:3])):
+                    bad.append((i, "deep tables"))
+        s0, r0 = intern["python"]
+        bad += [k for k in names[:3] if intern[k] != (s0, r0)]
+        n_ops = sum(len(h) for h in hs)
+        py = secs["python"] + secs["python wire"]
+        line = ", ".join(f"{k} {secs[k]:.3f} s" for k in secs
+                         if deep or "tables" not in k)
+        log(f"[scan] {tag}: {len(hs)} histories, {n_ops} ops: {line}; "
+            f"the stream pass {n_ops / secs['streams']:.0f} ops/s, the "
+            f"Python scan with its wire {n_ops / py:.0f} ops/s "
+            f"({py / secs['streams']:.1f}x); fields, seen, rows and "
+            f"{'deep tables' if deep else 'wire bytes'} "
+            f"{'equal OK' if not bad else 'DIFFER ' + str(bad[:8])}")
+        if bad:
+            raise SystemExit(f"[scan] {tag}: the C scanners disagree")
+        out[tag] = dict(secs, n_ops=n_ops)
+    return out
 
 
 def phase_seg_grid(hs, clock_hz):
@@ -1596,6 +1739,7 @@ def phase_crash_main(seg_hs):
     if None in (wit_b, wit_c, wit_d):
         raise SystemExit("[crash-main] no plantable read")
     log(f"[crash-main] made the histories in {time.perf_counter() - t:.1f} s")
+    attach_columns("the crash workloads", [ha, hb, hc, hc_bad, hd, hd_bad])
     n_a = sum(1 for o in ha.ops if o.type == "info")
     run("(a) hard regime", ha, {"valid?": True, "crashed_ignored": n_a},
         max_open_bits=12)
@@ -1681,6 +1825,7 @@ def phase_crash_pipeline(seg_hs, main):
     model = CASRegister()
     shaped = [main["hists"]["c"]] + [crash_c_history(h)[0]
                                      for h in seg_hs[1:4]]
+    attach_columns("the crash-bearing pipeline histories", shaped[1:])
     batch = shaped + list(seg_hs[4:SEG_BATCH])
     st = {}
     t = time.perf_counter()
@@ -1818,6 +1963,7 @@ def main() -> int:
     grid_err = phase_grid(batches, verdicts)
     one = phase_timing(batches, clock_hz)
     seg_hs, seg_launches = phase_seg_main()
+    phase_scan(seg_hs, batches[12])
     seg = phase_seg_grid(seg_hs, clock_hz)
     crash_err = phase_crash_kernel(clock_hz)
     crash_main = phase_crash_main(seg_hs)

@@ -6,9 +6,10 @@ depth up to 16 through hand-written CUDA kernels: the register-delta
 segment kernel at depth <= 6 (`ops/regs_kernel.py`, `csrc/wgl_regs.cu`),
 its crash variants for histories with crashed (:info) calls
 (`ops/crash_kernel.py`, `csrc/wgl_crash.cu`) and the deep-overlap kernel
-at 7..16 (`ops/deep_kernel.py`, `csrc/wgl_deep.cu`).  Entry points run on
-the card unless the caller passes `device="cpu"`, which runs the
-kernel's plain PyTorch version."""
+at 7..16 (`ops/deep_kernel.py`, `csrc/wgl_deep.cu`).  The host scan of a
+history is C (`native/histscan.c`, built by the host compiler at first
+use).  Entry points run on the card unless the caller passes
+`device="cpu"`, which runs the kernel's plain PyTorch version."""
 
 from jepsen_tpu_torch.errors import (BackendUnavailable, CheckError,
                                      Unsupported)

@@ -2,6 +2,8 @@
 
 `history_from_dicts` builds this package's History from a list of op
 dicts (the JAX package's `Op.to_dict()` output, or any JSON history);
+`packed_from_columns` builds a PackedHistory from plain numpy columns
+(for example another package's columnar history, field by field);
 `tables_to_device` turns packed numpy register-delta tables into
 tensors on a device.  Nothing here imports the JAX package: callers
 hand over dicts and arrays."""
@@ -13,7 +15,11 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from jepsen_tpu_torch.history import History, Op
+from jepsen_tpu_torch.history import History, Op, PackedHistory
+
+#: The array columns of a PackedHistory, in its field order.
+PACKED_COLUMNS = ("index", "process", "type", "f", "value", "value_ok",
+                  "time", "vkind")
 
 
 def history_from_dicts(dicts: Iterable[dict]) -> History:
@@ -28,6 +34,16 @@ def history_from_dicts(dicts: Iterable[dict]) -> History:
             d["value"] = list(d["value"])
         ops.append(Op.from_dict(d))
     return History(ops)
+
+
+def packed_from_columns(columns: dict, f_codes: dict) -> PackedHistory:
+    """A PackedHistory from numpy arrays under the names of
+    PACKED_COLUMNS (vkind may be None) and the f tag -> code table;
+    every array is copied."""
+    cols = {k: (None if columns.get(k) is None
+                else np.array(columns[k], copy=True))
+            for k in PACKED_COLUMNS}
+    return PackedHistory(**cols, f_codes=dict(f_codes))
 
 
 def tables_to_device(ret_t, islot_t, iuop_t, a1t, a2t, t0t,

@@ -6,6 +6,15 @@ byte-identical, and tested so), with the state enumeration's
 jitted vmap replaced by the model's torch `step` over a written-out
 [states x ops] batch on the CPU.
 
+The scan of a history without crashed calls runs in C
+(`jepsen_tpu_torch/native/histscan.c`, built at first use): over the
+history's columns when it carries them (`_native_scan_cols`, and
+`_native_scan_streams`, which also writes the segment wire), else over
+its Op objects (`_native_scan`); `_scan_history` picks.  A history the
+C scan refuses raises what the pure-Python `_fast_scan` raises for it;
+`_fast_scan` stays as the plain version the C scan is held against and
+as the scan that carries crashed calls.
+
 Routing is the reference's: the register-delta segment kernel where
 `regs_gate` passes (R <= 6), the deep kernel where `deep_gate` passes
 (R 7..16), and every other shape raises `Unsupported` naming the
@@ -23,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from jepsen_tpu_torch import native
 from jepsen_tpu_torch.errors import Unsupported
 from jepsen_tpu_torch.history import History
 
@@ -141,18 +151,22 @@ class CrashedCalls(Unsupported):
 class _FastKey:
     """One scanned history: rets[r] = (slot, [(open_slot, open_uop),
     ...]) per return event, the open set at that return (target
-    included); `cuts[r]` marks returns after which no normal call is
-    open; `positions[r]` is the op position of return r in history.ops,
-    which names the failing call of an invalid verdict exactly.  A scan
-    that carries crashed calls sets `nc` (their count) and `rn` (the
-    first crashed slot, the normal overlap depth): crashed call j holds
-    slot rn + j and joins every open set from its invoke onward."""
+    included), or, from the C scanners, the same as flat int32 arrays
+    (ret_slots, cand_counts, cand_slots, cand_uops); `deltas` (C only)
+    holds (d_counts, d_slots, d_uops), the calls invoked since the
+    previous return, per return in invocation order.  `cuts[r]` marks
+    returns after which no normal call is open; `positions[r]` is the op
+    position of return r in history.ops, which names the failing call of
+    an invalid verdict exactly.  A scan that carries crashed calls sets
+    `nc` (their count) and `rn` (the first crashed slot, the normal
+    overlap depth): crashed call j holds slot rn + j and joins every
+    open set from its invoke onward."""
 
     __slots__ = ("rets", "max_open", "n_calls", "cuts", "positions", "nc",
-                 "rn")
+                 "rn", "arrays", "deltas")
 
-    def __init__(self, rets, max_open, n_calls, cuts, positions, nc=0,
-                 rn=None):
+    def __init__(self, rets, max_open, n_calls, cuts=None, positions=None,
+                 nc=0, rn=None, arrays=None, deltas=None):
         self.rets = rets
         self.max_open = max_open
         self.n_calls = n_calls
@@ -160,17 +174,22 @@ class _FastKey:
         self.positions = positions
         self.nc = nc
         self.rn = rn
+        self.arrays = arrays
+        self.deltas = deltas
 
     @property
     def n_rets(self):
-        return len(self.rets)
+        return (len(self.arrays[0]) if self.arrays is not None
+                else len(self.rets))
 
 
 def _fast_scan(history, spec, seen: dict, rows: list,
                max_open_bits: int, max_crashed: int = 0) -> _FastKey:
     """Pairing + slot assignment + op interning in one pass over the
-    ops.  Raises CrashedCalls for more than `max_crashed` crashed calls,
-    Unsupported for another history outside the slice (overlap past
+    ops, in Python: the plain version of the C scanners, and the scan
+    that carries crashed calls (`max_crashed`).  Raises CrashedCalls
+    for more than `max_crashed` crashed calls, Unsupported for another
+    history outside the slice (overlap past
     max_open_bits, ops the model cannot encode) and ValueError for a
     malformed one (a process invoked twice).  Up to `max_crashed`
     crashed calls take permanent slots above the normal ones (see
@@ -413,7 +432,10 @@ def _compose_transfer(T: np.ndarray, Sn: int) -> int:
 
 
 def _fk_arrays(fk: _FastKey):
-    """Flat (ret_slots, cand_counts, cand_slots, cand_uops) arrays."""
+    """Flat (ret_slots, cand_counts, cand_slots, cand_uops) arrays of
+    either scanner form."""
+    if fk.arrays is not None:
+        return fk.arrays
     rs = np.fromiter((r[0] for r in fk.rets), np.int32,
                      count=len(fk.rets))
     counts = np.fromiter((len(r[1]) for r in fk.rets), np.int32,
@@ -423,6 +445,193 @@ def _fk_arrays(fk: _FastKey):
     cu = np.fromiter((u for _, cands in fk.rets for _, u in cands),
                      np.int32)
     return rs, counts, cs, cu
+
+
+# ---------------------------------------------------------------------------
+# The C scanners' wrappers
+# ---------------------------------------------------------------------------
+
+def columns_of(history):
+    """The history's attached (or journaled) columns, or None."""
+    return history.packed_columns() if isinstance(history, History) \
+        else None
+
+
+def _refuse(why: int, at: int, ops, max_open_bits: int):
+    """The exception `_fast_scan` raises for a C scan's refusal (reason
+    code `why` of histscan.c at op position `at`)."""
+    if why == 1:
+        return ValueError(f"process {ops[at].process} double-invoked at "
+                          f"{at}")
+    if why == 2:
+        return CrashedCalls("history has calls that never return")
+    if why == 3:
+        return CrashedCalls("history has crashed (:info) calls")
+    if why == 4:
+        return Unsupported(f"model has no f-code for {ops[at].f!r}: "
+                           f"{ITEM_SERIAL}")
+    if why == 5:
+        return Unsupported(f"op value {ops[at].value!r} exceeds the int32 "
+                           f"device range: {ITEM_SERIAL}")
+    if why == 6:
+        return Unsupported(f"more than max_open_bits={max_open_bits} "
+                           f"simultaneously-open calls: {ITEM_SERIAL}")
+    raise AssertionError(f"unknown scan refusal {why}")
+
+
+def _i32(b) -> np.ndarray:
+    return np.frombuffer(b, np.int32)
+
+
+def _fastkey_from_native(out) -> _FastKey:
+    n_calls, max_open, rs, counts, cs, cu, cuts, dc, ds, du, pos = out
+    return _FastKey(None, max_open, n_calls, cuts=_i32(cuts),
+                    positions=_i32(pos),
+                    arrays=(_i32(rs), _i32(counts), _i32(cs), _i32(cu)),
+                    deltas=(_i32(dc), _i32(ds), _i32(du)))
+
+
+def _op_list(ops) -> list:
+    if isinstance(ops, History):
+        return ops.ops
+    return ops if isinstance(ops, list) else list(ops)
+
+
+def _native_scan(ops, spec, seen: dict, rows: list,
+                 max_open_bits: int) -> _FastKey:
+    """`_fast_scan` of a crash-free history in C, over its Op objects
+    (histscan.c `fast_scan`): the same fields, and the same exception
+    where the history is outside the scan."""
+    ops = _op_list(ops)
+    why, out = native.histscan().fast_scan(ops, spec.f_codes, seen, rows,
+                                           max_open_bits)
+    if why:
+        raise _refuse(why, out, ops, max_open_bits)
+    return _fastkey_from_native(out)
+
+
+def _cols_args(packed, spec):
+    """The six contiguous column buffers the C column scanners take, or
+    None for columns packed without value kinds (a custom encoder).  The
+    spec-independent casts are cached on `packed` (`_scan_cols`), keyed
+    by (packed.version, len(packed)): an in-place edit that bumps the
+    version (History.invalidate_packed), or a length change, rebuilds
+    them.  Only fmap, each op's model f-code, depends on the spec."""
+    if packed is None or packed.vkind is None:
+        return None
+    nf = len(packed.f_codes)
+    fcol = packed.f
+    if nf == 0:
+        fmap = np.full(len(fcol), -1, np.int32)
+    else:
+        f2spec = np.full(nf, -1, np.int32)
+        for tag, hid in packed.f_codes.items():
+            code = spec.f_codes.get(tag)
+            if code is not None and 0 <= hid < nf:
+                f2spec[hid] = code
+        fmap = np.where((fcol >= 0) & (fcol < nf),
+                        f2spec[np.clip(fcol, 0, nf - 1)],
+                        np.int32(-1)).astype(np.int32, copy=False)
+    tag = (packed.version, len(packed))
+    cached = getattr(packed, "_scan_cols", None)
+    fixed = cached[1] if cached is not None and cached[0] == tag else None
+    if fixed is None:
+        # values of vkind 4 wrap here; the scan refuses them unread
+        fixed = (np.ascontiguousarray(packed.process, dtype=np.int32),
+                 np.ascontiguousarray(packed.type, dtype=np.uint8),
+                 np.ascontiguousarray(packed.value[:, 0].astype(np.int32)),
+                 np.ascontiguousarray(packed.value[:, 1].astype(np.int32)),
+                 np.ascontiguousarray(packed.vkind, dtype=np.uint8))
+        packed._scan_cols = (tag, fixed)
+    return (fixed[0], fixed[1], np.ascontiguousarray(fmap), fixed[2],
+            fixed[3], fixed[4])
+
+
+#: histscan.c's refusal of columns that cannot name a client process
+#: (history.P_OUT_OF_RANGE): the object scan takes the history.
+_REFUSE_COLUMNS = 7
+
+
+def _native_scan_cols(packed, ops, spec, seen: dict, rows: list,
+                      max_open_bits: int,
+                      want_snaps: bool = True) -> Optional[_FastKey]:
+    """`_native_scan` over the history's columns (histscan.c
+    `fast_scan_cols`): no Op object is read unless the history is
+    refused, when `ops` (the same history's ops) name the op in the
+    message.  Returns None where the columns cannot carry the history
+    (no value kinds, a client process outside int32): the object scan
+    takes it.  `want_snaps=False` leaves cand_slots and cand_uops empty,
+    for callers that read only the delta stream."""
+    cols = _cols_args(packed, spec)
+    if cols is None:
+        return None
+    why, out = native.histscan().fast_scan_cols(
+        *cols, seen, rows, max_open_bits, 1 if want_snaps else 0)
+    if why == _REFUSE_COLUMNS:
+        return None
+    if why:
+        raise _refuse(why, out, _op_list(ops), max_open_bits)
+    return _fastkey_from_native(out)
+
+
+class _StreamKey:
+    """The stream scan's product: one crash-free history's scan already
+    cut into segments and written as the segment wire
+    (`regs_kernel.pack_stream(fk, seg_ends, 1)`'s layout), with the
+    fields of a _FastKey that the pipeline reads."""
+
+    __slots__ = ("n_calls", "max_open", "n_rets", "wire", "seg_ends",
+                 "positions")
+    nc = 0
+
+    def __init__(self, n_calls, max_open, n_rets, wire, seg_ends,
+                 positions):
+        self.n_calls = n_calls
+        self.max_open = max_open
+        self.n_rets = n_rets
+        self.wire = wire            # (cbuf u8, offs int64[K], nrows i32[K])
+        self.seg_ends = seg_ends
+        self.positions = positions
+
+
+def _native_scan_streams(packed, ops, spec, seen: dict, rows: list,
+                         max_open_bits: int,
+                         target: int) -> Optional[_StreamKey]:
+    """One C pass from the history's columns to its segment wire
+    (histscan.c `fast_scan_streams`): the scan, the quiescent cuts of
+    `_segment_ends(cuts, target)` and the I = 1 wire, each return's new
+    invokes in invocation order.  Returns None where the columns cannot
+    carry the history; raises as `_native_scan_cols`."""
+    cols = _cols_args(packed, spec)
+    if cols is None:
+        return None
+    why, out = native.histscan().fast_scan_streams(
+        *cols, seen, rows, max_open_bits, target)
+    if why == _REFUSE_COLUMNS:
+        return None
+    if why:
+        raise _refuse(why, out, _op_list(ops), max_open_bits)
+    n_calls, max_open, n_rets, cbuf, offs, nrows, seg_ends, pos = out
+    return _StreamKey(n_calls, max_open, n_rets,
+                      (np.frombuffer(cbuf, np.uint8),
+                       np.frombuffer(offs, np.int64), _i32(nrows)),
+                      _i32(seg_ends), _i32(pos))
+
+
+def _scan_history(packed, ops, spec, seen: dict, rows: list,
+                  max_open_bits: int, want_snaps: bool = True) -> _FastKey:
+    """The scan every entry point runs on a history without crashed
+    calls: the C column scan when the history carries columns
+    (`packed`, from `columns_of`), else (or where the columns cannot
+    carry it) the C object scan over `ops`.  Raises as `_fast_scan`:
+    CrashedCalls, Unsupported, or ValueError for a double invoke."""
+    fk = None
+    if packed is not None:
+        fk = _native_scan_cols(packed, ops, spec, seen, rows,
+                               max_open_bits, want_snaps)
+    if fk is None:
+        fk = _native_scan(ops, spec, seen, rows, max_open_bits)
+    return fk
 
 
 def _enumerate_states(spec, init_state: np.ndarray, uops: np.ndarray,
@@ -610,31 +819,70 @@ def _pack_regs(batch, Kp: int, R: int, U: int, I: int):
     return ret_t, islot_t, iuop_t, Lp
 
 
-def _stream_deltas(fk: _FastKey, seg_ends, I: int):
-    """Delta-encode one history split at `seg_ends` (quiescent cuts),
-    one segment-local row layout per segment: the twin of the
-    reference's `_pack_regs_single`, whose invoke-delta stream comes from
-    its native scanners.  Here the stream comes from the scan's open
-    lists, which are in invocation order: the calls invoked since return
-    r - 1 are the last len(open_r) - (len(open_{r-1}) - 1) entries of
-    return r's list.  So the deltas of a return are in invocation order
-    (where `_pack_regs` orders them by slot), which the pipeline's
-    speculative rounds depend on; at exact rounds the transfer matrices
-    are the same either way.  Bursts beyond I spill into virtual rows
-    (no return) before their return's row.  Returns int64 arrays
-    (rows [K]: rows per segment; ret_key, rho, rs [NR]: each return's
-    segment, row and slot; ent_key, row, col, dslot, duop: each delta's
-    segment, row, column, slot and uop)."""
+def _deltas(fk: _FastKey):
+    """(ret_slots, deltas per return, delta slots, delta uops), int64:
+    the C scan's delta stream as it is, or, from the Python scan, taken
+    from its open lists (in invocation order: the calls invoked since
+    return r - 1 are the last len(open_r) - (len(open_{r-1}) - 1)
+    entries of return r's list)."""
+    if fk.deltas is not None:
+        rs = fk.arrays[0]
+        return (rs.astype(np.int64),) + tuple(x.astype(np.int64)
+                                              for x in fk.deltas)
     rs, counts, cs, cu = _fk_arrays(fk)
-    NR = len(rs)
     counts = counts.astype(np.int64)
     prev = np.concatenate([[0], counts[:-1] - 1])
     c = counts - prev                            # deltas per return
     first = np.cumsum(counts) - counts
     pos_in = np.arange(len(cs)) - np.repeat(first, counts)
     keep = pos_in >= np.repeat(counts - c, counts)
-    dslot = cs[keep].astype(np.int64)
-    duop = cu[keep].astype(np.int64)
+    return (rs.astype(np.int64), c, cs[keep].astype(np.int64),
+            cu[keep].astype(np.int64))
+
+
+def _pack_regs_single(fk: _FastKey, R: int, U: int, I: int):
+    """`_pack_regs([(0, fk)], 1, R, U, I)` from the scan's delta stream
+    (the reference's `_pack_regs_single`), without the dense snapshot
+    matrices: one history as one key, bursts beyond I in virtual rows
+    before their return's row.  A return's deltas take slot order here,
+    as `_pack_regs` gives them, so the tables are equal.  Returns
+    (ret_t [L', 1], islot_t, iuop_t [L', 1, I], L')."""
+    rs, c, dslot, duop = _deltas(fk)
+    NR = len(rs)
+    ent_ret = np.repeat(np.arange(NR), c)
+    order = np.lexsort((dslot, ent_ret))         # by (return, slot)
+    dslot, duop = dslot[order], duop[order]
+    e = np.maximum(0, (c + I - 1) // I - 1)     # virtual rows per return
+    rho = np.arange(NR) + np.cumsum(e)          # row of return r
+    Lp = _pad_len(int(rho[-1]) + 1 if NR else 1)
+    ret_t = np.full((Lp, 1), -1, np.int8)
+    ret_t[rho, 0] = rs.astype(np.int8)
+    j = np.arange(len(dslot)) - (np.cumsum(c) - c)[ent_ret]
+    from_end = c[ent_ret] - 1 - j
+    row = rho[ent_ret] - from_end // I
+    col = from_end % I
+    uop_dtype = np.int8 if U <= 127 else np.int16
+    islot_t = np.full((Lp, 1, I), -1, np.int8)
+    iuop_t = np.full((Lp, 1, I), -1, uop_dtype)
+    islot_t[row, 0, col] = dslot.astype(np.int8)
+    iuop_t[row, 0, col] = duop.astype(uop_dtype)
+    return ret_t, islot_t, iuop_t, Lp
+
+
+def _stream_deltas(fk: _FastKey, seg_ends, I: int):
+    """Delta-encode one history split at `seg_ends` (quiescent cuts),
+    one segment-local row layout per segment: the twin of the
+    reference's `_pack_regs_single`, over the scan's invoke-delta stream
+    (`_deltas`).  The deltas of a return are in invocation order (where
+    `_pack_regs` orders them by slot), which the pipeline's
+    speculative rounds depend on; at exact rounds the transfer matrices
+    are the same either way.  Bursts beyond I spill into virtual rows
+    (no return) before their return's row.  Returns int64 arrays
+    (rows [K]: rows per segment; ret_key, rho, rs [NR]: each return's
+    segment, row and slot; ent_key, row, col, dslot, duop: each delta's
+    segment, row, column, slot and uop)."""
+    rs, c, dslot, duop = _deltas(fk)
+    NR = len(rs)
     K = len(seg_ends)
     nr_all = np.diff(np.concatenate([[0], seg_ends])).astype(np.int64)
     key_end = np.cumsum(nr_all)

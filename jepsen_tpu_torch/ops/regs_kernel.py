@@ -97,7 +97,7 @@ def pack_stream(fk, seg_ends, n_in: int, crow=None):
         d = planner._stream_deltas(fk, seg_ends, n_in)
     rows, rkey, rho, rs, dkey, row, col, dslot, duop = d
     size = (ROW_BYTES if crow is None else CROW_ROW_BYTES) * rows
-    offs = np.concatenate([[0], np.cumsum(size)[:-1]]).astype(np.int64)
+    offs = (np.cumsum(size) - size).astype(np.int64)
     buf = np.zeros(int(size.sum()), np.uint8)
     buf[offs[rkey] + rho] = (rs + 1).astype(np.uint8)
     base, L = offs[dkey], rows[dkey]

@@ -227,10 +227,12 @@ def _laps(stats: dict):
 
 def pack_pipeline(model, histories, *, max_open_bits=None,
                   max_states: int = 64, stats=None, device=None):
-    """The host half of `check_pipeline`: scan, gate and pack every
-    history into one grid.  Returns (results, grid, pend): `results`
-    holds the entries already decided on the host (empty or out-of-scope
-    histories) and None for the rest; `grid` is the `_Grid` to launch;
+    """The host half of `check_pipeline`: scan (in C), gate and pack
+    every history into one grid, each history's tables from the scan's
+    delta stream (`planner._pack_regs_single`).  Returns (results,
+    grid, pend): `results` holds the entries already decided on the
+    host (empty or out-of-scope histories) and None for the rest; `grid`
+    is the `_Grid` to launch;
     pend[k] = (i, fk, ret_t, ops, R, Sn) describes the grid's k-th CTA,
     history i.  A history with crashed calls is in neither: its entry
     stays None, as does every history from the one whose alphabet the
@@ -256,7 +258,9 @@ def pack_pipeline(model, histories, *, max_open_bits=None,
     for i, h in enumerate(histories):
         ops = h.ops
         try:
-            fk = planner._fast_scan(h, spec, seen, rows, max_open_bits)
+            fk = planner._scan_history(planner.columns_of(h), ops, spec,
+                                       seen, rows, max_open_bits,
+                                       want_snaps=False)
         except planner.CrashedCalls:
             lap("scan")              # check_pipeline's crash tiers take it
             continue
@@ -304,8 +308,8 @@ def pack_pipeline(model, histories, *, max_open_bits=None,
         batch_tables = (*tables, Sn)
         # every wire has I = 2 invoke columns: an R = 1 history packs as
         # exactly as under the reference's I = 1 (the second stays empty)
-        ret_t, islot_t, iuop_t, _ = planner._pack_regs(
-            [(0, fk)], 1, R, len(rows), deep_kernel.I)
+        ret_t, islot_t, iuop_t, _ = planner._pack_regs_single(
+            fk, R, len(rows), deep_kernel.I)
         cbuf, G = pack_events_compact(ret_t, islot_t, iuop_t)
         grid.add(cbuf, G, R)
         pend.append((i, fk, ret_t, ops, R, Sn))

@@ -83,7 +83,12 @@ class _SegGrid:
 
     def add(self, fk, seg_ends, n_in: int):
         """One history's segments, n_in invoke columns per row."""
-        cbuf, offs, rows = regs_kernel.pack_stream(fk, seg_ends, n_in)
+        self.add_wire(*regs_kernel.pack_stream(fk, seg_ends, n_in))
+
+    def add_wire(self, cbuf, offs, rows):
+        """One history's segments as a written wire: (cbuf u8, offs
+        int64[K] from its start, nrows int32[K]), the layout of
+        `regs_kernel.pack_stream` (the stream scan writes it)."""
         self.bufs.append(cbuf)
         self.offs.append(offs + self.size)
         self.rows.append(rows)
@@ -377,7 +382,8 @@ def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
         History(history).ops
     lap = wgl_deep._laps({} if stats is None else stats)
     try:
-        fk = planner._fast_scan(ops, spec, seen, rows, max_open_bits)
+        fk = planner._scan_history(planner.columns_of(history), ops, spec,
+                                   seen, rows, max_open_bits)
     except planner.CrashedCalls:
         lap("scan")
         return _check_crashed(model, spec, history, ops,
@@ -410,12 +416,18 @@ class _Crashes(NamedTuple):
     next_state: np.ndarray
 
 
-def _split(model, spec, ops, *, max_states, max_open_bits) -> _Crashes:
+def _split(model, spec, ops, *, max_states, max_open_bits,
+           packed=None) -> _Crashes:
+    """Tier 1's reading (see _Crashes).  The stripped history is scanned
+    in C: over `packed`, the history's columns, at the kept positions,
+    or over its ops when it has none."""
     drop, crashed = planner._split_crashed(ops)
-    stripped = [o for pos, o in enumerate(ops) if not drop[pos]]
+    keep = np.nonzero(~drop)[0]
+    stripped = [ops[pos] for pos in keep]
     seen: dict = {}
     rows: list = []
-    fk = planner._fast_scan(stripped, spec, seen, rows, max_open_bits)
+    fk = planner._scan_history(None if packed is None else packed.take(keep),
+                               stripped, spec, seen, rows, max_open_bits)
     n_rows = len(rows)
     crash_uop = planner._intern_crashed(crashed, spec, seen, rows)
     states, legal, next_state, _ = _model_tables(spec, model, rows,
@@ -447,7 +459,8 @@ def _check_crashed(model, spec, history, ops, *, max_states, max_open_bits,
     tier leaves the history open.  `lap(stage)` adds the seconds since
     its last call to a stage: split, tier2, stripped, relaxed, oracle."""
     c = _split(model, spec, ops, max_states=max_states,
-               max_open_bits=max_open_bits)
+               max_open_bits=max_open_bits,
+               packed=planner.columns_of(history))
     lap("split")
     n_inert = sum(c.inert)
     if len(c.crashed) - n_inert <= planner.MAX_CRASHED:
@@ -498,6 +511,8 @@ def _tier2(model, spec, history, *, max_states, max_open_bits, localize,
     rows: list = []
     ops = history.ops
     try:
+        # the crash-carrying scan is the Python one, as in the reference:
+        # the C scanners refuse crashed calls
         fk = planner._fast_scan(ops, spec, seen, rows, max_open_bits,
                                 max_crashed=planner.MAX_CRASHED)
         return _check_scanned(model, spec, history, ops, fk, rows,
@@ -666,7 +681,11 @@ def check_pipeline(model, histories, *, max_states: int = 64,
     """Check many histories: scan and segment them in groups of
     PIPE_GROUP, launch each group's segments (one kernel launch, then
     the composition) on the current stream without waiting, and fetch
-    every verdict in one copy at the end.
+    every verdict in one copy at the end.  A history with columns
+    (`History.attach_packed`, or a journal) is scanned, cut and written
+    as the segment wire in one C pass (`planner._native_scan_streams`);
+    one without takes the C object scan, `_segment_ends` and
+    `pack_stream`.
 
     The group kernel runs SPEC_ROUNDS speculative closure rounds (the
     reference's `check_pipeline`): fewer rounds than R only
@@ -682,9 +701,11 @@ def check_pipeline(model, histories, *, max_states: int = 64,
     rebuilt only when the alphabet grows.
 
     `stats`, when given a dict, receives host seconds per stage (scan,
-    segment, tables, pack, copy, launch, sync, assemble, stragglers)
-    and, on a CUDA device, `kernel_ms` and `compose_ms`, the device
-    time of the segment kernel and of the composition (CUDA events)."""
+    segment, tables, pack, copy, launch, sync, assemble, stragglers;
+    the stream pass counts under scan, with no segment stage, and pack
+    is then the grid's concatenation) and, on a CUDA device,
+    `kernel_ms` and `compose_ms`, the device time of the segment kernel
+    and of the composition (CUDA events)."""
     dev = resolve_device(device)
     spec = model.device_spec()
     if spec is None:
@@ -711,11 +732,21 @@ def check_pipeline(model, histories, *, max_states: int = 64,
         while pos < n and len(grp) < PIPE_GROUP:
             i = pos
             pos += 1
-            ops = histories[i].ops if isinstance(histories[i], History) \
-                else History(histories[i]).ops
+            h = histories[i]
+            ops = h.ops if isinstance(h, History) else History(h).ops
+            packed = planner.columns_of(h)
             try:
-                fk = planner._fast_scan(ops, spec, seen, rows,
-                                        max_open_bits)
+                # one C pass from the columns to the segment wire; a
+                # history the columns cannot carry takes the C object
+                # scan and the numpy wire
+                fk = None
+                if packed is not None:
+                    fk = planner._native_scan_streams(
+                        packed, ops, spec, seen, rows, max_open_bits,
+                        TARGET_RETURNS)
+                if fk is None:
+                    fk = planner._native_scan(ops, spec, seen, rows,
+                                              max_open_bits)
             except Unsupported:
                 strag.append(i)
                 lap("scan")
@@ -725,8 +756,11 @@ def check_pipeline(model, histories, *, max_states: int = 64,
                 results[i] = {"valid?": True, "op_count": 0,
                               "backend": dev.type, "engine": "wgl_seg"}
                 continue
-            seg_ends = planner._segment_ends(fk.cuts, TARGET_RETURNS)
-            lap("segment")
+            if isinstance(fk, planner._StreamKey):
+                seg_ends = fk.seg_ends
+            else:
+                seg_ends = planner._segment_ends(fk.cuts, TARGET_RETURNS)
+                lap("segment")
             grp.append((i, fk, seg_ends, ops))
         if not grp:
             continue
@@ -757,10 +791,14 @@ def check_pipeline(model, histories, *, max_states: int = 64,
         grid = _SegGrid()
         for i, fk, seg_ends, ops in grp:
             # the reference's pipeline wire carries one invoke per row
-            grid.add(fk, seg_ends, 1)
+            if isinstance(fk, planner._StreamKey):
+                grid.add_wire(*fk.wire)
+            else:
+                grid.add(fk, seg_ends, 1)
             metas[i] = (fk, seg_ends, ops)
+        host_wire = grid.wire() + (aux,)
         lap("pack")
-        wire = grid.to_device(aux, dev)
+        wire = tuple(regs_kernel.to_device(x, dev) for x in host_wire)
         lap("copy")
         vd, bad = _launch(wire, grid.seg_counts, UP, R=R_cur, Sn=Sn,
                           rounds=rounds, events=events)

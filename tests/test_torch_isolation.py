@@ -1,10 +1,12 @@
 """jepsen_tpu_torch stands alone: no module of it, and not chip_smoke.py,
-imports jax or anything of jepsen_tpu; without a card the default
+imports jax or anything of jepsen_tpu, and no C or CUDA source of it
+includes a file outside the package; without a card the default
 device raises BackendUnavailable instead of running on the CPU, on the
 deep route and on the segment route; shapes outside the slice raise
 Unsupported."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -21,6 +23,9 @@ from jepsen_tpu_torch.ops import deep_kernel, wgl_deep, wgl_seg
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "jepsen_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
+PACKAGE = ROOT / "jepsen_tpu_torch"
+C_FILES = sorted(p for ext in ("*.c", "*.h", "*.cu")
+                 for p in PACKAGE.rglob(ext) if "_build" not in p.parts)
 
 
 def forbidden(name: str) -> bool:
@@ -47,6 +52,7 @@ def test_import_pulls_in_no_forbidden_module():
         p.relative_to(ROOT / "jepsen_tpu_torch").with_suffix("").parts)
         for p in FILES[:-1])
     mods = [m.removesuffix(".__init__") for m in mods]
+    assert "jepsen_tpu_torch.native" in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
@@ -57,6 +63,28 @@ def test_import_pulls_in_no_forbidden_module():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_c_sources_are_the_packages_own():
+    names = {p.name for p in C_FILES}
+    assert {"histscan.c", "scancommon.h", "wgl_deep.cu", "wgl_regs.cu",
+            "wgl_crash.cu"} <= names
+
+
+@pytest.mark.parametrize("path", C_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_c_sources_include_nothing_outside_the_package(path):
+    includes = re.findall(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]',
+                          path.read_text(), re.M)
+    assert includes, path
+    for kind, name in includes:
+        assert "jepsen" not in name and ".." not in name, name
+        if kind == '"':
+            # a quoted include is a file of the package, beside the source
+            target = (path.parent / name).resolve()
+            assert target.is_relative_to(PACKAGE) and target.exists(), name
+        else:
+            assert not name.startswith("/"), name
 
 
 def small_history():
