@@ -101,7 +101,27 @@ any failure exits non-zero:
                and (b)'s, deaths made at the first, a middle and the last
                segment, and seeded matrices at J = 1, 33, 88 and 128 on
                unaligned starts; then (c)'s and (b)'s compositions timed
-               against the torch.bmm levels in turns.
+               against the torch.bmm levels in turns;
+  many-main  - the JAX package's multi-key workload: 3400 keys of 300
+               calls (r/w/cas, vmax 4, concurrency 5) through
+               wgl_seg.check_many, once to warm up and once timed: every
+               key valid on the J = 1 key launch (engine
+               wgl_seg_batch_regs); wall, ops/s, stage seconds, launches,
+               kernel ms and host share; then a stale read planted in 3
+               keys: those and only those invalid, at the planted read;
+  many-crash - 850 keys, 1% of calls crashed on every third key: every
+               key valid and batched (crash-stripped twins), the crashed
+               calls ignored counted;
+  many-kernel
+             - the key launch rebuilt as check_many builds it: its first
+               256 keys against the plain version byte for byte on CPU
+               copies of the same inputs, then the full launch against
+               it, timed both ways beside its bound, with the CTAs, the
+               threads a CTA and the CTAs an SM;
+  many-independent
+             - one keyed history of 64 keys through
+               independent.batch_checker: its results equal check_many's
+               on the subhistories, and failures names the planted key.
 
 Kernel times come two ways, each a field of the JSON kernel line: "ms",
 from an idle card's launch to its end (CUDA events around one call,
@@ -344,11 +364,12 @@ def phase_build():
     native.histscan()
     log(f"[build] {lib.name} in {time.perf_counter() - t:.2f} s by {cc} "
         f"({' '.join(version)}; {' '.join(native.FLAGS)})")
+    return kernels
 
 
 def ptxas_kernels(text):
-    """{kernel<template args>: {"regs": n, "spill": store + load bytes}}
-    from `nvcc -Xptxas -v` output."""
+    """{kernel<template args>: {"regs": n, "spill": store + load bytes,
+    "smem": static shared bytes}} from `nvcc -Xptxas -v` output."""
     out, name = {}, None
     for ln in text.splitlines():
         m = re.search(r"entry function '_Z\d+(\w+?)I((?:L[ib]\d+E)+)E",
@@ -356,7 +377,7 @@ def ptxas_kernels(text):
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             name = f"{m.group(1)}<{args}>"
-            out[name] = {"regs": None, "spill": 0}
+            out[name] = {"regs": None, "spill": 0, "smem": 0}
             continue
         if name is None:
             continue
@@ -367,6 +388,9 @@ def ptxas_kernels(text):
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             out[name]["regs"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            out[name]["smem"] = int(m.group(1))
     return out
 
 
@@ -789,8 +813,8 @@ def seg_scan(inp, device, rounds, ks=None):
     args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
             for x in (inp["cbuf"], offs, nrows, inp["aux"])]
     work = torch.zeros(len(offs), dtype=torch.int64, device=dev)
-    kw = dict(R=inp["R"], Sn=inp["Sn"], UP=inp["UP"], J=inp["Sn"],
-              rounds=rounds, work=work)
+    kw = dict(R=inp["R"], Sn=inp["Sn"], UP=inp["UP"],
+              J=inp.get("J", inp["Sn"]), rounds=rounds, work=work)
     out = []
     ms = float("nan")
     if dev.type == "cuda":
@@ -1954,9 +1978,263 @@ def phase_crash_timing(main, clock_hz):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Many independent keys (wgl_seg.check_many, independent.batch_checker)
+# ---------------------------------------------------------------------------
+
+MANY_KEYS = 3400                    # keys of the multi-key batch
+MANY_CALLS = 300                    # calls a key
+MANY_CRASH_KEYS = MANY_KEYS // 4    # keys of the crashed-keys batch
+MANY_KERNEL_KEYS = 256              # keys held byte for byte
+SM_CTAS = 32                        # resident CTAs an SM (sm_90)
+SM_REGS = 65536                     # 32-bit registers an SM
+SM_SMEM = 228 * 1024                # shared memory an SM, bytes
+CTA_SMEM_RESERVED = 1024            # shared memory the runtime keeps a CTA
+
+
+def many_keys(n, seed0, crash_every=0):
+    """n keys of MANY_CALLS calls, concurrency 5, vmax 4, seeds seed0 +
+    k (the JAX package's multi-key workload); with `crash_every`, 1% of
+    the calls of every crash_every-th key crash."""
+    return [make_history(MANY_CALLS, 5, seed=seed0 + k, vmax=4,
+                         crash_rate=0.01 if crash_every
+                         and k % crash_every == 0 else 0.0)
+            for k in range(n)]
+
+
+def many_line(tag, keys, res, st, wall, launches):
+    """One log line of a check_many run: ops/s, wall, stages, launches,
+    kernel ms and host share."""
+    n_ops = sum(len(h) for h in keys)
+    dev_ms = st.get("kernel_ms", 0.0)
+    stages = ", ".join(f"{k} {st.get(k, 0.0):.3f} s" for k in (
+        "scan", "tables", "pack", "launch", "sync", "assemble", "deep",
+        "crash", "localize"))
+    R = max((r["dispatch"]["R"] or 0) for r in res if "dispatch" in r)
+    log(f"[{tag}] check_many {len(keys)} keys x {MANY_CALLS} calls "
+        f"({n_ops} ops, R={R}): {n_ops / wall:.0f} ops/s, wall "
+        f"{wall:.3f} s, key launches {launches}, kernel {dev_ms:.3f} ms, "
+        f"host share {(wall - dev_ms / 1e3) / wall:.4f}; stages: {stages}")
+
+
+def phase_many_main():
+    """MANY_KEYS keys through check_many (warm, then timed): every key
+    valid on the key launch; then a stale read planted in three keys,
+    which alone come back invalid, each at its planted read.  The
+    segment kernel's launch count is read over the timed run."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import regs_kernel, wgl_seg
+    t = time.perf_counter()
+    keys = many_keys(MANY_KEYS, 1000)
+    log(f"[many-main] made {MANY_KEYS} keys of {MANY_CALLS} calls in "
+        f"{time.perf_counter() - t:.1f} s")
+    attach_columns("the multi-key batch", keys)
+    model = CASRegister()
+    wgl_seg.check_many(model, keys)                  # warm
+    regs_kernel.LAUNCHES = 0
+    st = {}
+    t = time.perf_counter()
+    res = wgl_seg.check_many(model, keys, stats=st)
+    wall = time.perf_counter() - t
+    launches = regs_kernel.LAUNCHES
+    bad = [i for i, r in enumerate(res) if r["valid?"] is not True
+           or r["engine"] != "wgl_seg_batch_regs"]
+    if bad:
+        raise SystemExit(f"[many-main] keys {bad[:8]} not judged valid by "
+                         f"the key launch")
+    many_line("many-main", keys, res, st, wall, launches)
+    if launches < 1 or launches != st["launches"]:
+        raise SystemExit(f"[many-main] {launches} segment kernel launches "
+                         f"on the main path, {st['launches']} key launches")
+    picks = (7, MANY_KEYS // 2, MANY_KEYS - 1)
+    planted = list(keys)
+    wits = {}
+    for k in picks:
+        planted[k] = copy_history(keys[k])
+        wits[k] = plant_stale_read(planted[k], 0.5, 4)
+        if wits[k] is None:
+            raise SystemExit(f"[many-main] no plantable read in key {k}")
+    attach_columns("the planted keys", [planted[k] for k in picks])
+    t = time.perf_counter()
+    rp = wgl_seg.check_many(model, planted)
+    dt = time.perf_counter() - t
+    got = {i: r.get("op_index") for i, r in enumerate(rp)
+           if r["valid?"] is not True}
+    ok = got == wits and all(rp[k]["engine"] == "wgl_seg_batch_regs"
+                             for k in picks)
+    log(f"[many-main] stale reads planted in keys {list(picks)} at "
+        f"{[wits[k] for k in picks]}: invalid keys {sorted(got)} at "
+        f"{[got.get(k) for k in picks]} in {dt:.3f} s "
+        f"{'OK' if ok else 'WRONG'}")
+    if not ok:
+        raise SystemExit("[many-main] the planted keys were not the "
+                         "invalid ones, at their planted reads")
+    return keys, launches
+
+
+def phase_many_crash():
+    """MANY_CRASH_KEYS keys, 1% of calls crashed on every third key,
+    through check_many: every key valid and batched (its engine a
+    wgl_seg one); the crashed calls ignored are counted."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import regs_kernel, wgl_seg
+    keys = many_keys(MANY_CRASH_KEYS, 5000, crash_every=3)
+    attach_columns("the crashed-keys batch", keys)
+    model = CASRegister()
+    wgl_seg.check_many(model, keys)                  # warm
+    regs_kernel.LAUNCHES = 0
+    st = {}
+    t = time.perf_counter()
+    res = wgl_seg.check_many(model, keys, stats=st)
+    wall = time.perf_counter() - t
+    bad = [i for i, r in enumerate(res) if r["valid?"] is not True
+           or not r["engine"].startswith("wgl_seg")]
+    if bad:
+        raise SystemExit(f"[many-crash] keys {bad[:8]} not judged valid "
+                         f"by a batched engine")
+    crashed = sum(o.type == "info" for h in keys for o in h.ops)
+    ignored = sum(r.get("crashed_ignored", 0) for r in res)
+    twins = sum("crashed_ignored" in r for r in res)
+    many_line("many-crash", keys, res, st, wall, regs_kernel.LAUNCHES)
+    log(f"[many-crash] {crashed} crashed calls in {twins} keys, "
+        f"{ignored} ignored on their keys' crash-stripped twins")
+    if ignored != crashed:
+        raise SystemExit("[many-crash] a crashed key left the batch")
+
+
+def many_inputs(keys):
+    """The key launch's inputs as check_many builds them: one alphabet,
+    each key one segment at J = 1, rounds R (the deepest key's)."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import planner, wgl_seg
+    model = CASRegister()
+    spec = model.device_spec()
+    seen, rows = {}, []
+    fks = [wgl_seg._scan_key(h, spec, seen, rows, 10) for h in keys]
+    states, legal, nxt, dec = wgl_seg._model_tables(spec, model, rows, 64)
+    grid = wgl_seg._SegGrid()
+    for fk in fks:
+        grid.add_wire(*wgl_seg._key_wire(fk))
+    aux, UP = wgl_seg._aux(planner._pack_uop_tables(legal, nxt, *dec))
+    cbuf, offs, nrows = grid.wire()
+    return dict(cbuf=cbuf, offs=offs, nrows=nrows, aux=aux, UP=UP,
+                R=max(fk.max_open for fk in fks), Sn=states.shape[0], J=1,
+                U=len(rows))
+
+
+def ctas_per_sm(k):
+    """Resident CTAs an SM of one-warp CTAs of the kernel instantiation
+    whose ptxas counts are `k`: the least of the CTA limit, the register
+    file (registers rounded up to 8 a thread) and shared memory."""
+    regs = -(-k["regs"] // 8) * 8
+    return min(SM_CTAS, SM_REGS // (32 * regs),
+               SM_SMEM // (k["smem"] + CTA_SMEM_RESERVED))
+
+
+def phase_many_kernel(keys, kernels, clock_hz):
+    """The key launch rebuilt as check_many builds it: the first
+    MANY_KERNEL_KEYS keys against the plain version byte for byte (on
+    CPU copies of the same inputs), then the full launch against it,
+    timed launch to end and on the device beside its bound."""
+    from jepsen_tpu_torch.ops import regs_kernel
+    small = many_inputs(keys[:MANY_KERNEL_KEYS])
+    full = many_inputs(keys)
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(2, mp_context=ctx) as pool:
+        f_small = pool.submit(plain_seg_job, small, small["R"])
+        f_full = pool.submit(plain_seg_job, full, full["R"])
+        T, work, nbad, _ = seg_scan(small, DEV, small["R"])
+        pT, pwork, _ = f_small.result()
+        ok = (T.tobytes() == pT.tobytes() and np.array_equal(work, pwork)
+              and nbad == 0)
+        log(f"[many-kernel] first {MANY_KERNEL_KEYS} keys (R={small['R']}, "
+            f"Sn={small['Sn']}, rows={int(small['nrows'].sum())}): transfer "
+            f"rows and operation counts against the plain version "
+            f"{'byte for byte OK' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit("[many-kernel] the key launch and its plain "
+                             "version disagree")
+        Tn, wn, nbad, _ = seg_scan(full, DEV, full["R"])
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+                for x in (full["cbuf"], full["offs"], full["nrows"],
+                          full["aux"])]
+        kw = dict(R=full["R"], Sn=full["Sn"], UP=full["UP"], J=1,
+                  rounds=full["R"])
+
+        def scan():
+            return regs_kernel.regs_scan(*args, **kw)
+        scan()                                        # warm
+        ms, dms = launch_ms(scan, 5), device_ms(scan, 10)
+        pT, pwork, psecs = f_full.result()
+    K, Sn = len(full["offs"]), full["Sn"]
+    if not (Tn.tobytes() == pT.tobytes() and np.array_equal(wn, pwork)
+            and nbad == 0):
+        raise SystemExit("[many-kernel] the full key launch and its plain "
+                         "version disagree")
+    n_bytes = full["cbuf"].nbytes + 12 * K + full["aux"].nbytes + K * Sn
+    b = seg_bound_ms(int(wn.sum()), n_bytes, clock_hz)
+    name = f"wgl_regs_kernel<{regs_kernel.plane_width(full['R'])}," \
+           f"{regs_kernel.snp(Sn)}>"
+    k = kernels.get(name)
+    occ = ctas_per_sm(k) if k else "not reported"
+    log(f"[many-kernel] full launch: K={K} keys, rows="
+        f"{int(full['nrows'].sum())}, R={full['R']}, Sn={Sn}, rounds "
+        f"{full['R']}: {K} CTAs of 32 threads ({regs_kernel.snp(Sn)} a key "
+        f"active), {name} {k['regs'] if k else '?'} registers and "
+        f"{k['smem'] if k else '?'} bytes of shared memory, {occ} CTAs an "
+        f"SM; kernel {ms:.4f} ms launch to end (mean of 5), {dms:.4f} ms "
+        f"on the device (10 back to back), plain (CPU, one thread) "
+        f"{1e3 * psecs:.1f} ms, equal byte for byte; bound {b:.4f} ms from "
+        f"{int(wn.sum())} integer operations and {n_bytes} bytes "
+        f"({b / ms:.4f} of launch to end, {b / dms:.4f} of the device "
+        f"time)")
+    return dict(ms=ms, device_ms=dms, plain_ms=1e3 * psecs, bound_ms=b,
+                err=int(np.abs(Tn.astype(np.int64)
+                               - pT.astype(np.int64)).max()))
+
+
+def phase_many_independent(keys):
+    """One keyed history of 64 keys, a stale read planted in one, through
+    independent.batch_checker: its results equal check_many's on the
+    subhistories and failures names the planted key."""
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.independent import (KV, batch_checker,
+                                              subhistory)
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import wgl_seg
+    n, bad_key = 64, 41
+    parts = [copy_history(h) for h in keys[:n]]
+    if plant_stale_read(parts[bad_key], 0.5, 4) is None:
+        raise SystemExit("[many-independent] no plantable read")
+    # round-robin merge, each key on its own five processes
+    streams = [[o.assoc(process=5 * k + o.process, value=KV(k, o.value))
+                for o in h.ops] for k, h in enumerate(parts)]
+    ops = [s[j] for j in range(max(map(len, streams))) for s in streams
+           if j < len(s)]
+    h = History(ops).index()
+    t = time.perf_counter()
+    out = batch_checker(CASRegister()).check(None, h)
+    dt = time.perf_counter() - t
+    ks = sorted(out["results"], key=repr)
+    direct = wgl_seg.check_many(CASRegister(),
+                                [subhistory(k, h) for k in ks])
+    fields = ("valid?", "op_count", "op_index", "engine")
+    same = all({f: out["results"][k].get(f) for f in fields}
+               == {f: r.get(f) for f in fields}
+               for k, r in zip(ks, direct))
+    ok = (same and out["failures"] == [bad_key] and out["valid?"] is False
+          and len(ks) == n)
+    log(f"[many-independent] {n} keys, {len(h)} ops through "
+        f"batch_checker in {dt:.3f} s: valid?={out['valid?']} failures="
+        f"{out['failures']} (planted {bad_key}); results equal check_many "
+        f"on the subhistories: {'OK' if ok else 'WRONG'}")
+    if not ok:
+        raise SystemExit("[many-independent] batch_checker disagrees")
+
+
 def main() -> int:
     smi, clock_hz = phase_device()
-    phase_build()
+    built = phase_build()
     err = phase_kernel(clock_hz)
     seg_err = phase_seg_kernel(clock_hz)
     batches, verdicts, launches = phase_main()
@@ -1970,6 +2248,10 @@ def main() -> int:
     crash_launches = phase_crash_pipeline(seg_hs, crash_main)
     crash = phase_crash_timing(crash_main, clock_hz)
     compose_err = phase_compose(seg, crash)
+    many_hs, many_launches = phase_many_main()
+    phase_many_crash()
+    keys = phase_many_kernel(many_hs, built, clock_hz)
+    phase_many_independent(many_hs)
     kernels = [{"name": f"wgl_deep_{arm}", "route": "cuda",
                 "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",
                 "replaces": "jepsen_tpu/ops/wgl_deep.py:358",
@@ -2014,6 +2296,14 @@ def main() -> int:
                         "plain_ms": crash[kind]["plain_ms"],
                         "bound_ms": crash[kind]["bound_ms"],
                         "bound_by": "operations", "library_ms": None})
+    kernels.append({"name": "wgl_regs_keys", "route": "cuda",
+                    "source": "jepsen_tpu_torch/csrc/wgl_regs.cu",
+                    "replaces": "jepsen_tpu/ops/wgl_seg.py:725",
+                    "launches": many_launches, "max_abs_err": keys["err"],
+                    "ms": keys["ms"], "device_ms": keys["device_ms"],
+                    "plain_ms": keys["plain_ms"],
+                    "bound_ms": keys["bound_ms"],
+                    "bound_by": "operations", "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,24 @@ from jepsen_tpu_torch.errors import Unsupported
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.ops import planner, wgl_cpu, wgl_seg
 
+UNKNOWN = "unknown"
+
+#: Larger numbers dominate when checkers compose (the reference's
+#: checker.clj:26-31).
+VALID_PRIORITIES = {True: 0, False: 1, UNKNOWN: 0.5}
+
+
+def merge_valid(valids):
+    """Merge n valid? values, yielding the highest-priority one
+    (checker.clj:33-47)."""
+    out = True
+    for v in valids:
+        if v not in VALID_PRIORITIES:
+            raise ValueError(f"{v!r} is not a known valid? value")
+        if VALID_PRIORITIES[out] < VALID_PRIORITIES[v]:
+            out = v
+    return out
+
 
 class Checker:
     """`test` is the test map (may be None for pure checkers); `opts`

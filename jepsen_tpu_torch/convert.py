@@ -10,6 +10,7 @@ hand over dicts and arrays."""
 
 from __future__ import annotations
 
+import copy
 from typing import Iterable
 
 import numpy as np
@@ -25,13 +26,14 @@ PACKED_COLUMNS = ("index", "process", "type", "f", "value", "value_ok",
 def history_from_dicts(dicts: Iterable[dict]) -> History:
     """A History of Ops built from op dicts with the keys index,
     process, type, f, value, time (and optional error / extra keys).
-    List values are copied so the two histories share no mutable
-    payload."""
+    A value {"__kv__": [k, v]} (an independent key's tuple, as the JAX
+    package's `Op.to_dict()` tags it) becomes `independent.KV(k, v)`.
+    Values are copied so the two histories share no mutable payload."""
     ops = []
     for d in dicts:
         d = dict(d)
-        if isinstance(d.get("value"), list):
-            d["value"] = list(d["value"])
+        if "value" in d:
+            d["value"] = copy.deepcopy(d["value"])
         ops.append(Op.from_dict(d))
     return History(ops)
 

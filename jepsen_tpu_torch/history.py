@@ -62,8 +62,13 @@ class Op:
         return self.type == INVOKE
 
     def to_dict(self) -> dict:
+        v = self.value
+        if type(v).__name__ == "KV" and isinstance(v, tuple):
+            # an independent key's tuple, tagged so that it survives a
+            # JSON round trip (the JAX package writes the same tag)
+            v = {"__kv__": [v[0], v[1]]}
         d = {"index": self.index, "process": self.process,
-             "type": self.type, "f": self.f, "value": self.value,
+             "type": self.type, "f": self.f, "value": v,
              "time": self.time}
         if self.error is not None:
             d["error"] = self.error
@@ -74,6 +79,10 @@ class Op:
     def from_dict(cls, d: dict) -> "Op":
         d = dict(d)
         kw = {k: d.pop(k) for k in _FIELDS if k in d}
+        v = kw.get("value")
+        if isinstance(v, dict) and set(v) == {"__kv__"}:
+            from jepsen_tpu_torch.independent import KV   # imports this
+            kw["value"] = KV(*v["__kv__"])
         return cls(extra=d, **kw)
 
 

@@ -41,6 +41,11 @@ ITEM_SERIAL = ("ROADMAP P5 (serial wgl / wgl_batch and candidate-table "
                "engines)")
 ITEM_CPU_AUTO = ("ROADMAP P6 (competition mode and auto routing to the "
                  "CPU oracle)")
+ITEM_RUNNER = ("ROADMAP P4R (the resilient batch runner: OOM bisection, "
+               "quarantine, deadlines, checkpoints)")
+ITEM_ANALYSES = ("ROADMAP P7 (the other analyses, with the checkers above "
+                 "them)")
+ITEM_MESH = "ROADMAP P8 (multi-device tiers)"
 
 #: Overlap depth one [Sn, 512]-word plane covers; past it the plane is
 #: a stack of DEEP_SPLIT_MAX base-sized sub-planes (R = 15/16).

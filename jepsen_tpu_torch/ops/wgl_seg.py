@@ -1,6 +1,8 @@
 """Linearizability checking of register histories: `check()`, the entry
-point the `Linearizable` checker calls, and `check_pipeline()` for many
-histories.
+point the `Linearizable` checker calls, `check_pipeline()` for many
+histories, and `check_many()` for many short independent keys (the
+`jepsen.independent` workload: each key one lane of the segment
+kernel).
 
 Routing is the reference's (`jepsen_tpu/ops/wgl_seg.py::_check_fast`):
 a history over a decomposed model with Sn <= 32 runs the register-delta
@@ -41,6 +43,7 @@ from jepsen_tpu_torch.errors import Unsupported
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.ops import (crash_kernel, deep_kernel, planner,
                                   regs_kernel, wgl_cpu, wgl_deep)
+from jepsen_tpu_torch.ops.prep import PreparedHistory
 
 WHY = ("register-delta segment kernel: decomposable model with Sn <= 32 and "
        "overlap depth R <= 6, one lane per (quiescent segment, entry "
@@ -67,6 +70,21 @@ PIPE_GROUP = 4
 #: Closure rounds of the pipeline's speculative pass (the reference's
 #: JEPSEN_TPU_SPEC_ROUNDS default); a death there is re-checked exactly.
 SPEC_ROUNDS = 2
+#: Keys of one key launch in check_many: one wave of one-warp CTAs on an
+#: H100 (132 SMs x 32 resident CTAs).  More keys are cut into launches of
+#: this many on the current stream, fetched together.
+KEYS_PER_LAUNCH = 4096
+
+WHY_KEYS = ("register-delta key lanes: each crash-free key (or the "
+            "crash-stripped twin of a key with crashed calls) at overlap "
+            "depth R <= 6 is one segment and one J = 1 lane of the segment "
+            "kernel, lane 0 entering state 0; every key in one launch at "
+            "exact rounds, the verdicts in one copy")
+WHY_KEYS_DEEP = ("deep-overlap kernel: the keys at overlap depth 7..16 in "
+                 "one wgl_deep.check_pipeline grid (the reference's "
+                 "candidate-table lanes are ROADMAP P5)")
+WHY_KEYS_HOST = ("decided on the host: the key has no client call, or "
+                 "every client call of it crashed")
 
 
 class _SegGrid:
@@ -666,11 +684,7 @@ def _relaxed_refute(model, history, ops, c: _Crashes, *, localize, dev,
                      "device": str(dev), "R": R},
     }
     if localize:
-        oracle = wgl_cpu.check(model, history, **ORACLE_CAPS)
-        if oracle.get("valid?") is False:
-            for key in ("op", "op_index", "final-paths", "configs"):
-                if key in oracle:
-                    result[key] = oracle[key]
+        _localize_key(result, model, history)
         lap("oracle")
     return result
 
@@ -853,4 +867,273 @@ def check_pipeline(model, histories, *, max_states: int = 64,
         except Unsupported as e:
             results[i] = wgl_deep._unsupported(e, i)
     lap("stragglers")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Many independent keys: one J = 1 lane a key
+# ---------------------------------------------------------------------------
+
+def _scan_key(hist: History, spec, seen: dict, rows: list,
+              max_open_bits: int):
+    """One key scanned as one segment: with columns, the C stream pass at
+    a target past its returns (so the only segment closes at its last
+    return, which is quiescent in a history without crashed calls) and
+    its wire; without, the C object scan (the caller packs the wire).
+    Raises as `_scan_history`."""
+    packed = planner.columns_of(hist)
+    fk = None
+    if packed is not None:
+        fk = planner._native_scan_streams(packed, hist.ops, spec, seen,
+                                          rows, max_open_bits,
+                                          len(hist.ops) + 1)
+    if fk is None:
+        fk = planner._native_scan(hist.ops, spec, seen, rows, max_open_bits)
+    return fk
+
+
+def _key_wire(fk):
+    """A scanned key's wire as one segment: the stream pass's, or, for a
+    key scanned without columns, written here."""
+    if isinstance(fk, planner._StreamKey):
+        return fk.wire
+    return regs_kernel.pack_stream(fk, [fk.n_rets], 1)
+
+
+def _run_keys(wires: list, aux: np.ndarray, *, R: int, Sn: int, UP: int,
+              dev: torch.device, lap, stats: dict) -> np.ndarray:
+    """Every key's verdict from the segment kernel at J = 1 and exact
+    rounds R: each key's wire is one segment (lane 0 enters state 0),
+    alive where a state survives its last row.  KEYS_PER_LAUNCH keys a
+    launch on the current stream without waiting; every verdict, with
+    the kernel's refusal counts, comes back in one copy.  Raises when the
+    kernel refused a key."""
+    alive, bads, events = [], [], []
+    for lo in range(0, len(wires), KEYS_PER_LAUNCH):
+        grid = _SegGrid()
+        for w in wires[lo:lo + KEYS_PER_LAUNCH]:
+            grid.add_wire(*w)
+        host = grid.wire() + (aux,)
+        lap("pack")
+        wire = tuple(regs_kernel.to_device(x, dev) for x in host)
+        ev = None
+        if dev.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        T, bad = regs_kernel.regs_scan(*wire, R=R, Sn=Sn, UP=UP, J=1,
+                                       rounds=R)
+        if ev is not None:
+            ev[1].record()
+            events.append(ev)
+        alive.append(T[:, 0, :].any(-1).to(torch.int32))
+        bads.append(bad)
+        stats["launches"] = stats.get("launches", 0) + 1
+        lap("launch")
+    host = torch.cat(bads + alive).cpu().numpy()          # the one sync
+    lap("sync")
+    if events:
+        stats["kernel_ms"] = stats.get("kernel_ms", 0.0) + sum(
+            e[0].elapsed_time(e[1]) for e in events)
+    n_bad = int(host[:len(bads)].sum())
+    if n_bad:
+        raise RuntimeError(f"the segment kernel refused {n_bad} keys")
+    return host[len(bads):] != 0
+
+
+def _localize_key(result: dict, model, hist) -> None:
+    """An invalid key's witness and artifacts from the capped CPU oracle
+    (ORACLE_CAPS); when the cap is hit the verdict stands without
+    them."""
+    oracle = wgl_cpu.check(model, hist, **ORACLE_CAPS)
+    if oracle.get("valid?") is False:
+        for key in ("op", "op_index", "final-paths", "configs"):
+            if key in oracle:
+                result[key] = oracle[key]
+
+
+def check_many(model, histories, *, max_states: int = 64,
+               max_open_bits: int = 10, localize: bool = True, device=None,
+               stats=None, mesh=None, mesh_axis=None,
+               fallback=None) -> list:
+    """Check many independent histories (the keys of a
+    `jepsen.independent` test; the reference's `check_many`): one result
+    per key, in order.
+
+    Every key is scanned in C into one shared alphabet, so the batch has
+    one uop table.  A key without crashed calls at overlap depth R <= 6
+    is one segment and one J = 1 lane of the segment kernel (`engine:
+    "wgl_seg_batch_regs"`); all such keys run in one launch at exact
+    rounds (the deepest such key's R) and their verdicts come back in
+    one copy.  Keys at R 7..16 go together through one
+    `wgl_deep.check_pipeline` grid.  A key with crashed calls rides as
+    its crash-stripped twin: a twin proved valid is the key's verdict
+    (`crashed_ignored`), since no crashed call must be linearized; a
+    key whose calls all crashed is valid; any other goes through
+    `check()`'s crash tiers.  A key with no client call is valid.
+
+    An invalid key's witness and artifacts (op, op_index, final-paths,
+    configs) come from the CPU oracle under ORACLE_CAPS when `localize`
+    is set (not for keys that went through `check()`, which localizes
+    its own).  A key outside the port comes back as {"valid?":
+    "unknown", "cause": "unsupported", "error": {...}} naming the
+    ROADMAP item: one the scan refuses, a PreparedHistory, one every
+    crash tier leaves open, and every lane key when the batch's state
+    space outgrows `max_states` or the segment kernel's gate.  A double
+    invoke raises ValueError; a model without a device spec, `fallback`
+    (the serial engines, P5) and `mesh` / `mesh_axis` (P8) raise
+    Unsupported.
+
+    `stats`, when given a dict, receives host seconds per stage (scan,
+    tables, pack, launch, sync, assemble, deep, crash, localize), the
+    key launches (`launches`) and, on a CUDA device, `kernel_ms`, the
+    key launches' device time (CUDA events)."""
+    if fallback is not None:
+        raise Unsupported(f"check_many(fallback=...), the engines a key "
+                          f"falls to: {planner.ITEM_SERIAL}")
+    if mesh is not None or mesh_axis is not None:
+        raise Unsupported(f"check_many(mesh=..., mesh_axis=...): "
+                          f"{planner.ITEM_MESH}")
+    dev = resolve_device(device)
+    spec = model.device_spec()
+    if spec is None:
+        raise Unsupported(f"model {model!r} has no device spec: "
+                          f"{planner.ITEM_CPU_AUTO}")
+    t0 = time.monotonic()
+    stats = {} if stats is None else stats
+    lap = wgl_deep._laps(stats)
+    n = len(histories)
+    results: list = [None] * n
+    seen: dict = {}
+    rows: list = []
+    lanes: list = []          # (i, fk, the key's History): R <= 6
+    deep: list = []           # (i, fk, the key's History): R 7..16
+    twins: dict = {}          # i -> crashed calls of a key its twin stands for
+    crash: list = []          # keys that go through check()
+    host = {"valid?": True, "op_count": 0, "backend": dev.type,
+            "engine": "wgl_seg_batch", "time_kernel_s": 0.0}
+    for i, h in enumerate(histories):
+        if isinstance(h, PreparedHistory):
+            results[i] = wgl_deep._unsupported(Unsupported(
+                f"a PreparedHistory key: {planner.ITEM_SERIAL}"), i)
+            continue
+        hist = h if isinstance(h, History) else History(h)
+        try:
+            fk = _scan_key(hist, spec, seen, rows, max_open_bits)
+        except planner.CrashedCalls:
+            drop, crashed = planner._split_crashed(hist.ops)
+            keep = np.nonzero(~drop)[0]
+            packed = planner.columns_of(hist)
+            hist = History([hist.ops[p] for p in keep])
+            if packed is not None:
+                hist.attach_packed(packed.take(keep))
+            try:
+                fk = _scan_key(hist, spec, seen, rows, max_open_bits)
+            except Unsupported:
+                crash.append(i)
+                continue
+            if fk.n_calls == 0:
+                results[i] = dict(host, crashed_ignored=len(crashed))
+                continue
+            twins[i] = len(crashed)
+        except Unsupported as e:
+            results[i] = wgl_deep._unsupported(e, i)
+            continue
+        if fk.n_calls == 0:
+            results[i] = dict(host)
+        elif fk.max_open <= planner.REGS_R_MAX:
+            lanes.append((i, fk, hist))
+        else:
+            deep.append((i, fk, hist))
+    lap("scan")
+
+    R_lanes = max((int(fk.max_open) for _, fk, _ in lanes), default=0)
+    invalid: list = []        # (i, History) to localize
+    if lanes:
+        try:
+            states, legal, next_state, dec = _model_tables(spec, model,
+                                                           rows, max_states)
+            why = planner.regs_gate(R_lanes, states.shape[0], len(rows),
+                                    dec[0] is not None)
+        except Unsupported as e:
+            why = str(e)
+        lap("tables")
+        if why is not None:
+            for i, _, _ in lanes:
+                results[i] = wgl_deep._unsupported(Unsupported(why), i)
+            lanes = []
+    if lanes:
+        aux, UP = _aux(planner._pack_uop_tables(legal, next_state, *dec))
+        wires = [_key_wire(fk) for _, fk, _ in lanes]
+        t1 = time.monotonic()
+        alive = _run_keys(wires, aux, R=R_lanes, Sn=states.shape[0], UP=UP,
+                          dev=dev, lap=lap, stats=stats)
+        t_kernel = time.monotonic() - t1
+        for (i, fk, hist), ok in zip(lanes, alive):
+            res = {"valid?": bool(ok), "op_count": fk.n_calls,
+                   "backend": dev.type, "engine": "wgl_seg_batch_regs",
+                   "time_kernel_s": t_kernel}
+            results[i] = res
+            if i in twins:
+                if ok:
+                    res["crashed_ignored"] = twins[i]
+                else:
+                    crash.append(i)
+            elif not ok:
+                res["anomaly"] = "nonlinearizable"
+                invalid.append((i, hist))
+        lap("assemble")
+
+    R_deep = max((int(fk.max_open) for _, fk, _ in deep), default=0)
+    if deep:
+        dst: dict = {}
+        out = wgl_deep.check_pipeline(
+            model, [hist for _, _, hist in deep], max_open_bits=max_open_bits,
+            max_states=max_states, stats=dst, device=dev)
+        t_kernel = dst.get("launch", 0.0) + dst.get("sync", 0.0)
+        for (i, _, hist), res in zip(deep, out):
+            results[i] = res
+            if "error" in res:
+                res["error"]["history_index"] = i
+            else:
+                res.setdefault("time_kernel_s", t_kernel)
+                if res.get("pipelined"):     # the grid's, not check()'s
+                    del res["dispatch"]
+            if i in twins:
+                if res["valid?"] is True:
+                    res["crashed_ignored"] = twins[i]
+                else:
+                    crash.append(i)
+            elif res["valid?"] is False:
+                invalid.append((i, hist))
+        lap("deep")
+
+    for i in crash:
+        t1 = time.monotonic()
+        try:
+            res = check(model, histories[i], max_states=max_states,
+                        max_open_bits=max_open_bits, localize=localize,
+                        device=dev)
+        except Unsupported as e:
+            results[i] = wgl_deep._unsupported(e, i)
+            continue
+        # the relaxed tier reports no kernel time: the call's own
+        res.setdefault("time_kernel_s", time.monotonic() - t1)
+        results[i] = res
+    lap("crash")
+    if localize:
+        for i, hist in invalid:
+            _localize_key(results[i], model, hist)
+    lap("localize")
+
+    t_total = time.monotonic() - t0
+    records = {eng: {"engine": eng, "why": why, "batch": n,
+                     "device": str(dev), "R": R}
+               for eng, why, R in (
+                   ("wgl_seg_batch_regs", WHY_KEYS, R_lanes or None),
+                   ("wgl_deep", WHY_KEYS_DEEP, R_deep or None),
+                   ("wgl_seg_batch", WHY_KEYS_HOST, None))}
+    for r in results:
+        r["time_total_s"] = t_total
+        if "error" not in r and "dispatch" not in r:
+            r["dispatch"] = records[r["engine"]]
     return results

@@ -52,7 +52,8 @@ def test_import_pulls_in_no_forbidden_module():
         p.relative_to(ROOT / "jepsen_tpu_torch").with_suffix("").parts)
         for p in FILES[:-1])
     mods = [m.removesuffix(".__init__") for m in mods]
-    assert "jepsen_tpu_torch.native" in mods
+    assert {"jepsen_tpu_torch.native", "jepsen_tpu_torch.independent"} \
+        <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
