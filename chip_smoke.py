@@ -2103,23 +2103,13 @@ def phase_many_crash():
 
 
 def many_inputs(keys):
-    """The key launch's inputs as check_many builds them: one alphabet,
-    each key one segment at J = 1, rounds R (the deepest key's)."""
+    """The key launch's inputs from `wgl_seg.key_launch_inputs`, the
+    construction check_many launches: one alphabet, each key one segment
+    at J = 1, rounds R (the deepest key's)."""
     from jepsen_tpu_torch.models import CASRegister
-    from jepsen_tpu_torch.ops import planner, wgl_seg
-    model = CASRegister()
-    spec = model.device_spec()
-    seen, rows = {}, []
-    fks = [wgl_seg._scan_key(h, spec, seen, rows, 10) for h in keys]
-    states, legal, nxt, dec = wgl_seg._model_tables(spec, model, rows, 64)
-    grid = wgl_seg._SegGrid()
-    for fk in fks:
-        grid.add_wire(*wgl_seg._key_wire(fk))
-    aux, UP = wgl_seg._aux(planner._pack_uop_tables(legal, nxt, *dec))
-    cbuf, offs, nrows = grid.wire()
-    return dict(cbuf=cbuf, offs=offs, nrows=nrows, aux=aux, UP=UP,
-                R=max(fk.max_open for fk in fks), Sn=states.shape[0], J=1,
-                U=len(rows))
+    from jepsen_tpu_torch.ops import wgl_seg
+    k = wgl_seg.key_launch_inputs(CASRegister(), keys)
+    return dict(k._asdict(), J=1)
 
 
 def ctas_per_sm(k):

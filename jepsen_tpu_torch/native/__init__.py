@@ -69,14 +69,22 @@ def build() -> Path:
     return lib
 
 
+#: The extension's module name: qualified, so that it is not the bare
+#: `_histscan` of another package's scanner.  A single-phase extension
+#: loaded a second time from the same file is rebuilt into whatever
+#: module sys.modules holds under its name, so under a shared bare name
+#: the other package's reload would overwrite this module's functions.
+#: The init function is still the last component's, PyInit__histscan.
+MODULE = "jepsen_tpu_torch.native._histscan"
+
+
 def histscan():
     """The `_histscan` extension module, built and loaded at first use."""
     global _mod
     with _lock:
         if _mod is None:
             path = build()
-            spec = importlib.util.spec_from_file_location("_histscan",
-                                                          path)
+            spec = importlib.util.spec_from_file_location(MODULE, path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
             _mod = mod

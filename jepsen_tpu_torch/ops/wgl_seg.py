@@ -70,11 +70,6 @@ PIPE_GROUP = 4
 #: Closure rounds of the pipeline's speculative pass (the reference's
 #: JEPSEN_TPU_SPEC_ROUNDS default); a death there is re-checked exactly.
 SPEC_ROUNDS = 2
-#: Keys of one key launch in check_many: one wave of one-warp CTAs on an
-#: H100 (132 SMs x 32 resident CTAs).  More keys are cut into launches of
-#: this many on the current stream, fetched together.
-KEYS_PER_LAUNCH = 4096
-
 WHY_KEYS = ("register-delta key lanes: each crash-free key (or the "
             "crash-stripped twin of a key with crashed calls) at overlap "
             "depth R <= 6 is one segment and one J = 1 lane of the segment "
@@ -900,116 +895,31 @@ def _key_wire(fk):
     return regs_kernel.pack_stream(fk, [fk.n_rets], 1)
 
 
-def _run_keys(wires: list, aux: np.ndarray, *, R: int, Sn: int, UP: int,
-              dev: torch.device, lap, stats: dict) -> np.ndarray:
-    """Every key's verdict from the segment kernel at J = 1 and exact
-    rounds R: each key's wire is one segment (lane 0 enters state 0),
-    alive where a state survives its last row.  KEYS_PER_LAUNCH keys a
-    launch on the current stream without waiting; every verdict, with
-    the kernel's refusal counts, comes back in one copy.  Raises when the
-    kernel refused a key."""
-    alive, bads, events = [], [], []
-    for lo in range(0, len(wires), KEYS_PER_LAUNCH):
-        grid = _SegGrid()
-        for w in wires[lo:lo + KEYS_PER_LAUNCH]:
-            grid.add_wire(*w)
-        host = grid.wire() + (aux,)
-        lap("pack")
-        wire = tuple(regs_kernel.to_device(x, dev) for x in host)
-        ev = None
-        if dev.type == "cuda":
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-        T, bad = regs_kernel.regs_scan(*wire, R=R, Sn=Sn, UP=UP, J=1,
-                                       rounds=R)
-        if ev is not None:
-            ev[1].record()
-            events.append(ev)
-        alive.append(T[:, 0, :].any(-1).to(torch.int32))
-        bads.append(bad)
-        stats["launches"] = stats.get("launches", 0) + 1
-        lap("launch")
-    host = torch.cat(bads + alive).cpu().numpy()          # the one sync
-    lap("sync")
-    if events:
-        stats["kernel_ms"] = stats.get("kernel_ms", 0.0) + sum(
-            e[0].elapsed_time(e[1]) for e in events)
-    n_bad = int(host[:len(bads)].sum())
-    if n_bad:
-        raise RuntimeError(f"the segment kernel refused {n_bad} keys")
-    return host[len(bads):] != 0
+class _KeySort(NamedTuple):
+    """The keys of a check_many batch sorted by where they go: results
+    already decided on the host (None elsewhere), the key lanes and the
+    deep keys as (i, scan, History), the crashed-call count of each key
+    whose crash-stripped twin stands for it, the keys that go through
+    check(), and the lane keys' interned ops."""
+    results: list
+    lanes: list
+    deep: list
+    twins: dict
+    crash: list
+    rows: list
 
 
-def _localize_key(result: dict, model, hist) -> None:
-    """An invalid key's witness and artifacts from the capped CPU oracle
-    (ORACLE_CAPS); when the cap is hit the verdict stands without
-    them."""
-    oracle = wgl_cpu.check(model, hist, **ORACLE_CAPS)
-    if oracle.get("valid?") is False:
-        for key in ("op", "op_index", "final-paths", "configs"):
-            if key in oracle:
-                result[key] = oracle[key]
-
-
-def check_many(model, histories, *, max_states: int = 64,
-               max_open_bits: int = 10, localize: bool = True, device=None,
-               stats=None, mesh=None, mesh_axis=None,
-               fallback=None) -> list:
-    """Check many independent histories (the keys of a
-    `jepsen.independent` test; the reference's `check_many`): one result
-    per key, in order.
-
-    Every key is scanned in C into one shared alphabet, so the batch has
-    one uop table.  A key without crashed calls at overlap depth R <= 6
-    is one segment and one J = 1 lane of the segment kernel (`engine:
-    "wgl_seg_batch_regs"`); all such keys run in one launch at exact
-    rounds (the deepest such key's R) and their verdicts come back in
-    one copy.  Keys at R 7..16 go together through one
-    `wgl_deep.check_pipeline` grid.  A key with crashed calls rides as
-    its crash-stripped twin: a twin proved valid is the key's verdict
-    (`crashed_ignored`), since no crashed call must be linearized; a
-    key whose calls all crashed is valid; any other goes through
-    `check()`'s crash tiers.  A key with no client call is valid.
-
-    An invalid key's witness and artifacts (op, op_index, final-paths,
-    configs) come from the CPU oracle under ORACLE_CAPS when `localize`
-    is set (not for keys that went through `check()`, which localizes
-    its own).  A key outside the port comes back as {"valid?":
-    "unknown", "cause": "unsupported", "error": {...}} naming the
-    ROADMAP item: one the scan refuses, a PreparedHistory, one every
-    crash tier leaves open, and every lane key when the batch's state
-    space outgrows `max_states` or the segment kernel's gate.  A double
-    invoke raises ValueError; a model without a device spec, `fallback`
-    (the serial engines, P5) and `mesh` / `mesh_axis` (P8) raise
-    Unsupported.
-
-    `stats`, when given a dict, receives host seconds per stage (scan,
-    tables, pack, launch, sync, assemble, deep, crash, localize), the
-    key launches (`launches`) and, on a CUDA device, `kernel_ms`, the
-    key launches' device time (CUDA events)."""
-    if fallback is not None:
-        raise Unsupported(f"check_many(fallback=...), the engines a key "
-                          f"falls to: {planner.ITEM_SERIAL}")
-    if mesh is not None or mesh_axis is not None:
-        raise Unsupported(f"check_many(mesh=..., mesh_axis=...): "
-                          f"{planner.ITEM_MESH}")
-    dev = resolve_device(device)
-    spec = model.device_spec()
-    if spec is None:
-        raise Unsupported(f"model {model!r} has no device spec: "
-                          f"{planner.ITEM_CPU_AUTO}")
-    t0 = time.monotonic()
-    stats = {} if stats is None else stats
-    lap = wgl_deep._laps(stats)
-    n = len(histories)
-    results: list = [None] * n
+def _sort_keys(spec, histories, max_open_bits: int,
+               backend: str) -> _KeySort:
+    """Scan every key and sort it (see check_many).  The lane keys share
+    one alphabet: a key that turns out deeper than the lanes gives back
+    the ops it interned, since the deep grid scans it again with its
+    own, so it cannot grow the lanes' state space."""
+    results: list = [None] * len(histories)
     seen: dict = {}
     rows: list = []
-    lanes: list = []          # (i, fk, the key's History): R <= 6
-    deep: list = []           # (i, fk, the key's History): R 7..16
-    twins: dict = {}          # i -> crashed calls of a key its twin stands for
-    crash: list = []          # keys that go through check()
-    host = {"valid?": True, "op_count": 0, "backend": dev.type,
+    lanes, deep, crash, twins = [], [], [], {}
+    host = {"valid?": True, "op_count": 0, "backend": backend,
             "engine": "wgl_seg_batch", "time_kernel_s": 0.0}
     for i, h in enumerate(histories):
         if isinstance(h, PreparedHistory):
@@ -1017,6 +927,7 @@ def check_many(model, histories, *, max_states: int = 64,
                 f"a PreparedHistory key: {planner.ITEM_SERIAL}"), i)
             continue
         hist = h if isinstance(h, History) else History(h)
+        n0 = len(rows)
         try:
             fk = _scan_key(hist, spec, seen, rows, max_open_bits)
         except planner.CrashedCalls:
@@ -1043,31 +954,172 @@ def check_many(model, histories, *, max_states: int = 64,
         elif fk.max_open <= planner.REGS_R_MAX:
             lanes.append((i, fk, hist))
         else:
+            for op in rows[n0:]:
+                del seen[op]
+            del rows[n0:]
             deep.append((i, fk, hist))
+    return _KeySort(results, lanes, deep, twins, crash, rows)
+
+
+class _KeyLaunch(NamedTuple):
+    """The key launch's inputs on the host: the lane keys' wires, one
+    segment a key in key order (cbuf u8, offs int64[K], nrows
+    int32[K]), the uop tables (aux), and regs_scan's shapes (J = 1,
+    rounds R)."""
+    cbuf: np.ndarray
+    offs: np.ndarray
+    nrows: np.ndarray
+    aux: np.ndarray
+    R: int
+    Sn: int
+    UP: int
+
+
+def _key_launch(model, spec, keys: _KeySort, max_states: int,
+                lap) -> _KeyLaunch:
+    """The key launch over `keys.lanes` at the deepest lane key's R.
+    Raises Unsupported when their state space outgrows `max_states` or
+    the segment kernel's gate."""
+    R = max(int(fk.max_open) for _, fk, _ in keys.lanes)
+    states, legal, next_state, dec = _model_tables(spec, model, keys.rows,
+                                                   max_states)
+    why = planner.regs_gate(R, states.shape[0], len(keys.rows),
+                            dec[0] is not None)
+    if why is not None:
+        raise Unsupported(why)
+    lap("tables")
+    aux, UP = _aux(planner._pack_uop_tables(legal, next_state, *dec))
+    grid = _SegGrid()
+    for _, fk, _ in keys.lanes:
+        grid.add_wire(*_key_wire(fk))
+    launch = _KeyLaunch(*grid.wire(), aux, R, states.shape[0], UP)
+    lap("pack")
+    return launch
+
+
+def key_launch_inputs(model, histories, *, max_states: int = 64,
+                      max_open_bits: int = 10) -> _KeyLaunch:
+    """The key launch check_many makes over `histories`, without
+    launching it."""
+    spec = model.device_spec()
+    keys = _sort_keys(spec, histories, max_open_bits, "cpu")
+    return _key_launch(model, spec, keys, max_states, lambda _: None)
+
+
+def _run_keys(launch: _KeyLaunch, *, dev: torch.device, lap,
+              stats: dict) -> tuple[np.ndarray, float]:
+    """Every lane key's verdict from one launch of the segment kernel at
+    J = 1 and exact rounds R: each key's wire is one segment (lane 0
+    enters state 0), alive where a state survives its last row.  The
+    verdicts and the kernel's refusal count come back in one copy.
+    Returns (alive bool[K], seconds from the launch to the end of that
+    copy).  Raises when the kernel refused a key."""
+    wire = tuple(regs_kernel.to_device(x, dev)
+                 for x in launch[:4])
+    ev = None
+    if dev.type == "cuda":
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.monotonic()
+    if ev is not None:
+        ev[0].record()
+    T, bad = regs_kernel.regs_scan(*wire, R=launch.R, Sn=launch.Sn,
+                                   UP=launch.UP, J=1, rounds=launch.R)
+    if ev is not None:
+        ev[1].record()
+    alive = T[:, 0, :].any(-1).to(torch.int32)
+    stats["launches"] = stats.get("launches", 0) + 1
+    lap("launch")
+    host = torch.cat([bad, alive]).cpu().numpy()          # the one sync
+    seconds = time.monotonic() - t0
+    lap("sync")
+    if ev is not None:
+        stats["kernel_ms"] = (stats.get("kernel_ms", 0.0)
+                              + ev[0].elapsed_time(ev[1]))
+    if host[0]:
+        raise RuntimeError(f"the segment kernel refused {int(host[0])} keys")
+    return host[1:] != 0, seconds
+
+
+def _localize_key(result: dict, model, hist) -> None:
+    """An invalid key's witness and artifacts from the capped CPU oracle
+    (ORACLE_CAPS); when the cap is hit the verdict stands without
+    them."""
+    oracle = wgl_cpu.check(model, hist, **ORACLE_CAPS)
+    if oracle.get("valid?") is False:
+        for key in ("op", "op_index", "final-paths", "configs"):
+            if key in oracle:
+                result[key] = oracle[key]
+
+
+def check_many(model, histories, *, max_states: int = 64,
+               max_open_bits: int = 10, localize: bool = True, device=None,
+               stats=None, mesh=None, mesh_axis=None,
+               fallback=None) -> list:
+    """Check many independent histories (the keys of a
+    `jepsen.independent` test; the reference's `check_many`): one result
+    per key, in order.
+
+    Every key is scanned in C.  A key without crashed calls at overlap
+    depth R <= 6 is one segment and one J = 1 lane of the segment kernel
+    (`engine: "wgl_seg_batch_regs"`); these keys share one alphabet and
+    one uop table, all run in one launch at exact rounds (the deepest
+    such key's R), and their verdicts come back in one copy.  Keys at R
+    7..16 go together through one `wgl_deep.check_pipeline` grid, which
+    scans them with an alphabet of their own.  A key with crashed calls rides as
+    its crash-stripped twin: a twin proved valid is the key's verdict
+    (`crashed_ignored`), since no crashed call must be linearized; a
+    key whose calls all crashed is valid; any other goes through
+    `check()`'s crash tiers.  A key with no client call is valid.
+
+    An invalid key's witness and artifacts (op, op_index, final-paths,
+    configs) come from the CPU oracle under ORACLE_CAPS when `localize`
+    is set (not for keys that went through `check()`, which localizes
+    its own).  A key outside the port comes back as {"valid?":
+    "unknown", "cause": "unsupported", "error": {...}} naming the
+    ROADMAP item: one the scan refuses, a PreparedHistory, one every
+    crash tier leaves open, and every lane key when the batch's state
+    space outgrows `max_states` or the segment kernel's gate.  A double
+    invoke raises ValueError; a model without a device spec, `fallback`
+    (the serial engines, P5) and `mesh` / `mesh_axis` (P8) raise
+    Unsupported.
+
+    A lane key's `time_kernel_s` is the key launch's, from the launch
+    to the end of the verdicts' copy (the host wait included).
+    `stats`, when given a dict, receives host seconds per stage (scan,
+    tables, pack, launch, sync, assemble, deep, crash, localize), the
+    key launches (`launches`) and, on a CUDA device, `kernel_ms`, the
+    key launch's device time (CUDA events)."""
+    if fallback is not None:
+        raise Unsupported(f"check_many(fallback=...), the engines a key "
+                          f"falls to: {planner.ITEM_SERIAL}")
+    if mesh is not None or mesh_axis is not None:
+        raise Unsupported(f"check_many(mesh=..., mesh_axis=...): "
+                          f"{planner.ITEM_MESH}")
+    dev = resolve_device(device)
+    spec = model.device_spec()
+    if spec is None:
+        raise Unsupported(f"model {model!r} has no device spec: "
+                          f"{planner.ITEM_CPU_AUTO}")
+    t0 = time.monotonic()
+    stats = {} if stats is None else stats
+    lap = wgl_deep._laps(stats)
+    n = len(histories)
+    keys = _sort_keys(spec, histories, max_open_bits, dev.type)
+    results, lanes, deep, twins, crash = keys[:5]
     lap("scan")
 
     R_lanes = max((int(fk.max_open) for _, fk, _ in lanes), default=0)
     invalid: list = []        # (i, History) to localize
+    launch = None
     if lanes:
         try:
-            states, legal, next_state, dec = _model_tables(spec, model,
-                                                           rows, max_states)
-            why = planner.regs_gate(R_lanes, states.shape[0], len(rows),
-                                    dec[0] is not None)
+            launch = _key_launch(model, spec, keys, max_states, lap)
         except Unsupported as e:
-            why = str(e)
-        lap("tables")
-        if why is not None:
+            lap("tables")
             for i, _, _ in lanes:
-                results[i] = wgl_deep._unsupported(Unsupported(why), i)
-            lanes = []
-    if lanes:
-        aux, UP = _aux(planner._pack_uop_tables(legal, next_state, *dec))
-        wires = [_key_wire(fk) for _, fk, _ in lanes]
-        t1 = time.monotonic()
-        alive = _run_keys(wires, aux, R=R_lanes, Sn=states.shape[0], UP=UP,
-                          dev=dev, lap=lap, stats=stats)
-        t_kernel = time.monotonic() - t1
+                results[i] = wgl_deep._unsupported(e, i)
+    if launch is not None:
+        alive, t_kernel = _run_keys(launch, dev=dev, lap=lap, stats=stats)
         for (i, fk, hist), ok in zip(lanes, alive):
             res = {"valid?": bool(ok), "op_count": fk.n_calls,
                    "backend": dev.type, "engine": "wgl_seg_batch_regs",

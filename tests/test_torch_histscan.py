@@ -580,6 +580,29 @@ def test_a_broken_source_raises(tmp_path, monkeypatch):
     assert not native.lib_path().exists()
 
 
+def test_the_scanner_survives_the_reference_scanners_reload(monkeypatch):
+    """The JAX package's `_histscan` loaded again leaves the port's module
+    its own functions: a single-phase extension's second load from a
+    file rebuilds the module sys.modules holds under its name, and the
+    port's is loaded under a qualified one (`native.MODULE`)."""
+    from jepsen_tpu import native as ref_native
+    assert ref_native.histscan() is not None
+    monkeypatch.setattr(native, "_mod", None)        # loaded after it
+    mod = native.histscan()
+    own = mod.fast_scan
+    assert mod.__name__ == native.MODULE
+    monkeypatch.setattr(ref_native, "_cache", {})    # and it reloaded
+    again = ref_native.histscan()
+    assert again is not mod and again.fast_scan is not own
+    assert native.histscan() is mod and mod.fast_scan is own
+    seen, rows = {}, []
+    ops = [invoke_op(0, "write", 1), ok_op(0, "write", 1)]
+    h = convert.history_from_dicts(RefHistory(ops).index().to_dicts())
+    fk = planner._native_scan(h.ops, models.CASRegister().device_spec(),
+                              seen, rows, 10)
+    assert fk.n_calls == 1 and len(rows) == 1
+
+
 # ---------------------------------------------------------------------------
 # Routes: columns attached or not, and the reference
 # ---------------------------------------------------------------------------

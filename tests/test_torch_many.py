@@ -18,8 +18,9 @@ as op dicts and fed to both packages through
   ([K, 1, Sn] > 0.5) against `regs_kernel.scan_plain` at J = 1 on the
   same keys' wires;
 - the rules: refused parameters, a double invoke, max_states, key order,
-  launches cut at KEYS_PER_LAUNCH, and a hypothesis property against the
-  CPU oracle.
+  one exact launch on check_many's own inputs, a wide-valued deep key
+  that leaves the lanes' alphabet alone, and a hypothesis property
+  against the CPU oracle.
 
 The key launch on the card is held against its plain version by
 `tests/test_torch_many_card.py`, which imports no JAX."""
@@ -306,30 +307,56 @@ def test_shuffled_keys_stay_paired():
         assert got[k].get("engine") == base[j].get("engine")
 
 
-def test_key_launches_are_cut_and_exact(monkeypatch):
-    """KEYS_PER_LAUNCH keys a launch, each at J = 1 and rounds = R (the
-    deepest lane key's), with the verdicts of one launch."""
+def test_key_launch_is_one_and_exact(monkeypatch):
+    """Every lane key in one launch, each at J = 1 and rounds = R (the
+    deepest lane key's), on the inputs `wgl_seg.key_launch_inputs`
+    builds."""
     keys = batch_a()[:10]
     _, port_h = both(keys)
-    one = wgl_seg.check_many(models.CASRegister(), port_h, device="cpu")
     calls = []
     scan = regs_kernel.regs_scan
 
     def spy(*a, **kw):
-        calls.append(dict(kw, K=a[1].numel()))
+        calls.append((a, kw))
         return scan(*a, **kw)
 
     monkeypatch.setattr(regs_kernel, "regs_scan", spy)
-    monkeypatch.setattr(wgl_seg, "KEYS_PER_LAUNCH", 3)
     st = {}
-    _, port_h = both(keys)
-    cut = wgl_seg.check_many(models.CASRegister(), port_h, device="cpu",
+    got = wgl_seg.check_many(models.CASRegister(), port_h, device="cpu",
                              stats=st)
-    assert [pick(r) for r in cut] == [pick(r) for r in one]
-    assert [c["K"] for c in calls] == [3, 3, 3, 1]
-    R = max(r["dispatch"]["R"] for r in one)
-    assert all(c["J"] == 1 and c["rounds"] == R == c["R"] for c in calls)
-    assert st["launches"] == 4
+    assert st["launches"] == 1 and len(calls) == 1
+    (args, kw), = calls
+    R = max(r["dispatch"]["R"] for r in got)
+    assert kw["J"] == 1 and kw["rounds"] == R == kw["R"]
+    wire, want = key_launch_inputs(both(keys)[1])
+    assert all(np.array_equal(t.numpy(), w) for t, w in zip(args, wire))
+    assert {k: kw[k] for k in want} == want
+
+
+@pytest.mark.parametrize("vmax,n_calls,max_states",
+                         [(40, 200, 64), (20, 100, 16)])
+def test_a_wide_deep_key_leaves_the_lanes_alone(vmax, n_calls, max_states):
+    """A deep key's values do not grow the lanes' alphabet: with them
+    the lanes' states would pass the segment kernel's 32 (38 states at
+    vmax 40) or max_states (20 states at vmax 20), yet the R <= 6 keys stay on the key launch
+    with the verdicts they have without the deep key."""
+    lanes = [n for n in batch_b() if n[0].startswith("shallow-")]
+    wide = ("wide", key_dicts(560, n_calls=n_calls, conc=10, vmax=vmax,
+                              max_open=8, burst=8), False)
+    _, port_h = both(lanes + [wide])
+    got = wgl_seg.check_many(models.CASRegister(), port_h,
+                             max_states=max_states, device="cpu")
+    ref, alone, _ = run_both(lanes, max_states=max_states)
+    for k, (name, _, _) in enumerate(lanes):
+        assert got[k]["engine"] == "wgl_seg_batch_regs", name
+        assert pick(got[k]) == pick(alone[k]) == pick(ref[k]), name
+    deep = got[-1]
+    if deep.get("cause") == "unsupported":
+        assert "ROADMAP P5" in deep["error"]["message"]
+    else:
+        assert deep["engine"] == "wgl_deep"
+        oracle = wgl_cpu.check(models.CASRegister(), port_h[-1])
+        assert deep["valid?"] == oracle["valid?"]
 
 
 # ---------------------------------------------------------------------------

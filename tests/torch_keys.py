@@ -6,7 +6,7 @@ import numpy as np
 
 from jepsen_tpu_torch import convert, models
 from jepsen_tpu_torch.history import pack_history
-from jepsen_tpu_torch.ops import planner, wgl_seg
+from jepsen_tpu_torch.ops import wgl_seg
 
 
 def op(p, t, f, v):
@@ -66,10 +66,6 @@ def indexed(ops):
     return [dict(d, index=j) for j, d in enumerate(ops)]
 
 
-def indexed(ops):
-    return [dict(d, index=j) for j, d in enumerate(ops)]
-
-
 def lane_keys():
     """(name, op dicts, columns?) of keys at R <= 6, some invalid, one
     at R = 6."""
@@ -93,18 +89,8 @@ def port_histories(keys):
 
 
 def key_launch_inputs(histories):
-    """The key launch over `histories` as check_many builds it: the host
-    wire (cbuf, offs, nrows, aux) and regs_scan's shape arguments (J = 1,
-    rounds R)."""
-    model = models.CASRegister()
-    spec = model.device_spec()
-    seen, rows = {}, []
-    fks = [wgl_seg._scan_key(h, spec, seen, rows, 10) for h in histories]
-    states, legal, nxt, dec = wgl_seg._model_tables(spec, model, rows, 64)
-    grid = wgl_seg._SegGrid()
-    for fk in fks:
-        grid.add_wire(*wgl_seg._key_wire(fk))
-    aux, UP = wgl_seg._aux(planner._pack_uop_tables(legal, nxt, *dec))
-    R = max(fk.max_open for fk in fks)
-    return grid.wire() + (aux,), dict(R=R, Sn=states.shape[0], UP=UP, J=1,
-                                      rounds=R)
+    """The key launch over `histories` as check_many builds it
+    (`wgl_seg.key_launch_inputs`): the host wire (cbuf, offs, nrows,
+    aux) and regs_scan's shape arguments (J = 1, rounds R)."""
+    k = wgl_seg.key_launch_inputs(models.CASRegister(), histories)
+    return tuple(k[:4]), dict(R=k.R, Sn=k.Sn, UP=k.UP, J=1, rounds=k.R)
