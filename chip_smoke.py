@@ -105,19 +105,27 @@ any failure exits non-zero:
   many-main  - the JAX package's multi-key workload: 3400 keys of 300
                calls (r/w/cas, vmax 4, concurrency 5) through
                wgl_seg.check_many, once to warm up and once timed: every
-               key valid on the J = 1 key launch (engine
-               wgl_seg_batch_regs); wall, ops/s, stage seconds, launches,
-               kernel ms and host share; then a stale read planted in 3
-               keys: those and only those invalid, at the planted read;
+               key valid on the key launch (engine wgl_seg_batch_regs,
+               one launch of wgl_regs_keys and none of the segment
+               kernel); wall, ops/s, stage seconds, launches, kernel ms
+               and host share; then a stale read planted in 3 keys:
+               those and only those invalid, at the planted read;
   many-crash - 850 keys, 1% of calls crashed on every third key: every
-               key valid and batched (crash-stripped twins), the crashed
-               calls ignored counted;
+               key valid and batched (crash-stripped twins, one key
+               launch), the crashed calls ignored counted;
   many-kernel
-             - the key launch rebuilt as check_many builds it: its first
-               256 keys against the plain version byte for byte on CPU
-               copies of the same inputs, then the full launch against
-               it, timed both ways beside its bound, with the CTAs, the
-               threads a CTA and the CTAs an SM;
+             - the key launch (wgl_regs_keys) rebuilt as check_many
+               builds it, against the plain version byte for byte on
+               CPU copies of the same inputs (rows and operation
+               counts): its first 256 keys, launches that split a warp
+               (R = 4 and 6 at SnP 8 / 16 / 32, a one-row key beside
+               long ones, 11 keys, a key refused alone) and the full
+               launch; cycles a row of it and of the J = 1 launch of
+               the segment kernel it replaced, in turns, at one key an
+               SM and at the full batch; timed both ways beside its
+               bound (from the operations the walk needs, beside the
+               work= count's), with the CTAs, the registers and the
+               CTAs an SM;
   many-independent
              - one keyed history of 64 keys through
                independent.batch_checker: its results equal check_many's
@@ -344,7 +352,8 @@ def phase_build():
         kernels.update(ptxas_kernels(text))
         entries += [ln for ln in text.splitlines() if "entry function" in ln]
     if not all(any(k.startswith(n) for k in kernels)
-               for n in ("wgl_regs", "wgl_warp", "wgl_crash")):
+               for n in ("wgl_regs_kernel", "wgl_regs_keys", "wgl_warp",
+                         "wgl_crash")):
         raise SystemExit("[build] ptxas reported no kernel of a source: "
                          + " | ".join(entries))
     log(f"[build] {', '.join(p.name for p in libs.values())} in {dt:.2f} s "
@@ -814,7 +823,7 @@ def seg_scan(inp, device, rounds, ks=None):
             for x in (inp["cbuf"], offs, nrows, inp["aux"])]
     work = torch.zeros(len(offs), dtype=torch.int64, device=dev)
     kw = dict(R=inp["R"], Sn=inp["Sn"], UP=inp["UP"],
-              J=inp.get("J", inp["Sn"]), rounds=rounds, work=work)
+              J=inp["Sn"], rounds=rounds, work=work)
     out = []
     ms = float("nan")
     if dev.type == "cuda":
@@ -2017,6 +2026,17 @@ def many_line(tag, keys, res, st, wall, launches):
         f"host share {(wall - dev_ms / 1e3) / wall:.4f}; stages: {stages}")
 
 
+def check_key_launches(tag, launches, st):
+    """The key batch went through wgl_regs_keys: one key launch (as
+    check_many counted it) and no launch of the segment kernel."""
+    from jepsen_tpu_torch.ops import regs_kernel
+    if launches != 1 or st["launches"] != 1 or regs_kernel.LAUNCHES:
+        raise SystemExit(f"[{tag}] {launches} wgl_regs_keys launches and "
+                         f"{regs_kernel.LAUNCHES} segment kernel launches "
+                         f"on the main path, {st['launches']} key "
+                         f"launches counted by check_many")
+
+
 def phase_many_main():
     """MANY_KEYS keys through check_many (warm, then timed): every key
     valid on the key launch; then a stale read planted in three keys,
@@ -2031,21 +2051,19 @@ def phase_many_main():
     attach_columns("the multi-key batch", keys)
     model = CASRegister()
     wgl_seg.check_many(model, keys)                  # warm
-    regs_kernel.LAUNCHES = 0
+    regs_kernel.LAUNCHES = regs_kernel.KEYS_LAUNCHES = 0
     st = {}
     t = time.perf_counter()
     res = wgl_seg.check_many(model, keys, stats=st)
     wall = time.perf_counter() - t
-    launches = regs_kernel.LAUNCHES
+    launches = regs_kernel.KEYS_LAUNCHES
     bad = [i for i, r in enumerate(res) if r["valid?"] is not True
            or r["engine"] != "wgl_seg_batch_regs"]
     if bad:
         raise SystemExit(f"[many-main] keys {bad[:8]} not judged valid by "
                          f"the key launch")
     many_line("many-main", keys, res, st, wall, launches)
-    if launches < 1 or launches != st["launches"]:
-        raise SystemExit(f"[many-main] {launches} segment kernel launches "
-                         f"on the main path, {st['launches']} key launches")
+    check_key_launches("many-main", launches, st)
     picks = (7, MANY_KEYS // 2, MANY_KEYS - 1)
     planted = list(keys)
     wits = {}
@@ -2082,11 +2100,12 @@ def phase_many_crash():
     attach_columns("the crashed-keys batch", keys)
     model = CASRegister()
     wgl_seg.check_many(model, keys)                  # warm
-    regs_kernel.LAUNCHES = 0
+    regs_kernel.LAUNCHES = regs_kernel.KEYS_LAUNCHES = 0
     st = {}
     t = time.perf_counter()
     res = wgl_seg.check_many(model, keys, stats=st)
     wall = time.perf_counter() - t
+    launches = regs_kernel.KEYS_LAUNCHES
     bad = [i for i, r in enumerate(res) if r["valid?"] is not True
            or not r["engine"].startswith("wgl_seg")]
     if bad:
@@ -2095,7 +2114,8 @@ def phase_many_crash():
     crashed = sum(o.type == "info" for h in keys for o in h.ops)
     ignored = sum(r.get("crashed_ignored", 0) for r in res)
     twins = sum("crashed_ignored" in r for r in res)
-    many_line("many-crash", keys, res, st, wall, regs_kernel.LAUNCHES)
+    many_line("many-crash", keys, res, st, wall, launches)
+    check_key_launches("many-crash", launches, st)
     log(f"[many-crash] {crashed} crashed calls in {twins} keys, "
         f"{ignored} ignored on their keys' crash-stripped twins")
     if ignored != crashed:
@@ -2104,81 +2124,293 @@ def phase_many_crash():
 
 def many_inputs(keys):
     """The key launch's inputs from `wgl_seg.key_launch_inputs`, the
-    construction check_many launches: one alphabet, each key one segment
-    at J = 1, rounds R (the deepest key's)."""
+    construction check_many launches: one alphabet, each key one
+    segment, the longest first, rounds R (the deepest key's)."""
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops import wgl_seg
-    k = wgl_seg.key_launch_inputs(CASRegister(), keys)
-    return dict(k._asdict(), J=1)
+    return wgl_seg.key_launch_inputs(CASRegister(), keys)._asdict()
 
 
-def ctas_per_sm(k):
+def keys_run(inp, device):
+    """keys_scan on `device` over the key launch `inp`: (T u8 numpy,
+    work int64 numpy, bad)."""
+    from jepsen_tpu_torch.ops import regs_kernel
+    dev = torch.device(device)
+    args = [torch.from_numpy(np.ascontiguousarray(inp[x])).to(dev)
+            for x in ("cbuf", "offs", "nrows", "aux")]
+    work = torch.full((len(inp["offs"]),), -1, dtype=torch.int64,
+                      device=dev)
+    T, bad = regs_kernel.keys_scan(*args, R=inp["R"], Sn=inp["Sn"],
+                                   UP=inp["UP"], work=work)
+    return T.cpu().numpy(), work.cpu().numpy(), int(bad.cpu()[0])
+
+
+def plain_keys_job(inp):
+    """The plain version on CPU copies, in a worker process: (T, work,
+    need: the operations the walk needs, seconds)."""
+    from jepsen_tpu_torch.ops import regs_kernel
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    args = [torch.from_numpy(np.ascontiguousarray(inp[x]))
+            for x in ("cbuf", "offs", "nrows", "aux")]
+    work, need = (torch.zeros(len(inp["offs"]), dtype=torch.int64)
+                  for _ in range(2))
+    T = regs_kernel.scan_plain(*args, R=inp["R"], Sn=inp["Sn"],
+                               UP=inp["UP"], J=1, rounds=inp["R"],
+                               work=work, need=need)
+    return T.numpy(), work.numpy(), need.numpy(), time.perf_counter() - t
+
+
+def many_kernel_cases():
+    """(name, key launch inputs, refused launch position or None) of
+    launches that split a warp of the key kernel, at R = 4 and 6 (plane
+    width 1 and 2) and vmax 4 / 12 / 28 (SnP 8 / 16 / 32): 11 keys (no
+    multiple of 4 or 2 a warp) of 1 to about 330 rows, a one-row key
+    beside keys longer than a staged chunk, stale reads planted in
+    three, every key's open slots, rank-1 kinds and returning slots its
+    own; random keys under random uop tables (random_key_launch: every
+    rank-1 shape, at SnP 8, 16, 32 and Sn 1); and the first launch again
+    with a uop id past the table in the key at launch position 5, which
+    the kernel refuses alone."""
+    from jepsen_tpu_torch.history import History, invoke_op, ok_op
+    from jepsen_tpu_torch.ops import regs_kernel
+    cases = []
+    for R in (4, 6):
+        for vmax in (4, 12, 28):
+            hs = [make_history(n, R + 1, seed=9000 + 100 * R + vmax + k,
+                               vmax=vmax, max_open=R,
+                               burst=R if k == 0 else 0)
+                  for k, n in enumerate(WARP_KEY_CALLS)]
+            for k in (1, 4, 7):
+                plant_stale_read(hs[k], 0.5, vmax)
+            hs.insert(3, History([invoke_op(0, "write", 1),
+                                  ok_op(0, "write", 1)]).index())
+            inp = many_inputs(hs)
+            name = f"R={inp['R']} SnP={regs_kernel.snp(inp['Sn'])}"
+            cases.append((name, inp, None))
+    for seed, (R, Sn) in enumerate(((5, 6), (6, 14), (4, 27), (2, 1))):
+        inp = random_key_launch(9100 + seed, 11, R, Sn)
+        cases.append((f"random table R={R} Sn={Sn}", inp, None))
+    inp, p = cases[0][1], 5
+    wire = refuse_key(tuple(inp[x] for x in ("cbuf", "offs", "nrows",
+                                             "aux")), p, inp["UP"])
+    cases.append((cases[0][0] + ", a uop id past the table",
+                  dict(inp, cbuf=wire[0]), p))
+    return cases
+
+
+#: calls of the keys that split a warp (many_kernel_cases and the card
+#: tests' keys): a key longer than a staged chunk beside short ones
+WARP_KEY_CALLS = (300, 40, 150, 3, 90, 20, 200, 60, 8, 130)
+
+
+def refuse_key(wire, p, UP):
+    """A copy of the key launch's wire (cbuf, offs, nrows, aux) whose key
+    at launch position p names a uop id past the table (UP) at its first
+    invoke: the key kernel refuses that key alone."""
+    cbuf, offs, nrows, aux = wire
+    cbuf = cbuf.copy()
+    o, L = int(offs[p]), int(nrows[p])
+    cell = int(np.nonzero(cbuf[o + L:o + 3 * L])[0][0])
+    cbuf[o + 3 * L + 2 * cell] = UP & 0xFF
+    cbuf[o + 3 * L + 2 * cell + 1] = UP >> 8
+    return cbuf, offs, nrows, aux
+
+
+def random_key_launch(seed, K, R, Sn, UP=16, max_rows=90):
+    """A key launch over K random keys (1 .. max_rows rows each, in
+    launch order) under a random uop table of UP uops whose rank-1
+    masks take every shape: none, one source row, every row but the
+    target state (which the diagonal keeps), and random subsets.  Each
+    key's rows invoke only free slots (< R) and return only open ones.
+    Made with numpy from `seed`; a dict as many_inputs returns."""
+    rng = np.random.default_rng(seed)
+    bits = np.uint64(1) << np.arange(Sn, dtype=np.uint64)
+    a1 = ((rng.random((UP, Sn)) < 0.8) @ bits).astype(np.uint32)
+    t0 = rng.integers(0, Sn, UP).astype(np.uint32)
+    cover = (1 << Sn) - 1
+    a2 = np.zeros(UP, np.uint32)
+    for u in range(UP):
+        kind, t = u % 4, int(t0[u])
+        if kind == 1:
+            a2[u] = 1 << int(rng.integers(Sn))
+        elif kind == 2:
+            a2[u] = cover & ~(1 << t)
+            a1[u] |= np.uint32(1 << t)
+        elif kind == 3:
+            a2[u] = int(rng.integers(0, 1 << Sn)) & cover
+    bufs, offs, nrows, o = [], [], [], 0
+    for _ in range(K):
+        L = int(rng.integers(1, max_rows))
+        ret = np.full(L, -1)
+        isl = np.full((L, 2), -1)
+        opened = set()
+        for r in range(L):
+            for i in range(2):
+                free = [b for b in range(R) if b not in opened]
+                if free and rng.random() < 0.6:
+                    isl[r, i] = int(rng.choice(free))
+                    opened.add(int(isl[r, i]))
+            if opened and rng.random() < 0.8:
+                ret[r] = int(rng.choice(sorted(opened)))
+                opened.discard(int(ret[r]))
+        iu = rng.integers(0, UP, (L, 2)).astype("<u2")
+        bufs.append(np.concatenate([(ret + 1).astype(np.uint8),
+                                    (isl + 1).astype(np.uint8).ravel(),
+                                    iu.ravel().view(np.uint8)]))
+        offs.append(o)
+        nrows.append(L)
+        o += len(bufs[-1])
+    nrows = np.asarray(nrows, np.int32)
+    order = np.argsort(-nrows, kind="stable")
+    return dict(cbuf=np.concatenate(bufs),
+                offs=np.asarray(offs, np.int64)[order], nrows=nrows[order],
+                aux=np.concatenate([a1, a2, t0]).view(np.int32), R=R, Sn=Sn,
+                UP=UP, order=order)
+
+
+def key_routes(inp, dev):
+    """The key launch's routes over the inputs `inp` on `dev`, as
+    (name, fn) pairs: wgl_regs_keys, and the segment kernel at J = 1
+    (the launch it replaced)."""
+    from jepsen_tpu_torch.ops import regs_kernel
+    args = [torch.from_numpy(np.ascontiguousarray(inp[x])).to(dev)
+            for x in ("cbuf", "offs", "nrows", "aux")]
+    kw = dict(R=inp["R"], Sn=inp["Sn"], UP=inp["UP"])
+    return [("wgl_regs_keys", lambda: regs_kernel.keys_scan(*args, **kw)),
+            ("wgl_regs_kernel J=1",
+             lambda: regs_kernel.regs_scan(*args, J=1, rounds=kw["R"],
+                                           **kw))]
+
+
+def key_cycles(keys, clock_hz):
+    """Each key route's time over the first N_SM keys (one key an SM for
+    the J = 1 launch: one chain alone) and over all of them, in turns
+    (J = 1, keys, keys, J = 1), on the device and launch to end; cycles
+    a row: the device time at the max SM clock over the mean rows a
+    key.  Returns {(route, K): {device_ms, ms, cycles}}."""
+    out = {}
+    for K in (N_SM, len(keys)):
+        inp = many_inputs(keys[:K])
+        rows = inp["nrows"]
+        routes = dict(key_routes(inp, DEV))
+        times = {name: [] for name in routes}
+        for name in ("wgl_regs_kernel J=1", "wgl_regs_keys",
+                     "wgl_regs_keys", "wgl_regs_kernel J=1"):
+            fn = routes[name]
+            fn()                                      # warm
+            times[name].append((device_ms(fn, 10), launch_ms(fn, 5)))
+        for name, ts in times.items():
+            dms = sum(t[0] for t in ts) / len(ts)
+            ms = sum(t[1] for t in ts) / len(ts)
+            cyc = dms * 1e-3 * clock_hz / rows.mean()
+            out[name, K] = dict(device_ms=dms, ms=ms, cycles=cyc)
+            log(f"[many-kernel] K={K} keys ({int(rows.sum())} rows, "
+                f"{rows.mean():.1f} a key, longest {int(rows.max())}): "
+                f"{name} {dms:.4f} ms on the device (10 back to back; "
+                f"turns {', '.join(f'{t[0]:.4f}' for t in ts)}), "
+                f"{ms:.4f} ms launch to end (mean of 5; turns "
+                f"{', '.join(f'{t[1]:.4f}' for t in ts)}), {cyc:.0f} "
+                f"cycles a row")
+    return out
+
+
+def ctas_per_sm(k, dyn_smem=0):
     """Resident CTAs an SM of one-warp CTAs of the kernel instantiation
-    whose ptxas counts are `k`: the least of the CTA limit, the register
-    file (registers rounded up to 8 a thread) and shared memory."""
+    whose ptxas counts are `k`, with `dyn_smem` bytes of dynamic shared
+    memory a CTA: the least of the CTA limit, the register file
+    (registers rounded up to 8 a thread) and shared memory."""
     regs = -(-k["regs"] // 8) * 8
     return min(SM_CTAS, SM_REGS // (32 * regs),
-               SM_SMEM // (k["smem"] + CTA_SMEM_RESERVED))
+               SM_SMEM // (k["smem"] + dyn_smem + CTA_SMEM_RESERVED))
 
 
 def phase_many_kernel(keys, kernels, clock_hz):
-    """The key launch rebuilt as check_many builds it: the first
-    MANY_KERNEL_KEYS keys against the plain version byte for byte (on
-    CPU copies of the same inputs), then the full launch against it,
-    timed launch to end and on the device beside its bound."""
+    """The key launch rebuilt as check_many builds it: wgl_regs_keys
+    against the plain version byte for byte (on CPU copies of the same
+    inputs) on the first MANY_KERNEL_KEYS keys, on the cases that split a
+    warp and on the full launch; then cycles a row at one key an SM and
+    at the full batch, the J = 1 launch of the segment kernel it
+    replaced timed beside it in turns, and the bound: from the
+    operations the walk needs (the plain version's `need`: no round past
+    a row's open-slot count), beside the work= count's, which charges
+    the plain version's one more round and so compares with the J = 1
+    launch's."""
     from jepsen_tpu_torch.ops import regs_kernel
     small = many_inputs(keys[:MANY_KERNEL_KEYS])
     full = many_inputs(keys)
+    cases = many_kernel_cases()
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(2, mp_context=ctx) as pool:
-        f_small = pool.submit(plain_seg_job, small, small["R"])
-        f_full = pool.submit(plain_seg_job, full, full["R"])
-        T, work, nbad, _ = seg_scan(small, DEV, small["R"])
-        pT, pwork, _ = f_small.result()
+        f_full = pool.submit(plain_keys_job, full)
+        f_small = pool.submit(plain_keys_job, small)
+        # the refused case's plain rows are its source case's (the first)
+        f_cases = [pool.submit(plain_keys_job, inp)
+                   for _, inp, p in cases if p is None]
+        T, work, nbad = keys_run(small, DEV)
+        pT, pwork, _, _ = f_small.result()
         ok = (T.tobytes() == pT.tobytes() and np.array_equal(work, pwork)
               and nbad == 0)
-        log(f"[many-kernel] first {MANY_KERNEL_KEYS} keys (R={small['R']}, "
-            f"Sn={small['Sn']}, rows={int(small['nrows'].sum())}): transfer "
-            f"rows and operation counts against the plain version "
+        log(f"[many-kernel] wgl_regs_keys, first {MANY_KERNEL_KEYS} keys "
+            f"(R={small['R']}, Sn={small['Sn']}, rows="
+            f"{int(small['nrows'].sum())}): transfer rows and operation "
+            f"counts against the plain version "
             f"{'byte for byte OK' if ok else 'MISMATCH'}")
         if not ok:
             raise SystemExit("[many-kernel] the key launch and its plain "
                              "version disagree")
-        Tn, wn, nbad, _ = seg_scan(full, DEV, full["R"])
-        args = [torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
-                for x in (full["cbuf"], full["offs"], full["nrows"],
-                          full["aux"])]
-        kw = dict(R=full["R"], Sn=full["Sn"], UP=full["UP"], J=1,
-                  rounds=full["R"])
-
-        def scan():
-            return regs_kernel.regs_scan(*args, **kw)
-        scan()                                        # warm
-        ms, dms = launch_ms(scan, 5), device_ms(scan, 10)
-        pT, pwork, psecs = f_full.result()
+        for i, (name, inp, p) in enumerate(cases):
+            T, work, nbad = keys_run(inp, DEV)
+            pT, pwork, _, _ = f_cases[0 if p is not None else i].result()
+            keep = np.arange(len(inp["offs"])) != (-1 if p is None else p)
+            ok = (T[keep].tobytes() == pT[keep].tobytes()
+                  and np.array_equal(work[keep], pwork[keep])
+                  and nbad == (p is not None)
+                  and (p is None or work[p] == -1))
+            log(f"[many-kernel] case {name}: K={len(inp['offs'])} keys of "
+                f"{int(inp['nrows'].min())}..{int(inp['nrows'].max())} "
+                f"rows, Sn={inp['Sn']}, {int((pT.max(-1) == 0).sum())} "
+                f"dead, refused {nbad}: rows and counts "
+                f"{'byte for byte OK' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(f"[many-kernel] case {name}: the key "
+                                 f"kernel and its plain version disagree")
+        Tn, wn, nbad = keys_run(full, DEV)
+        cyc = key_cycles(keys, clock_hz)
+        pT, pwork, pneed, psecs = f_full.result()
     K, Sn = len(full["offs"]), full["Sn"]
     if not (Tn.tobytes() == pT.tobytes() and np.array_equal(wn, pwork)
             and nbad == 0):
         raise SystemExit("[many-kernel] the full key launch and its plain "
                          "version disagree")
+    new, old = cyc["wgl_regs_keys", K], cyc["wgl_regs_kernel J=1", K]
     n_bytes = full["cbuf"].nbytes + 12 * K + full["aux"].nbytes + K * Sn
-    b = seg_bound_ms(int(wn.sum()), n_bytes, clock_hz)
-    name = f"wgl_regs_kernel<{regs_kernel.plane_width(full['R'])}," \
-           f"{regs_kernel.snp(Sn)}>"
+    b = seg_bound_ms(int(pneed.sum()), n_bytes, clock_hz)
+    b_w = seg_bound_ms(int(wn.sum()), n_bytes, clock_hz)
+    wd, sp = regs_kernel.plane_width(full["R"]), regs_kernel.snp(Sn)
+    name = f"wgl_regs_keys<{wd},{sp}>"
     k = kernels.get(name)
-    occ = ctas_per_sm(k) if k else "not reported"
+    dyn = 20 * 2 * 128          # the warp's two chunks of 128 staged cells
+    occ = ctas_per_sm(k, dyn) if k else "not reported"
     log(f"[many-kernel] full launch: K={K} keys, rows="
         f"{int(full['nrows'].sum())}, R={full['R']}, Sn={Sn}, rounds "
-        f"{full['R']}: {K} CTAs of 32 threads ({regs_kernel.snp(Sn)} a key "
-        f"active), {name} {k['regs'] if k else '?'} registers and "
-        f"{k['smem'] if k else '?'} bytes of shared memory, {occ} CTAs an "
-        f"SM; kernel {ms:.4f} ms launch to end (mean of 5), {dms:.4f} ms "
-        f"on the device (10 back to back), plain (CPU, one thread) "
-        f"{1e3 * psecs:.1f} ms, equal byte for byte; bound {b:.4f} ms from "
-        f"{int(wn.sum())} integer operations and {n_bytes} bytes "
-        f"({b / ms:.4f} of launch to end, {b / dms:.4f} of the device "
-        f"time)")
-    return dict(ms=ms, device_ms=dms, plain_ms=1e3 * psecs, bound_ms=b,
+        f"{full['R']}: {-(-K // (32 // sp))} CTAs of one warp "
+        f"({32 // sp} keys a warp), {name} {k['regs'] if k else '?'} "
+        f"registers, {k['smem'] if k else '?'} + {dyn} bytes of shared "
+        f"memory, {occ} CTAs an SM; kernel {new['ms']:.4f} ms launch to end, "
+        f"{new['device_ms']:.4f} ms on the device; the J = 1 launch "
+        f"{old['ms']:.4f} / {old['device_ms']:.4f} ms (in turns, the same "
+        f"call); plain (CPU, one thread) {1e3 * psecs:.1f} ms, equal byte "
+        f"for byte; bound {b:.4f} ms from the {int(pneed.sum())} integer "
+        f"operations the walk needs and {n_bytes} bytes "
+        f"({b / new['ms']:.4f} of launch to end, "
+        f"{b / new['device_ms']:.4f} of the device time; the J = 1 launch "
+        f"{b / old['device_ms']:.4f}), {b_w:.4f} ms from "
+        f"work={int(wn.sum())} ({b_w / new['ms']:.4f}, "
+        f"{b_w / new['device_ms']:.4f}; the J = 1 launch "
+        f"{b_w / old['device_ms']:.4f})")
+    return dict(ms=new["ms"], device_ms=new["device_ms"],
+                plain_ms=1e3 * psecs, bound_ms=b,
                 err=int(np.abs(Tn.astype(np.int64)
                                - pT.astype(np.int64)).max()))
 

@@ -123,6 +123,8 @@ constexpr uint32_t FULL = 0xFFFFFFFFu;
 constexpr int CLOSE_OPS = 6;     // per plane word of a slot b < 5 pass
 constexpr int CLOSE5_OPS = 4;    // per state row of a slot 5 pass
 constexpr int PRUNE_OPS = 2;     // per plane word (state row at slot 5)
+// the key kernel (wgl_regs_keys)
+constexpr int KEY_CELLS = 128;   // (key, row) cells a warp stages a chunk
 
 // Bit i of intra(b) is set iff mask index i lacks bit b (b < 5).
 __host__ __device__ constexpr uint32_t intra(int b) {
@@ -152,6 +154,17 @@ __device__ __forceinline__ uint32_t or_lane(uint32_t v) {
     return v;
 }
 
+// OR of v over this thread's key in the key kernel: its SNP threads.
+// With several keys a warp, a shuffle tree under the full mask (a
+// reduction under each key's own mask would differ between the keys of
+// one warp, which the hardware takes one mask at a time); with one key
+// a warp, one reduction.
+template <int SNP>
+__device__ __forceinline__ uint32_t or_key(uint32_t v) {
+    if constexpr (SNP == 32) return __reduce_or_sync(FULL, v);
+    else return or_lane<SNP>(v);
+}
+
 // The rank-1 term of one plane word x (the configs lacking the slot):
 // the OR over the lane's rows s in the slot's a2 (c: this row's bit) of
 // their x.  The slot's sources are the CTA's: none, one row (a shuffle
@@ -165,29 +178,49 @@ __device__ __forceinline__ uint32_t rank1(uint32_t x, uint32_t cm, int one,
 }
 
 // One closure pass of slot B over this thread's state row `fr`, added
-// into `add`; dm, cm, tm: all ones where the row is in the slot's a1,
-// in its a2, and is its target state t0; one, many, src: the slot's
-// rank-1 sources (see rank1).
-template <int WD, int SNP, int B>
+// into `add`; dm, tm: all ones where the row is in the slot's a1, and
+// is its target state t0; red(x): the rank-1 term of word x (rank1 in
+// the segment kernel, one reduction over the key's threads in the key
+// kernel).
+template <int WD, int B, typename Red>
 __device__ __forceinline__ void close_slot(const uint32_t (&fr)[WD],
                                            uint32_t (&add)[WD], uint32_t dm,
-                                           uint32_t cm, uint32_t tm, int one,
-                                           int many, int src) {
+                                           uint32_t tm, Red red) {
     if constexpr (B < 5) {
         constexpr uint32_t LACK = intra(B);
         constexpr int SH = 1 << B;
 #pragma unroll
         for (int w = 0; w < WD; ++w) {
             const uint32_t x = fr[w] & LACK;
-            const uint32_t red = rank1<SNP>(x, cm, one, many, src);
-            add[w] |= ((x & dm) | (red & tm)) << SH;
+            add[w] |= ((x & dm) | (red(x) & tm)) << SH;
         }
     } else if constexpr (WD == 2) {
         // slot 5: word 0 lacks it; linearizing moves word 0 to word 1
         const uint32_t x = fr[0];
-        const uint32_t red = rank1<SNP>(x, cm, one, many, src);
-        add[1] |= (x & dm) | (red & tm);
+        add[1] |= (x & dm) | (red(x) & tm);
     }
+}
+
+// Register an invoke on slot sl (0 <= sl < MAXR; -1: none, a no-op)
+// for this thread's state row s: its uop's a1 and a2 masks and target
+// state t0 into the slot registers, and the slot opens.
+__device__ __forceinline__ void note_slot(int sl, int s, uint32_t a1,
+                                          uint32_t a2, int t0,
+                                          uint32_t (&dmk)[MAXR],
+                                          uint32_t (&cmk)[MAXR],
+                                          uint32_t &tsel, uint32_t &open) {
+    const uint32_t bit = sl >= 0 ? 1u << (sl & 31) : 0u;
+    const uint32_t dm = 0u - ((a1 >> s) & 1u);
+    const uint32_t cm = 0u - ((a2 >> s) & 1u);
+#pragma unroll
+    for (int b = 0; b < MAXR; ++b) {
+        if (sl == b) {
+            dmk[b] = dm;
+            cmk[b] = cm;
+        }
+    }
+    tsel = (tsel & ~bit) | (t0 == s ? bit : 0u);
+    open |= bit;
 }
 
 // Prune the configs lacking slot B and clear its bit.
@@ -201,6 +234,60 @@ __device__ __forceinline__ void retire_slot(uint32_t (&fr)[WD]) {
         fr[0] = fr[1];
         fr[1] = 0u;
     }
+}
+
+// Retire slot B where rs is B, with selects and no branch (the keys of
+// a warp return different slots).
+template <int WD, int B>
+__device__ __forceinline__ void retire_if(uint32_t (&fr)[WD], int rs) {
+    uint32_t t[WD];
+#pragma unroll
+    for (int w = 0; w < WD; ++w) t[w] = fr[w];
+    retire_slot<WD, B>(t);
+#pragma unroll
+    for (int w = 0; w < WD; ++w) fr[w] = rs == B ? t[w] : fr[w];
+}
+
+// The return of slot rs (-1: none) on this thread's row: prune and
+// retire it, close the slot, and count the prune (b < 5 or b = 5).  The
+// segment kernel's rs is the CTA's and switches; the key kernel's
+// (SELECT) is each key's and selects.
+template <int WD, bool SELECT = false>
+__device__ __forceinline__ void retire(uint32_t (&fr)[WD], int rs,
+                                       uint32_t &open, uint32_t &n_prune,
+                                       uint32_t &n_prune5) {
+    if constexpr (SELECT) {
+        retire_if<WD, 0>(fr, rs);
+        retire_if<WD, 1>(fr, rs);
+        retire_if<WD, 2>(fr, rs);
+        retire_if<WD, 3>(fr, rs);
+        retire_if<WD, 4>(fr, rs);
+        retire_if<WD, 5>(fr, rs);
+    } else if (rs >= 0) {
+        switch (rs) {
+        case 0: retire_slot<WD, 0>(fr); break;
+        case 1: retire_slot<WD, 1>(fr); break;
+        case 2: retire_slot<WD, 2>(fr); break;
+        case 3: retire_slot<WD, 3>(fr); break;
+        case 4: retire_slot<WD, 4>(fr); break;
+        default: retire_slot<WD, 5>(fr); break;
+        }
+    }
+    open &= ~(uint32_t(rs >= 0) << (rs & 31));
+    n_prune += rs >= 0 && rs < 5;
+    n_prune5 += rs == 5;
+}
+
+// A lane's work count from its passes and prunes (the bound model).
+template <int WD>
+__device__ __forceinline__ long long walk_ops(int Sn, uint32_t n_pass,
+                                              uint32_t n_pass5,
+                                              uint32_t n_prune,
+                                              uint32_t n_prune5) {
+    return (long long)Sn * (n_pass * (long long)(CLOSE_OPS * WD)
+                            + n_pass5 * (long long)CLOSE5_OPS
+                            + n_prune * (long long)(PRUNE_OPS * WD)
+                            + n_prune5 * (long long)PRUNE_OPS);
 }
 
 }  // namespace
@@ -327,22 +414,14 @@ wgl_regs_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
             for (int i = 0; i < I; ++i) {
                 const int sl = st.slot[r][i];
                 if (sl < 0) continue;
+                note_slot(sl, s, st.a1[r][i], st.a2[r][i], st.t0[r][i],
+                          dmk, cmk, tsel, open);
                 const uint32_t bit = 1u << sl;
-                const uint32_t dm = 0u - ((st.a1[r][i] >> s) & 1u);
-                const uint32_t cm = 0u - ((st.a2[r][i] >> s) & 1u);
-#pragma unroll
-                for (int b = 0; b < MAXR; ++b) {
-                    if (sl == b) {
-                        dmk[b] = dm;
-                        cmk[b] = cm;
-                    }
-                }
-                tsel = (tsel & ~bit) | (uint32_t(st.t0[r][i] == s) << sl);
                 const int sv = st.src[r][i];
                 one = (one & ~bit) | (sv >= 0 && sv < SRC_MANY ? bit : 0u);
                 many = (many & ~bit) | (sv == SRC_MANY ? bit : 0u);
-                srcs = (srcs & ~(31u << 5 * sl)) | (uint32_t(sv & 31) << 5 * sl);
-                open |= bit;
+                srcs = (srcs & ~(31u << 5 * sl))
+                       | (uint32_t(sv & 31) << 5 * sl);
             }
             if (open) {
                 const uint32_t lo = __popc(open & 31u), hi = open >> 5;
@@ -353,10 +432,13 @@ wgl_regs_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                     for (int w = 0; w < WD; ++w) add[w] = 0u;
 #define WGL_CLOSE(B)                                                      \
     if (open & (1u << B))                                                 \
-        close_slot<WD, SNP, B>(fr, add, dmk[B], cmk[B],                   \
-                               0u - ((tsel >> B) & 1u), (one >> B) & 1u,  \
-                               (many >> B) & 1u,                          \
-                               lane0 + int((srcs >> 5 * B) & 31u));
+        close_slot<WD, B>(fr, add, dmk[B], 0u - ((tsel >> B) & 1u),       \
+                          [&](uint32_t x) {                               \
+                              return rank1<SNP>(                          \
+                                  x, cmk[B], (one >> B) & 1u,             \
+                                  (many >> B) & 1u,                       \
+                                  lane0 + int((srcs >> 5 * B) & 31u));    \
+                          });
                     WGL_CLOSE(0)
                     WGL_CLOSE(1)
                     WGL_CLOSE(2)
@@ -379,20 +461,7 @@ wgl_regs_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                     if (!changed) break;    // the warp's lanes are fixed
                 }
             }
-            const int rs = st.ret[r];
-            if (rs >= 0) {
-                switch (rs) {
-                case 0: retire_slot<WD, 0>(fr); break;
-                case 1: retire_slot<WD, 1>(fr); break;
-                case 2: retire_slot<WD, 2>(fr); break;
-                case 3: retire_slot<WD, 3>(fr); break;
-                case 4: retire_slot<WD, 4>(fr); break;
-                default: retire_slot<WD, 5>(fr); break;
-                }
-                open &= ~(1u << rs);
-                n_prune += rs < 5;
-                n_prune5 += rs == 5;
-            }
+            retire(fr, st.ret[r], open, n_prune, n_prune5);
         }
         if (more) store(stage[(c + 1) & 1], base + CHUNK);
         __syncthreads();
@@ -406,10 +475,7 @@ wgl_regs_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
     if (work) {
         // every thread of a lane holds its count: take the first row's
         long long v = !real || s ? 0LL
-            : (long long)Sn * (n_pass * (long long)(CLOSE_OPS * WD)
-                               + n_pass5 * (long long)CLOSE5_OPS
-                               + n_prune * (long long)(PRUNE_OPS * WD)
-                               + n_prune5 * (long long)PRUNE_OPS);
+            : walk_ops<WD>(Sn, n_pass, n_pass5, n_prune, n_prune5);
 #pragma unroll
         for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
         if (lane == 0) warp_ops[tid >> 5] = v;
@@ -420,6 +486,255 @@ wgl_regs_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
             work[k] = sum;
         }
     }
+}
+
+// The key kernel (wgl_regs_keys) replaces
+// jepsen_tpu/ops/wgl_seg.py::_build_kernel_regs_many_c (:725, the XLA
+// scan at J = 1 behind an unpack of the key-major wire): per key, one
+// lane entering state 0 walks the key's whole wire (one segment a key,
+// the layout above) at exact rounds R; out[K][Sn] u8 (the [K, 1, Sn]
+// transfer rows), 1 where state s survives the key's last row.  The
+// walk, the costs of work[k] and the refusals are the segment kernel's
+// at J = 1; a refused key adds one to *bad and writes neither its row
+// nor its count, and its warp-mates finish.
+//
+// Layout.  G = 32 / SnP keys a warp (4, 2, 1 at SnP 8, 16, 32), one
+// thread per (key g, state row s), W = blockDim.x / 32 warps a CTA, each
+// with its own keys and its own slice of the staging; the launch gives
+// one warp a CTA (1, 2, 4 and 8 measured within 4% of each other).  The
+// body stays written for W warps, bound at 256 threads: the same body
+// for one warp (constant shared addresses, 32 threads) compiled to a
+// schedule that measured 35% slower on the H100 (PERF.md).  The segment
+// kernel at J = 1 put one key on a warp and left 32 - SnP of its threads
+// walking empty planes.  A warp's keys walk row r together, so the warp
+// runs as long as its longest key (the host orders the keys longest
+// first), and a key past its own last row stands still.  The control
+// flow is the warp's and the decisions are each key's data: every slot's
+// pass runs in every round, without a branch, masked to nothing where
+// the key has the slot closed; the rank-1 term is an OR over the key's
+// SnP threads whatever the slot's sources (a shuffle tree under the full
+// mask, one reduction when a key fills the warp); the return retires
+// with selects; the rounds end when a ballot finds no key of the warp
+// changed, or after as many rounds as the most open slots of a key (a
+// config takes one linearization a round and one a slot, so no later
+// round adds one), each key's count stopping at its own fixpoint.
+// Each warp stages its keys' next KEY_CELLS (key, row) cells alone,
+// with __syncwarp and no CTA barrier: the wire bytes in registers
+// before the walk of a chunk, and after it, the invokes' uops looked
+// up in the table (L1), each cell as its two invokes' a1 and a2 words
+// and one packed word (return, slots, targets) in shared memory.  Rows
+// past a key's end stage empty.  A row's walk reads its cell (read
+// during the row before), registers, and runs its rounds.
+//
+// What bounds it: integer operations, as the segment kernel's, and the
+// chain of a key's rows.  Measured on an H100 (PERF.md): the J = 1
+// launch cost 1565 cycles a row for one key's chain alone and 2324 at
+// 3400 keys; most of a row is its rounds, and most of a round the
+// shuffle trees of the five slots' rank-1 terms, issued together.  Two
+// ways to run fewer of them measured slower: a branch per slot and
+// source kind (one row: one shuffle; all rows: one tree for all such
+// slots), which waits for each slot's shuffles in turn, and the same
+// without branches for tables without other kinds, which spilled.
+template <int WD, int SNP>
+__global__ void __launch_bounds__(256)
+wgl_regs_keys(const uint8_t *__restrict__ cbuf, long long nbytes,
+              const int64_t *__restrict__ offs,
+              const int32_t *__restrict__ nrows,
+              const uint32_t *__restrict__ aux, int UP, int K, int R,
+              int Sn, uint8_t *__restrict__ out,
+              long long *__restrict__ work, int32_t *__restrict__ bad) {
+    constexpr int G = 32 / SNP;         // keys a warp
+    constexpr int CH = KEY_CELLS / G;   // rows of a key a chunk
+    constexpr int Q = KEY_CELLS / 32;   // cells a thread stages
+    // a warp's two chunks of staged cells: [W][2][CH][G] uint4 (the two
+    // invokes' a1 and a2 words), then [W][2][CH][G] packed words
+    extern __shared__ uint4 key_smem[];
+    const int tid = threadIdx.x, lane = tid & 31, W = blockDim.x >> 5;
+    uint4 *const stm = key_smem + (tid >> 5) * 2 * KEY_CELLS;
+    uint32_t *const stp = reinterpret_cast<uint32_t *>(
+        key_smem + W * 2 * KEY_CELLS) + (tid >> 5) * 2 * KEY_CELLS;
+    const int g = lane / SNP;           // the warp's key
+    const int s = lane % SNP;           // this thread's state row
+    const uint32_t gmask =
+        SNP == 32 ? FULL : ((1u << (SNP & 31)) - 1u) << (lane & ~(SNP - 1));
+    const long long k =
+        ((long long)blockIdx.x * W + (tid >> 5)) * G + g;
+    const bool real = k < K;
+    long long off = real ? offs[k] : 0;
+    int L = real ? nrows[k] : 0;
+    uint32_t badk = 0u;                 // bit g: this thread refused key g
+    if (L < 0 || off < 0 || off + 7LL * L > nbytes) {
+        badk = 1u << g;
+        L = 0;
+        off = 0;
+    }
+    const int Lw = __reduce_max_sync(FULL, L);
+    const unsigned long long kb = (unsigned long long)(cbuf + off);
+
+    // the next chunk's wire bytes: cell x = lane + 32 q is key x / CH's
+    // row x % CH of the chunk (ret+1 | slot+1 << 8 | slot+1 << 16, and
+    // the two uop ids)
+    uint2 pf[Q];
+    auto fetch = [&](int base) {
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const int gq = q * 32 / CH;
+            const long long r = base + (lane + 32 * q) % CH;
+            const int Lq = __shfl_sync(FULL, L, gq * SNP);
+            const uint8_t *b =
+                (const uint8_t *)__shfl_sync(FULL, kb, gq * SNP);
+            uint32_t x = 0u, y = 0u;
+            if (r < Lq) {
+                const uint8_t *sl = b + Lq + 2 * r;
+                const uint8_t *u = b + 3LL * Lq + 4 * r;
+                x = uint32_t(b[r]) | uint32_t(sl[0]) << 8
+                    | uint32_t(sl[1]) << 16;
+                y = uint32_t(u[0]) | uint32_t(u[1]) << 8
+                    | uint32_t(u[2]) << 16 | uint32_t(u[3]) << 24;
+            }
+            pf[q] = make_uint2(x, y);
+        }
+    };
+    // validate them (a slot or return at or past R, or a uop id outside
+    // the table, refuses the key and stages empty), look the invokes'
+    // uops up in the table, and store each cell as its a1 / a2 words
+    // and one packed word: ret+1 (bits 0..2), each invoke's slot+1
+    // (3..5, 6..8) and target state t0 (16..21, 24..29; 32 for none)
+    auto store = [&](uint4 *bm, uint32_t *bp) {
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const int gq = q * 32 / CH;
+            const int x = ((lane + 32 * q) % CH) * G + gq;
+            int rs = int(pf[q].x & 255u) - 1;
+            if (rs >= R) {
+                badk |= 1u << gq;
+                rs = -1;
+            }
+            uint32_t pk = uint32_t(rs + 1), a[2 * I] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int i = 0; i < I; ++i) {
+                const int sl = int((pf[q].x >> (8 + 8 * i)) & 255u) - 1;
+                const uint32_t u = (pf[q].y >> 16 * i) & 0xFFFFu;
+                if (sl < 0) continue;
+                if (u >= uint32_t(UP) || sl >= R) {
+                    badk |= 1u << gq;
+                    continue;
+                }
+                a[2 * i] = __ldg(aux + u);
+                a[2 * i + 1] = __ldg(aux + UP + u);
+                pk |= uint32_t(sl + 1) << (3 + 3 * i)
+                    | min(__ldg(aux + 2 * UP + u), 32u) << (16 + 8 * i);
+            }
+            bm[x] = make_uint4(a[0], a[1], a[2], a[3]);
+            bp[x] = pk;
+        }
+    };
+
+    uint32_t fr[WD];
+#pragma unroll
+    for (int w = 0; w < WD; ++w) fr[w] = (w == 0 && real && s == 0) ? 1u : 0u;
+    // the slot registers of the segment kernel, each key's own
+    uint32_t dmk[MAXR], cmk[MAXR];
+#pragma unroll
+    for (int b = 0; b < MAXR; ++b) dmk[b] = cmk[b] = 0u;
+    uint32_t tsel = 0u, open = 0u;
+    uint32_t n_pass = 0u, n_pass5 = 0u, n_prune = 0u, n_prune5 = 0u;
+
+    if (Lw > 0) {
+        fetch(0);
+        store(stm, stp);
+    }
+    __syncwarp();
+    for (int base = 0, c = 0; base < Lw; base += CH, ++c) {
+        const int n = min(CH, Lw - base);
+        const bool more = base + CH < Lw;
+        if (more) fetch(base + CH);
+        const uint4 *bm = stm + (c & 1) * KEY_CELLS;
+        const uint32_t *bp = stp + (c & 1) * KEY_CELLS;
+        uint4 m = bm[g];
+        uint32_t pk = bp[g];
+        for (int r = 0; r < n; ++r) {
+            // the next row's cell, read while this one walks
+            const int nx = (r + 1 < n ? r + 1 : r) * G + g;
+            const uint4 m1 = bm[nx];
+            const uint32_t pk1 = bp[nx];
+#pragma unroll
+            for (int i = 0; i < I; ++i)
+                note_slot(int((pk >> (3 + 3 * i)) & 7u) - 1, s,
+                          i ? m.z : m.x, i ? m.w : m.y,
+                          int((pk >> (16 + 8 * i)) & 63u), dmk, cmk, tsel,
+                          open);
+            // the key's open slots at a row it holds, and each slot's
+            // masks, zero where the slot is not open
+            const uint32_t kopen = base + r < L ? open : 0u;
+            uint32_t dm[MAXR], tm[MAXR];
+#pragma unroll
+            for (int b = 0; b < MAXR; ++b) {
+                const uint32_t on = 0u - ((kopen >> b) & 1u);
+                dm[b] = dmk[b] & on;
+                tm[b] = (0u - ((tsel >> b) & 1u)) & on;
+            }
+            const int nopen = __popc(kopen);
+            const uint32_t lo = __popc(kopen & 31u), hi = kopen >> 5;
+            // a config takes at most one linearization a round and one a
+            // slot, so no round after the nopen-th adds a config: the
+            // warp stops there (the plain version runs one more round,
+            // which changes nothing, and counts it: so does `run` below)
+            const int rounds = min(R, __reduce_max_sync(FULL, nopen));
+            bool run = kopen != 0u;
+            for (int rd = 0; rd < rounds; ++rd) {
+                uint32_t add[WD];
+#pragma unroll
+                for (int w = 0; w < WD; ++w) add[w] = 0u;
+                // every slot's pass, without a branch, so that their
+                // shuffle trees are in flight together; a closed slot's
+                // masks add nothing
+#define WGL_CLOSE_KEYS(B)                                                 \
+    close_slot<WD, B>(fr, add, dm[B], tm[B],                              \
+                      [&](uint32_t x) { return or_key<SNP>(x & cmk[B]); });
+                WGL_CLOSE_KEYS(0)
+                WGL_CLOSE_KEYS(1)
+                WGL_CLOSE_KEYS(2)
+                WGL_CLOSE_KEYS(3)
+                WGL_CLOSE_KEYS(4)
+                WGL_CLOSE_KEYS(5)
+#undef WGL_CLOSE_KEYS
+                uint32_t grew = 0u;
+#pragma unroll
+                for (int w = 0; w < WD; ++w) {
+                    grew |= add[w] & ~fr[w];
+                    fr[w] |= add[w];
+                }
+                const uint32_t changed = __ballot_sync(FULL, grew != 0u);
+                if (run) {
+                    n_pass += lo;
+                    n_pass5 += hi;
+                }
+                run = run && (changed & gmask) != 0u;
+                if (!changed) break;    // every key of the warp fixed
+            }
+            // a key that changed in its last round, below R rounds: the
+            // plain version's next round, which adds nothing
+            if (run && nopen < R) {
+                n_pass += lo;
+                n_pass5 += hi;
+            }
+            retire<WD, true>(fr, int(pk & 7u) - 1, open, n_prune,
+                             n_prune5);
+            m = m1;
+            pk = pk1;
+        }
+        if (more)
+            store(stm + ((c + 1) & 1) * KEY_CELLS,
+                  stp + ((c + 1) & 1) * KEY_CELLS);
+        __syncwarp();
+    }
+    const uint32_t refused = __reduce_or_sync(FULL, badk);
+    if (lane == 0 && refused) atomicAdd(bad, __popc(refused));
+    if (!real || ((refused >> g) & 1u)) return;
+    if (s < Sn) out[k * Sn + s] = uint8_t(fr[0] & 1u);
+    if (work && s == 0)
+        work[k] = walk_ops<WD>(Sn, n_pass, n_pass5, n_prune, n_prune5);
 }
 
 // Bits q of the result: byte q of x is nonzero.
@@ -579,6 +894,54 @@ extern "C" int wgl_regs_launch(const void *cbuf, long long nbytes,
     WGL_REGS_CASE(2, 16)
     WGL_REGS_CASE(2, 32)
 #undef WGL_REGS_CASE
+    return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <int WD, int SNP>
+void launch_keys(int grid, cudaStream_t stream, const void *cbuf,
+                 long long nbytes, const void *offs, const void *nrows,
+                 const void *aux, int UP, int K, int R, int Sn, void *out,
+                 void *work, void *bad) {
+    // one warp: its two chunks of staged cells, 16 + 4 bytes a cell
+    constexpr size_t smem = (sizeof(uint4) + sizeof(uint32_t)) * 2 * KEY_CELLS;
+    wgl_regs_keys<WD, SNP><<<grid, 32, smem, stream>>>(
+        (const uint8_t *)cbuf, nbytes, (const int64_t *)offs,
+        (const int32_t *)nrows, (const uint32_t *)aux, UP, K, R, Sn,
+        (uint8_t *)out, (long long *)work, (int32_t *)bad);
+}
+
+}  // namespace
+
+// The key launch over K keys on `stream`: G = 32 / SnP keys a warp,
+// one warp a CTA, exact rounds R; returns the cudaError_t of the launch
+// (0 on success).  R sizes the plane (WD = 2 at R = 6), SnP is the
+// state-row bucket (8, 16 or 32) and Sn <= SnP the states written.
+extern "C" int wgl_keys_launch(const void *cbuf, long long nbytes,
+                               const void *offs, const void *nrows,
+                               const void *aux, int UP, int K, int R,
+                               int SnP, int Sn, void *out, void *work,
+                               void *bad, void *stream) {
+    if (K <= 0) return 0;
+    if (R < 1 || R > MAXR || Sn < 1 || Sn > SnP || UP < 1 ||
+        (SnP != 8 && SnP != 16 && SnP != 32))
+        return (int)cudaErrorInvalidValue;
+    const int per = 32 / SnP;               // keys a CTA
+    const int grid = (K + per - 1) / per;
+    cudaStream_t s = (cudaStream_t)stream;
+    const int wd = R <= 5 ? 1 : 2;
+#define WGL_KEYS_CASE(WD, SNP)                                             \
+    if (wd == WD && SnP == SNP)                                            \
+        launch_keys<WD, SNP>(grid, s, cbuf, nbytes, offs, nrows, aux, UP, \
+                             K, R, Sn, out, work, bad);
+    WGL_KEYS_CASE(1, 8)
+    WGL_KEYS_CASE(1, 16)
+    WGL_KEYS_CASE(1, 32)
+    WGL_KEYS_CASE(2, 8)
+    WGL_KEYS_CASE(2, 16)
+    WGL_KEYS_CASE(2, 32)
+#undef WGL_KEYS_CASE
     return (int)cudaGetLastError();
 }
 

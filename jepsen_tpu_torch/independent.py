@@ -5,8 +5,8 @@ one subhistory per key.  Short per-key histories are what keeps
 linearizability checking cheap.
 
 `batch_checker(model)` checks every key's subhistory in one
-`ops.wgl_seg.check_many` call: each key one lane of the segment kernel
-on the card (or the kernels' plain versions on a CPU device the caller
+`ops.wgl_seg.check_many` call: each key one lane of the key kernel
+(`wgl_regs_keys`, several keys a warp) on the card (or the kernels' plain versions on a CPU device the caller
 names).  The key generators are workload code and are not here; the
 host-parallel `IndependentChecker` and the resilient runner behind the
 reference's batch checker (OOM bisection, quarantine, deadlines,

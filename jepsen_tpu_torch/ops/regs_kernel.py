@@ -25,10 +25,19 @@ steps each history's vector of entry configs through its segments'
 matrices to the first that empties it: the reference's six verdict
 words.
 
-`regs_scan` and `compose` take their plain versions (`scan_plain`,
-`compose_plain`) only for tensors on the CPU; for CUDA tensors they
-launch their kernels on the current stream or raise.  `LAUNCHES` and
-`COMPOSE_LAUNCHES` count the launches."""
+The key launch (`keys_scan`, kernel `wgl_regs_keys` in the same
+source) walks many independent keys, one segment and one lane entering
+state 0 a key, at exact rounds: G = 32 / SnP keys a warp and one thread
+per (key, state row), each key's decisions (open slots, the rank-1
+term, the returning slot) its own data under the warp's one control
+flow.  It replaces `jepsen_tpu/ops/wgl_seg.py::_build_kernel_regs_many_c`
+(:725).
+
+`regs_scan`, `keys_scan` and `compose` take their plain versions
+(`scan_plain`, `compose_plain`) only for tensors on the CPU; for CUDA
+tensors they launch their kernels on the current stream or raise.
+`LAUNCHES`, `KEYS_LAUNCHES` and `COMPOSE_LAUNCHES` count the launches
+of each kernel."""
 
 from __future__ import annotations
 
@@ -43,8 +52,9 @@ from jepsen_tpu_torch.ops.deep_kernel import _FULL, _INTRA, _check
 from jepsen_tpu_torch.ops.wgl_deep import _snp as snp
 
 #: Kernel launches since import (or since a caller reset it to 0): the
-#: segment scan's, and the composition's.
+#: segment scan's, the key launch's and the composition's.
 LAUNCHES = 0
+KEYS_LAUNCHES = 0
 COMPOSE_LAUNCHES = 0
 
 J_MAX = 32                      # entry states per segment
@@ -119,6 +129,9 @@ def _declare(lib):
     lib.wgl_regs_launch.argtypes = ([ptr, ctypes.c_longlong] + [ptr] * 3
                                     + [i32] * 7 + [ptr] * 4)
     lib.wgl_regs_launch.restype = i32
+    lib.wgl_keys_launch.argtypes = ([ptr, ctypes.c_longlong] + [ptr] * 3
+                                    + [i32] * 5 + [ptr] * 4)
+    lib.wgl_keys_launch.restype = i32
     lib.wgl_compose_launch.argtypes = [ptr, i32, ptr, ptr, i32, ptr, ptr]
     lib.wgl_compose_launch.restype = i32
 
@@ -141,22 +154,8 @@ def regs_scan(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
     leaves its plane unchanged).  CUDA tensors launch on the current
     stream and do not synchronise; CPU tensors run the plain version."""
     global LAUNCHES
-    dev = cbuf.device
-    _check(cbuf, "cbuf", torch.uint8, dev)
-    _check(offs, "offs", torch.int64, dev)
-    _check(nrows, "nrows", torch.int32, dev)
-    _check(aux, "aux", torch.int32, dev)
-    K = offs.numel()
-    if nrows.numel() != K or aux.numel() != 3 * UP:
-        raise ValueError("offs/nrows/aux sizes disagree")
-    if work is not None:
-        _check(work, "work", torch.int64, dev)
-        if work.numel() != K:
-            raise ValueError("work must hold one count per segment")
-    if not (1 <= R <= planner.REGS_R_MAX and 1 <= Sn <= planner.REGS_SN_MAX
-            and 1 <= J <= J_MAX and 1 <= rounds <= R and UP >= 1):
-        raise ValueError(f"unsupported kernel shape R={R} Sn={Sn} J={J} "
-                         f"rounds={rounds} UP={UP}")
+    dev, K = _check_wire(cbuf, offs, nrows, aux, R=R, Sn=Sn, UP=UP, J=J,
+                         rounds=rounds, work=work)
     if dev.type == "cpu":
         out = scan_plain(cbuf, offs, nrows, aux, R=R, Sn=Sn, UP=UP, J=J,
                          rounds=rounds, work=work)
@@ -178,6 +177,68 @@ def regs_scan(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
                            f"(K={K} R={R} Sn={Sn} J={J} rounds={rounds})")
     LAUNCHES += 1
     return out, bad
+
+
+def keys_scan(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
+              aux: torch.Tensor, *, R: int, Sn: int, UP: int,
+              work: torch.Tensor | None = None):
+    """The key launch: `regs_scan`'s function at J = 1 and rounds = R,
+    each of the K segments a key (lane 0 enters state 0), through the key
+    kernel (`wgl_regs_keys`: 32 / snp(Sn) keys a warp, one warp a CTA).
+    Returns (T u8[K, 1, Sn], bad i32[1]): bad counts the keys the kernel
+    refused (rows outside cbuf, a uop id outside the table, a slot
+    at or past R), whose rows and counts it did not write; on the CPU
+    such input raises instead.
+    `work`, an optional int64[K], receives each key's integer operations
+    as `regs_scan` counts them.  CUDA tensors launch on the current
+    stream and do not synchronise; CPU tensors run the plain version
+    (`scan_plain` at J = 1)."""
+    global KEYS_LAUNCHES
+    dev, K = _check_wire(cbuf, offs, nrows, aux, R=R, Sn=Sn, UP=UP, J=1,
+                         rounds=R, work=work)
+    if dev.type == "cpu":
+        out = scan_plain(cbuf, offs, nrows, aux, R=R, Sn=Sn, UP=UP, J=1,
+                         rounds=R, work=work)
+        return out, torch.zeros(1, dtype=torch.int32)
+    if dev.type != "cuda":
+        raise ValueError(f"no key kernel for device {dev}")
+    out = torch.empty((K, 1, Sn), dtype=torch.uint8, device=dev)
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    if K == 0:
+        return out, bad
+    lib = cuda_build.load("wgl_regs", _declare)
+    err = lib.wgl_keys_launch(
+        cbuf.data_ptr(), cbuf.numel(), offs.data_ptr(), nrows.data_ptr(),
+        aux.data_ptr(), UP, K, R, snp(Sn), Sn, out.data_ptr(),
+        None if work is None else work.data_ptr(), bad.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgl_regs_keys launch failed: cudaError {err} "
+                           f"(K={K} R={R} Sn={Sn})")
+    KEYS_LAUNCHES += 1
+    return out, bad
+
+
+def _check_wire(cbuf, offs, nrows, aux, *, R, Sn, UP, J, rounds, work):
+    """The device and segment count K of a scan's inputs; raises
+    ValueError on a type, device or size the kernels do not take."""
+    dev = cbuf.device
+    _check(cbuf, "cbuf", torch.uint8, dev)
+    _check(offs, "offs", torch.int64, dev)
+    _check(nrows, "nrows", torch.int32, dev)
+    _check(aux, "aux", torch.int32, dev)
+    K = offs.numel()
+    if nrows.numel() != K or aux.numel() != 3 * UP:
+        raise ValueError("offs/nrows/aux sizes disagree")
+    if work is not None:
+        _check(work, "work", torch.int64, dev)
+        if work.numel() != K:
+            raise ValueError("work must hold one count per segment")
+    if not (1 <= R <= planner.REGS_R_MAX and 1 <= Sn <= planner.REGS_SN_MAX
+            and 1 <= J <= J_MAX and 1 <= rounds <= R and UP >= 1):
+        raise ValueError(f"unsupported kernel shape R={R} Sn={Sn} J={J} "
+                         f"rounds={rounds} UP={UP}")
+    return dev, K
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +398,8 @@ def prune_ops(rs: torch.Tensor, Sn: int, WD: int) -> torch.Tensor:
 
 def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
                aux: torch.Tensor, *, R: int, Sn: int, UP: int, J: int,
-               rounds: int, work: torch.Tensor | None = None):
+               rounds: int, work: torch.Tensor | None = None,
+               need: torch.Tensor | None = None):
     """`regs_scan`'s function in plain PyTorch on cbuf's device: all K
     segments walk their rows in step, a segment past its own row count
     standing still.  The planes are int64[K, J, SnP, WD] holding 32-bit
@@ -346,7 +408,12 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
     a round changes no lane (a round that adds nothing leaves every
     later one nothing to add).  Each lane's count charges its rounds up
     to the first that leaves its plane unchanged, at most `rounds`.
-    Raises ValueError where the kernel would count a bad segment."""
+    `need`, an optional int64[K], receives the same count without the
+    rounds past a row's open-slot count: a config takes at most one
+    linearization a round and one a slot, so those rounds add nothing
+    and the walk does not need them (the key kernel skips them; the
+    segment kernel runs them).  Raises ValueError where the kernel would
+    count a bad segment."""
     dev = cbuf.device
     K = offs.numel()
     SnP, WD = snp(Sn), plane_width(R)
@@ -357,6 +424,7 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
         fr[:, j, j, 0] = 1
     slots = new_slots(K, R, dev)
     ops = torch.zeros((K, J), dtype=torch.int64, device=dev)
+    nops = torch.zeros((K, J), dtype=torch.int64, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
 
     for row in range(wire.Lmax):
@@ -366,7 +434,8 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
         if bool(opened.any()):
             per_round = round_ops(opened, Sn, WD)[:, None]
             run = opened.any(1)[:, None].expand(K, J)
-            for _ in range(rounds):
+            nopen = opened.sum(1)[:, None]
+            for rd in range(rounds):
                 add = torch.zeros_like(fr)
                 for b in range(R):
                     ob = opened[:, b]
@@ -376,6 +445,7 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
                         add = add | torch.where(ob[:, None, None, None],
                                                 lin, zero)
                 ops += torch.where(run, per_round, 0)
+                nops += torch.where(run & (rd < nopen), per_round, 0)
                 run = run & (add & ~fr != 0).flatten(2).any(2)
                 fr = fr | add
                 if not bool(run.any()):
@@ -386,9 +456,13 @@ def scan_plain(cbuf: torch.Tensor, offs: torch.Tensor, nrows: torch.Tensor,
             if bool(mb.any()):
                 fr = torch.where(mb[:, None, None, None], retire(fr, b), fr)
                 openr[:, b] &= ~mb
-        ops += prune_ops(rs, Sn, WD)[:, None]
+        pruned = prune_ops(rs, Sn, WD)[:, None]
+        ops += pruned
+        nops += pruned
     if work is not None:
         work.copy_(ops.sum(1))
+    if need is not None:
+        need.copy_(nops.sum(1))
     return (fr[:, :, :Sn, 0] & 1).to(torch.uint8)
 
 

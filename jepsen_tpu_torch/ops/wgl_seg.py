@@ -72,9 +72,9 @@ PIPE_GROUP = 4
 SPEC_ROUNDS = 2
 WHY_KEYS = ("register-delta key lanes: each crash-free key (or the "
             "crash-stripped twin of a key with crashed calls) at overlap "
-            "depth R <= 6 is one segment and one J = 1 lane of the segment "
-            "kernel, lane 0 entering state 0; every key in one launch at "
-            "exact rounds, the verdicts in one copy")
+            "depth R <= 6 is one segment and one lane of the key kernel, "
+            "entering state 0, several keys a warp; every key in one "
+            "launch at exact rounds, the verdicts in one copy")
 WHY_KEYS_DEEP = ("deep-overlap kernel: the keys at overlap depth 7..16 in "
                  "one wgl_deep.check_pipeline grid (the reference's "
                  "candidate-table lanes are ROADMAP P5)")
@@ -866,7 +866,7 @@ def check_pipeline(model, histories, *, max_states: int = 64,
 
 
 # ---------------------------------------------------------------------------
-# Many independent keys: one J = 1 lane a key
+# Many independent keys: one lane of the key kernel a key
 # ---------------------------------------------------------------------------
 
 def _scan_key(hist: History, spec, seen: dict, rows: list,
@@ -963,9 +963,10 @@ def _sort_keys(spec, histories, max_open_bits: int,
 
 class _KeyLaunch(NamedTuple):
     """The key launch's inputs on the host: the lane keys' wires, one
-    segment a key in key order (cbuf u8, offs int64[K], nrows
-    int32[K]), the uop tables (aux), and regs_scan's shapes (J = 1,
-    rounds R)."""
+    segment a key (cbuf u8 in key order; offs int64[K] and nrows
+    int32[K] in launch order, the longest key first, so that a warp's
+    keys end together), the uop tables (aux), keys_scan's shapes, and
+    `order`: launch position p holds lane key order[p]."""
     cbuf: np.ndarray
     offs: np.ndarray
     nrows: np.ndarray
@@ -973,6 +974,7 @@ class _KeyLaunch(NamedTuple):
     R: int
     Sn: int
     UP: int
+    order: np.ndarray
 
 
 def _key_launch(model, spec, keys: _KeySort, max_states: int,
@@ -992,7 +994,10 @@ def _key_launch(model, spec, keys: _KeySort, max_states: int,
     grid = _SegGrid()
     for _, fk, _ in keys.lanes:
         grid.add_wire(*_key_wire(fk))
-    launch = _KeyLaunch(*grid.wire(), aux, R, states.shape[0], UP)
+    cbuf, offs, nrows = grid.wire()
+    order = np.argsort(-nrows, kind="stable")
+    launch = _KeyLaunch(cbuf, offs[order], nrows[order], aux, R,
+                        states.shape[0], UP, order)
     lap("pack")
     return launch
 
@@ -1008,12 +1013,12 @@ def key_launch_inputs(model, histories, *, max_states: int = 64,
 
 def _run_keys(launch: _KeyLaunch, *, dev: torch.device, lap,
               stats: dict) -> tuple[np.ndarray, float]:
-    """Every lane key's verdict from one launch of the segment kernel at
-    J = 1 and exact rounds R: each key's wire is one segment (lane 0
-    enters state 0), alive where a state survives its last row.  The
-    verdicts and the kernel's refusal count come back in one copy.
-    Returns (alive bool[K], seconds from the launch to the end of that
-    copy).  Raises when the kernel refused a key."""
+    """Every lane key's verdict from one key launch (`keys_scan`, exact
+    rounds R): each key's wire is one segment (entering state 0), alive
+    where a state survives its last row.  The verdicts and the kernel's
+    refusal count come back in one copy.  Returns (alive bool[K] in lane
+    key order, seconds from the launch to the end of that copy).  Raises
+    when the kernel refused a key."""
     wire = tuple(regs_kernel.to_device(x, dev)
                  for x in launch[:4])
     ev = None
@@ -1022,8 +1027,8 @@ def _run_keys(launch: _KeyLaunch, *, dev: torch.device, lap,
     t0 = time.monotonic()
     if ev is not None:
         ev[0].record()
-    T, bad = regs_kernel.regs_scan(*wire, R=launch.R, Sn=launch.Sn,
-                                   UP=launch.UP, J=1, rounds=launch.R)
+    T, bad = regs_kernel.keys_scan(*wire, R=launch.R, Sn=launch.Sn,
+                                   UP=launch.UP)
     if ev is not None:
         ev[1].record()
     alive = T[:, 0, :].any(-1).to(torch.int32)
@@ -1036,8 +1041,10 @@ def _run_keys(launch: _KeyLaunch, *, dev: torch.device, lap,
         stats["kernel_ms"] = (stats.get("kernel_ms", 0.0)
                               + ev[0].elapsed_time(ev[1]))
     if host[0]:
-        raise RuntimeError(f"the segment kernel refused {int(host[0])} keys")
-    return host[1:] != 0, seconds
+        raise RuntimeError(f"the key kernel refused {int(host[0])} keys")
+    alive = np.empty(len(launch.order), bool)
+    alive[launch.order] = host[1:] != 0
+    return alive, seconds
 
 
 def _localize_key(result: dict, model, hist) -> None:
@@ -1060,10 +1067,11 @@ def check_many(model, histories, *, max_states: int = 64,
     per key, in order.
 
     Every key is scanned in C.  A key without crashed calls at overlap
-    depth R <= 6 is one segment and one J = 1 lane of the segment kernel
-    (`engine: "wgl_seg_batch_regs"`); these keys share one alphabet and
-    one uop table, all run in one launch at exact rounds (the deepest
-    such key's R), and their verdicts come back in one copy.  Keys at R
+    depth R <= 6 is one segment and one lane of the key kernel
+    (`regs_kernel.keys_scan`, `engine: "wgl_seg_batch_regs"`); these keys
+    share one alphabet and one uop table, all run in one launch at exact
+    rounds (the deepest such key's R), the longest first, and their
+    verdicts come back in one copy.  Keys at R
     7..16 go together through one `wgl_deep.check_pipeline` grid, which
     scans them with an alphabet of their own.  A key with crashed calls rides as
     its crash-stripped twin: a twin proved valid is the key's verdict

@@ -1,5 +1,6 @@
 """Batched keys in jepsen_tpu_torch (`wgl_seg.check_many`, each key one
-J = 1 lane of the segment kernel) against jepsen_tpu's `check_many` (its
+lane of the key kernel, `regs_kernel.keys_scan`) against jepsen_tpu's
+`check_many` (its
 XLA kernels, run by JAX on the CPU), on keys made from a seed with numpy
 as op dicts and fed to both packages through
 `convert.history_from_dicts`:
@@ -15,12 +16,14 @@ as op dicts and fed to both packages through
   to the deep kernel's grid (the reference to its candidate-table
   lanes);
 - the key launch's function: the reference's `_build_kernel_regs_many_c`
-  ([K, 1, Sn] > 0.5) against `regs_kernel.scan_plain` at J = 1 on the
-  same keys' wires;
-- the rules: refused parameters, a double invoke, max_states, key order,
-  one exact launch on check_many's own inputs, a wide-valued deep key
-  that leaves the lanes' alphabet alone, and a hypothesis property
-  against the CPU oracle.
+  ([K, 1, Sn] > 0.5) against `regs_kernel.keys_scan` on the CPU (its
+  plain version, `scan_plain` at J = 1) on the same keys' wires, at
+  R = 1..6 and every state bucket;
+- the rules: refused parameters and kernel shapes, a double invoke,
+  max_states, key order (the launch's longest-first order and its
+  inverse), one exact launch on check_many's own inputs, a wide-valued
+  deep key that leaves the lanes' alphabet alone, and a hypothesis
+  property against the CPU oracle.
 
 The key launch on the card is held against its plain version by
 `tests/test_torch_many_card.py`, which imports no JAX."""
@@ -31,7 +34,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 from torch_keys import (indexed, key_dicts, key_launch_inputs, lane_keys, op,
-                        port_histories)
+                        port_histories, warp_keys)
 
 from jepsen_tpu import models as ref_models
 from jepsen_tpu.history import History as RefHistory
@@ -308,29 +311,79 @@ def test_shuffled_keys_stay_paired():
 
 
 def test_key_launch_is_one_and_exact(monkeypatch):
-    """Every lane key in one launch, each at J = 1 and rounds = R (the
-    deepest lane key's), on the inputs `wgl_seg.key_launch_inputs`
-    builds."""
+    """Every lane key in one key launch, at rounds = R (the deepest lane
+    key's), on the inputs `wgl_seg.key_launch_inputs` builds; the
+    segment kernel's wrapper is not called."""
     keys = batch_a()[:10]
     _, port_h = both(keys)
     calls = []
-    scan = regs_kernel.regs_scan
+    scan = regs_kernel.keys_scan
 
     def spy(*a, **kw):
         calls.append((a, kw))
         return scan(*a, **kw)
 
-    monkeypatch.setattr(regs_kernel, "regs_scan", spy)
+    def no_regs_scan(*a, **kw):
+        raise AssertionError("the key launch called regs_scan")
+
+    monkeypatch.setattr(regs_kernel, "keys_scan", spy)
+    monkeypatch.setattr(regs_kernel, "regs_scan", no_regs_scan)
     st = {}
     got = wgl_seg.check_many(models.CASRegister(), port_h, device="cpu",
                              stats=st)
     assert st["launches"] == 1 and len(calls) == 1
     (args, kw), = calls
     R = max(r["dispatch"]["R"] for r in got)
-    assert kw["J"] == 1 and kw["rounds"] == R == kw["R"]
-    wire, want = key_launch_inputs(both(keys)[1])
+    assert kw["R"] == R
+    wire, want, _ = key_launch_inputs(both(keys)[1])
     assert all(np.array_equal(t.numpy(), w) for t, w in zip(args, wire))
-    assert {k: kw[k] for k in want} == want
+    assert kw == want
+
+
+def order_keys(seed):
+    """Keys of 1 to about 2,000 rows in shuffled order, a third of them
+    with wrong reads."""
+    rng = np.random.default_rng(seed)
+    calls = [1, 1, 2, 5, 20, 60, 150, 400, 1800]
+    rng.shuffle(calls)
+    return [(f"n{n}-{k}", key_dicts(700 + 10 * seed + k, n_calls=n, conc=4,
+                                    buggy=0.2 if k % 3 == 0 else 0.0),
+             k % 2 == 0) for k, n in enumerate(calls)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_key_launch_orders_longest_first(seed):
+    """The launch holds the keys longest first (ties in key order), and
+    its order maps every launch position back to its key: the wire at
+    each position is that key's, and check_many's verdicts come back
+    paired with their keys (each the CPU oracle's on the key alone)."""
+    keys = order_keys(seed)
+    _, port_h = both(keys)
+    got = wgl_seg.check_many(models.CASRegister(), port_h, device="cpu",
+                             localize=False)
+    # the lane keys (a key of one failed cas is decided on the host)
+    lanes = [i for i, r in enumerate(got)
+             if r["engine"] == "wgl_seg_batch_regs"]
+    assert len(lanes) >= len(keys) - 2
+    launch = wgl_seg.key_launch_inputs(models.CASRegister(), port_h)
+    n = len(lanes)
+    assert sorted(launch.order.tolist()) == list(range(n))
+    assert (np.diff(launch.nrows) <= 0).all()
+    assert launch.nrows.min() <= 5 and launch.nrows.max() >= 1900
+    for p in range(n - 1):
+        if launch.nrows[p] == launch.nrows[p + 1]:
+            assert launch.order[p] < launch.order[p + 1]
+    for p, j in enumerate(launch.order):
+        k = lanes[j]
+        alone = wgl_seg.key_launch_inputs(models.CASRegister(), [port_h[k]])
+        o, L = int(launch.offs[p]), int(launch.nrows[p])
+        assert L == int(alone.nrows[0])
+        # the returns and slots (the uop ids are each alphabet's own)
+        assert np.array_equal(launch.cbuf[o:o + 3 * L], alone.cbuf[:3 * L]), \
+            keys[k][0]
+    for (name, _, _), h, r in zip(keys, port_h, got):
+        assert r["valid?"] == wgl_cpu.check(models.CASRegister(),
+                                            h)["valid?"], name
 
 
 @pytest.mark.parametrize("vmax,n_calls,max_states",
@@ -379,7 +432,8 @@ def lane_inputs(keys):
     dec = ref_planner._decompose(legal, nxt)
     a1t, a2t, t0t = ref_planner._pack_uop_tables(legal, nxt, *dec)
     Kp = 128
-    batch = list(enumerate(fks))
+    # the lane keys (a key of failed calls alone is decided on the host)
+    batch = [(i, fk) for i, fk in enumerate(fks) if fk.n_calls]
     ret_t, islot_t, iuop_t, Lp = ref_planner._pack_regs(batch, Kp, R,
                                                        len(rows), 1)
     buf8, Rp = ref_planner._compact_many_block(ret_t, islot_t, iuop_t, Kp,
@@ -387,23 +441,74 @@ def lane_inputs(keys):
     buf32 = np.concatenate([a1t, a2t, t0t.view(np.uint32)])
     Sn = states.shape[0]
     kern = ref_seg._build_kernel_regs_many_c(
-        Kp, Lp, max(1, (1 << R) // 32), Sn, R, True, R, 4, len(rows), Rp)
-    ref_T = np.asarray(kern(buf8, buf32))[:len(keys)] > 0.5
+        Kp, Lp, max(1, (1 << R) // 32), Sn, R, True, R, 1, len(rows), Rp)
+    ref_T = np.asarray(kern(buf8, buf32))[:len(batch)] > 0.5
 
-    wire, kw = key_launch_inputs(port_h)
+    wire, kw, order = key_launch_inputs(port_h)
     assert (kw["R"], kw["Sn"]) == (R, Sn)
-    return ref_T, wire, kw
+    return ref_T[order], wire, kw
 
 
 def test_key_launch_plain_matches_reference_kernel():
     ref_T, wire, kw = lane_inputs(lane_keys())
-    T, bad = regs_kernel.regs_scan(*(torch.from_numpy(x) for x in wire),
+    T, bad = regs_kernel.keys_scan(*(torch.from_numpy(x) for x in wire),
                                    **kw)
     assert int(bad[0]) == 0 and kw["R"] == 6
     assert T.shape == (len(ref_T), 1, kw["Sn"])
     assert np.array_equal(T.numpy()[:, 0, :] > 0, ref_T[:, 0, :])
     alive = T[:, 0, :].any(-1).numpy()
     assert not alive.all() and alive.any()
+
+
+@pytest.mark.parametrize("snp", [8, 16, 32])
+@pytest.mark.parametrize("R", range(1, 7))
+def test_keys_scan_matches_reference_kernel(R, snp):
+    """keys_scan on the CPU equals the reference's key kernel at every
+    depth and state bucket, on check_many's own inputs."""
+    ref_T, wire, kw = lane_inputs(warp_keys(R, snp, seed=800 + 40 * R + snp,
+                                            calls=(60, 2, 25, 3, 40, 12)))
+    assert kw["R"] == R and regs_kernel.snp(kw["Sn"]) == snp
+    work = torch.zeros(len(wire[1]), dtype=torch.int64)
+    T, bad = regs_kernel.keys_scan(*(torch.from_numpy(x) for x in wire),
+                                   work=work, **kw)
+    assert int(bad[0]) == 0
+    assert np.array_equal(T.numpy()[:, 0, :] > 0, ref_T[:, 0, :])
+    assert (work > 0).all()
+
+
+@pytest.mark.parametrize("R", range(1, 7))
+def test_need_counts_no_round_past_the_open_slots(R):
+    """scan_plain's `need` is its work= count without the rounds past a
+    row's open-slot count: never more, the same at R = 1 (one round at
+    most), less where a key's rows ran that extra round, and the same
+    transfer rows whether it is asked for or not."""
+    wire, kw, _ = key_launch_inputs(port_histories(warp_keys(R, 8)))
+    args = [torch.from_numpy(x) for x in wire]
+    work, need = (torch.zeros(len(wire[1]), dtype=torch.int64)
+                  for _ in range(2))
+    T = regs_kernel.scan_plain(*args, J=1, rounds=kw["R"], work=work,
+                               need=need, **kw)
+    T0, _ = regs_kernel.keys_scan(*args, **kw)
+    assert torch.equal(T, T0)
+    assert (need > 0).all() and (need <= work).all()
+    if R == 1:
+        assert torch.equal(need, work)
+    else:
+        assert (need < work).any()
+
+
+@pytest.mark.parametrize("shape", [dict(R=0), dict(R=7), dict(Sn=0),
+                                   dict(Sn=33), dict(UP=0)])
+def test_keys_scan_refuses_shapes(shape):
+    """keys_scan takes R 1..6, Sn 1..32 and UP >= 1, and raises before
+    it launches or runs anything else."""
+    wire, kw, _ = key_launch_inputs(port_histories(lane_keys()[:3]))
+    args = [torch.from_numpy(x) for x in wire]
+    kw = dict(kw, **shape)
+    if "UP" in shape:
+        args[3] = args[3][:0]
+    with pytest.raises(ValueError):
+        regs_kernel.keys_scan(*args, **kw)
 
 
 @settings(max_examples=25, deadline=None)

@@ -4,6 +4,7 @@ over them.  Imports no JAX, so the card's test file can use it."""
 
 import numpy as np
 
+from chip_smoke import WARP_KEY_CALLS
 from jepsen_tpu_torch import convert, models
 from jepsen_tpu_torch.history import pack_history
 from jepsen_tpu_torch.ops import wgl_seg
@@ -91,6 +92,31 @@ def port_histories(keys):
 def key_launch_inputs(histories):
     """The key launch over `histories` as check_many builds it
     (`wgl_seg.key_launch_inputs`): the host wire (cbuf, offs, nrows,
-    aux) and regs_scan's shape arguments (J = 1, rounds R)."""
+    aux, in launch order), keys_scan's shape arguments, and the launch
+    order (launch position p holds key order[p])."""
     k = wgl_seg.key_launch_inputs(models.CASRegister(), histories)
-    return tuple(k[:4]), dict(R=k.R, Sn=k.Sn, UP=k.UP, J=1, rounds=k.R)
+    return tuple(k[:4]), dict(R=k.R, Sn=k.Sn, UP=k.UP), k.order
+
+
+#: vmax of a state bucket: 6, 14 and 30 states at SnP 8, 16 and 32
+BUCKET_VMAX = {8: 4, 16: 12, 32: 28}
+ONE_ROW = indexed([op(0, "invoke", "write", 1), op(0, "ok", "write", 1)])
+
+
+def warp_keys(R, snp, seed=None, calls=WARP_KEY_CALLS):
+    """(name, op dicts, columns?) of keys that split a warp of the key
+    kernel, at overlap depth R (one key pinned there by a burst) with
+    states in the bucket SnP: random r/w/cas keys of `calls` calls, made
+    from `seed` on (their open slots, rank-1 kinds and returning slots
+    differ row by row), a third with wrong reads, and a one-row key
+    fourth.  The default calls give a one-row key beside keys longer
+    than a staged chunk (32 to 128 rows), 11 keys (no multiple of 4 or 2
+    keys a warp)."""
+    vmax = BUCKET_VMAX[snp]
+    seed = 900 + 50 * R + snp if seed is None else seed
+    keys = [(f"R{R}-{snp}-{k}",
+             key_dicts(seed + k, n_calls=n, conc=R + 1, vmax=vmax,
+                       max_open=R, burst=R if k == 0 else 0,
+                       buggy=0.2 if k % 3 == 1 else 0.0), k % 2 == 0)
+            for k, n in enumerate(calls)]
+    return keys[:3] + [("one-row", ONE_ROW, False)] + keys[3:]
