@@ -7,7 +7,8 @@ any failure exits non-zero:
 
   device     - the card, and nvidia-smi's name and power limit;
   build      - one nvcc per source (csrc/wgl_deep.cu, csrc/wgl_regs.cu,
-               csrc/wgl_crash.cu), started together, for sm_90a
+               csrc/wgl_crash.cu, csrc/wgl_frontier.cu), started
+               together, for sm_90a
                (timed); ptxas registers and
                spill bytes of each kernel instantiation; a spill in the
                deep kernel's warp arm fails; then the native history
@@ -129,7 +130,32 @@ any failure exits non-zero:
   many-independent
              - one keyed history of 64 keys through
                independent.batch_checker: its results equal check_many's
-               on the subhistories, and failures names the planted key.
+               on the subhistories, and failures names the planted key;
+  serial-kernel
+             - the serial frontier walk (wgl_frontier) against its plain
+               version on CPU copies, launch by launch from the same
+               entering frontier: the fast path, every pool tier with
+               escalation, overflow at the last size (pools past the
+               shared-memory sort), chunk boundaries, crash groups with
+               dominance at 1, 2 and 4 mask words, a mutex; outputs,
+               frontier words and work= counts equal; one case timed;
+  serial-main
+             - the JAX package's mixed-depth envelope batch, not cut: three
+               histories of 20,000 calls at concurrency 16 and max_open
+               14, an R = 15 one and an R = 18 one of 1,200 calls plus a
+               write burst, through wgl_deep.check_pipeline: all valid,
+               R = 15 word-split on the deep grid, R = 18 a straggler on
+               the serial engine (wgl_frontier's launches counted); then
+               the R = 18 history and a planted twin through
+               Linearizable (refuted at the planted read); the R = 18
+               walk at F = 1024 timed beside its plain version and its
+               bound, for the JSON kernel line;
+  serial-crash
+             - ROADMAP C3's three keys and eight residual keys of the
+               [many-crash] shape (fixed seeds, printed), each one that
+               wgl_seg.check leaves open, through check_many (engine
+               fallback) and Linearizable (engine wgl): the CPU oracle's
+               verdict and witness; one walk timed.
 
 Kernel times come two ways, each a field of the JSON kernel line: "ms",
 from an idle card's launch to its end (CUDA events around one call,
@@ -230,6 +256,60 @@ def make_history(n_ops, concurrency, seed, vmax=9, max_open=0, burst=0,
     ops += [ok_op(concurrency + p, "write", p % (vmax + 1))
             for p in range(burst)]
     return History(ops).index()
+
+
+def op(p, t, f, v):
+    """One op as a dict, the form both packages read."""
+    return {"process": p, "type": t, "f": f, "value": v, "time": None}
+
+
+def key_dicts(seed, n_calls=40, conc=5, vmax=4, max_open=0, burst=0,
+              crash_rate=0.0, buggy=0.0):
+    """One key's ops as dicts, made with numpy from `seed`: a register
+    workload (read/read/write/cas) run against a sequential register,
+    with at most `max_open` normal calls open at once; `burst` writes
+    open together at the end (overlap depth at least `burst`);
+    `crash_rate` of the calls crash at once (:info, no effect on the
+    register); `buggy` of the reads see a random value."""
+    rng = np.random.default_rng(seed)
+    ops, value, open_ops = [], None, {}
+    i = 0
+    while i < n_calls:
+        p = int(rng.integers(conc))
+        if p in open_ops:
+            ops.append(open_ops.pop(p))
+            continue
+        if max_open and len(open_ops) >= max_open:
+            ops.append(open_ops.pop(
+                sorted(open_ops)[int(rng.integers(len(open_ops)))]))
+            continue
+        i += 1
+        f = ("read", "read", "write", "cas")[int(rng.integers(4))]
+        a, b = int(rng.integers(vmax + 1)), int(rng.integers(vmax + 1))
+        if crash_rate and rng.random() < crash_rate:
+            v = None if f == "read" else a if f == "write" else [a, b]
+            ops += [op(p, "invoke", f, v), op(p, "info", f, v)]
+            continue
+        if f == "read":
+            ops.append(op(p, "invoke", "read", None))
+            seen = a if buggy and rng.random() < buggy else value
+            open_ops[p] = op(p, "ok", "read", seen)
+        elif f == "write":
+            ops.append(op(p, "invoke", "write", a))
+            value = a
+            open_ops[p] = op(p, "ok", "write", a)
+        else:
+            ops.append(op(p, "invoke", "cas", [a, b]))
+            if value == a:
+                value = b
+                open_ops[p] = op(p, "ok", "cas", [a, b])
+            else:
+                open_ops[p] = op(p, "fail", "cas", [a, b])
+    ops.extend(open_ops.values())
+    ops += [op(conc + q, "invoke", "write", q % (vmax + 1))
+            for q in range(burst)]
+    ops += [op(conc + q, "ok", "write", q % (vmax + 1)) for q in range(burst)]
+    return [dict(d, index=j) for j, d in enumerate(ops)]
 
 
 def plant_stale_read(h, frac, vmax, forbidden=()):
@@ -338,12 +418,14 @@ def phase_build():
     """Both kernels' nvcc at once, timed; ptxas registers and spills of
     every instantiation; a warp-arm spill of the deep kernel fails."""
     from jepsen_tpu_torch.ops import (crash_kernel, cuda_build, deep_kernel,
-                                      regs_kernel)
+                                      frontier_kernel, regs_kernel)
     t = time.perf_counter()
-    libs = cuda_build.build("wgl_deep", "wgl_regs", "wgl_crash")
+    libs = cuda_build.build("wgl_deep", "wgl_regs", "wgl_crash",
+                            "wgl_frontier")
     deep_kernel._load()
     cuda_build.load("wgl_regs", regs_kernel._declare)
     cuda_build.load("wgl_crash", crash_kernel._declare)
+    cuda_build.load("wgl_frontier", frontier_kernel._declare)
     dt = time.perf_counter() - t
     kernels, entries = {}, []
     for lib in libs.values():
@@ -353,7 +435,7 @@ def phase_build():
         entries += [ln for ln in text.splitlines() if "entry function" in ln]
     if not all(any(k.startswith(n) for k in kernels)
                for n in ("wgl_regs_kernel", "wgl_regs_keys", "wgl_warp",
-                         "wgl_crash")):
+                         "wgl_crash", "wgl_frontier")):
         raise SystemExit("[build] ptxas reported no kernel of a source: "
                          + " | ".join(entries))
     log(f"[build] {', '.join(p.name for p in libs.values())} in {dt:.2f} s "
@@ -2454,6 +2536,385 @@ def phase_many_independent(keys):
         raise SystemExit("[many-independent] batch_checker disagrees")
 
 
+# ---------------------------------------------------------------------------
+# The serial frontier engine (ops.wgl, kernel wgl_frontier)
+# ---------------------------------------------------------------------------
+
+SERIAL_MAIN_CALLS = 20_000          # calls of the mixed batch's R <= 14 ones
+#: ROADMAP C3's keys: (seed, calls, concurrency) of key_dicts(...,
+#: buggy=0.3, crash_rate=0.15), each a residual crash key
+C3_KEYS = ((304019, 34, 6), (741828, 38, 5), (767203, 31, 6))
+#: (seed, crash rate) of make_history(MANY_CALLS, 5, seed, vmax=4,
+#: crash_rate=rate) with a stale read planted at half depth (the
+#: [many-crash] key shape), that every crash tier leaves open: the
+#: residual case.  Found by a scan of seeds 30000-33500 on the CPU
+#: device (about one key in ten there is residual; these are eight
+#: whose CPU oracle ends within a second); a crashed write explains
+#: each planted read, so each is valid.
+SERIAL_CRASH_KEYS = ((30052, 0.02), (30155, 0.02), (30309, 0.02),
+                     (33106, 0.02), (31031, 0.025), (31054, 0.025),
+                     (32033, 0.03), (32068, 0.03))
+
+
+def serial_inputs(model, h, device, pad=True):
+    """The walk's inputs for history h as wgl.check builds them: (spec,
+    plan, Tables, Crash or None, W) on `device`."""
+    from jepsen_tpu_torch.ops import wgl
+    from jepsen_tpu_torch.ops.prep import prepare
+    pl, t, crash, W = wgl.walk_inputs(model, prepare(h), pad=pad,
+                                      device=device)
+    return model.device_spec(), pl, t, crash, W
+
+
+def serial_walk(inp, F, r0, stop_r, frontier=None, work=None, plain=False):
+    """One launch of the walk (the kernel on CUDA inputs, the plain
+    version on CPU ones, or with `plain` the plain version on the
+    inputs' device) from `frontier` (default: the initial one)."""
+    from jepsen_tpu_torch.ops import frontier_kernel, wgl
+    spec, pl, t, crash, W = inp
+    dev = t.f.device
+    if frontier is None:
+        frontier = wgl.init_frontier(F, W, pl.init_state.shape[0],
+                                     pl.init_state, dev)
+    kw = dict(r0=r0, n_events=pl.n_events, stop_r=stop_r, crash=crash,
+              work=work)
+    if plain:
+        return frontier_kernel.walk_plain(
+            t, *(x.to(dev) for x in frontier), step=spec.step, **kw)
+    return frontier_kernel.walk(t, *(x.to(dev) for x in frontier),
+                                spec=spec, **kw)
+
+
+def serial_compare(model, h, F, chunk):
+    """The whole walk of h at frontier size F in launches of `chunk`
+    events, each launch on the card against the plain version from the
+    same entering frontier (the plain version's).  Returns (max abs
+    difference over the outputs, the frontier words and the work=
+    counts, launches, card seconds, plain seconds, last outputs)."""
+    card = serial_inputs(model, h, DEV)
+    cpu = serial_inputs(model, h, "cpu")
+    n_events = cpu[1].n_events
+    frontier, r, err, launches = None, 0, 0, 0
+    t_card = t_plain = 0.0
+    while True:
+        wc = torch.zeros(3, dtype=torch.int64, device=DEV)
+        wp = torch.zeros(3, dtype=torch.int64)
+        t = time.perf_counter()
+        a = serial_walk(card, F, r, r + chunk, frontier, wc)
+        a["out"].cpu()                                  # the walk's end
+        t_card += time.perf_counter() - t
+        t = time.perf_counter()
+        b = serial_walk(cpu, F, r, r + chunk, frontier, wp)
+        t_plain += time.perf_counter() - t
+        launches += 1
+        for x, y in ((a["out"], b["out"]), (wc, wp),
+                     (a["final_masks"], b["final_masks"]),
+                     (a["final_states"], b["final_states"]),
+                     (a["final_valid"], b["final_valid"])):
+            d = (x.cpu().to(torch.int64) - y.to(torch.int64)).abs()
+            err = max(err, int(d.max()) if d.numel() else 0)
+        ok, _, _, _, r = b["out"].tolist()
+        if not ok or r >= n_events:
+            return err, launches, t_card, t_plain, b["out"].tolist()
+        frontier = (b["final_masks"], b["final_states"], b["final_valid"])
+
+
+def serial_history(seed, calls, conc, burst):
+    """The mixed-depth batch's deep histories (bench.py:2001-2012)."""
+    return make_history(calls, conc, seed=seed, vmax=9, max_open=14,
+                        burst=burst)
+
+
+def mutex_dicts(seed, n=60, conc=4, bad=0.0, crash=0.3):
+    """A mutex workload as op dicts: acquires and releases against a
+    real lock.  A refused acquire completes ok anyway with chance `bad`
+    (the history is then invalid), else crashes with chance `crash`,
+    else fails."""
+    rng = random.Random(seed)
+    ops, held, pend = [], None, {}
+    for _ in range(n):
+        p = rng.randrange(conc)
+        if p in pend:
+            ops.append(pend.pop(p))
+            continue
+        f = "release" if held == p else "acquire"
+        ops.append(op(p, "invoke", f, None))
+        if f == "release" or held is None:
+            held = None if f == "release" else p
+            pend[p] = op(p, "ok", f, None)
+        else:
+            t = rng.random()
+            pend[p] = op(p, "ok" if t < bad else
+                         "info" if t < bad + crash else "fail", f, None)
+    ops += list(pend.values())
+    return [dict(d, index=j) for j, d in enumerate(ops)]
+
+
+SERIAL_KERNEL_NAMES = ("fast-path", "tiers", "overflow", "chunks",
+                       "crash-1-word", "crash-2-words", "crash-4-words",
+                       "crash-8192", "mutex")
+
+
+def serial_kernel_cases():
+    """(name, model, history, F, events a launch) of [serial-kernel]
+    (SERIAL_KERNEL_NAMES, in order):
+    the fast path, every tier with escalation, overflow at the last
+    size (pools past the shared-memory sort), chunk boundaries, crash
+    groups with dominance at 1, 2 and 4 mask words, crash groups in the
+    tier F = 8192 (17 crashed calls and a 10-write burst: the closure
+    passes 512 configs, so it runs past the dominance cap, and
+    overflows at 8192), and a mutex."""
+    from jepsen_tpu_torch.convert import history_from_dicts
+    from jepsen_tpu_torch.history import History, invoke_op, ok_op
+    from jepsen_tpu_torch.models import CASRegister, Mutex
+    burst = [invoke_op(p, "write", p % 3) for p in range(11)]
+    burst += [ok_op(p, "write", p % 3) for p in range(11)]
+    cas = CASRegister()
+    return [
+        ("fast-path", cas, make_history(600, 4, seed=61, vmax=4), 64,
+         4096),
+        ("tiers", cas, History(burst).index(), 4096, 4096),
+        ("overflow", cas, serial_history(983, 1_200, 22, 18), 1024, 4096),
+        ("chunks", cas, make_history(600, 8, seed=62, vmax=4, max_open=6),
+         512, 37),
+        ("crash-1-word", cas, history_from_dicts(key_dicts(
+            741828, n_calls=38, conc=5, buggy=0.3, crash_rate=0.15)),
+         1024, 16),
+        ("crash-2-words", cas, history_from_dicts(key_dicts(
+            52, n_calls=100, conc=5, crash_rate=0.35)), 1024, 4096),
+        ("crash-4-words", cas, history_from_dicts(key_dicts(
+            70, n_calls=180, conc=4, crash_rate=0.45, buggy=0.05)), 64,
+         4096),
+        ("crash-8192", cas, history_from_dicts(key_dicts(
+            81, n_calls=40, conc=4, burst=10, crash_rate=0.25)), 8192, 20),
+        ("mutex", Mutex(), history_from_dicts(mutex_dicts(63)), 64, 9),
+    ]
+
+
+def phase_serial_kernel(clock_hz):
+    """wgl_frontier against its plain version, launch by launch, on
+    serial_kernel_cases(): outputs, frontier words and work= counts
+    equal; then the "tiers" case timed.  Returns the largest difference
+    (0)."""
+    err = 0
+    cases = serial_kernel_cases()
+    for name, model, h, F, chunk in cases:
+        e, n, tc, tp, out = serial_compare(model, h, F, chunk)
+        wd = serial_inputs(model, h, "cpu")[4]
+        log(f"[serial-kernel] {name}: {len(h)} ops, F={F}, W={wd}, "
+            f"{n} launches of <= {chunk} events, out {out}: card "
+            f"{1e3 * tc:.3f} ms, plain {1e3 * tp:.1f} ms, max abs "
+            f"difference {e} {'OK' if e == 0 else 'WRONG'}")
+        err = max(err, e)
+    if err:
+        raise SystemExit("[serial-kernel] wgl_frontier disagrees with its "
+                         "plain version")
+    name, model, h, F, _ = cases[1]
+    serial_timing(f"serial-kernel] [{name}", model, h, F, clock_hz)
+    return err
+
+
+def serial_bound_ms(work, kw, in_bytes, clock_hz):
+    """The walk's least time: the operations its work= count needs
+    (frontier_kernel's EXPAND_OPS an expansion, CMP_OPS a key word of
+    each sorted row-level, DOM_OPS a key word of each dominance pair)
+    over every INT32 lane, or its inputs and its frontier over device
+    memory; and which bounds it."""
+    from jepsen_tpu_torch.ops import frontier_kernel as fk
+    ops = (fk.EXPAND_OPS * work[0] + fk.CMP_OPS * kw * work[1]
+           + fk.DOM_OPS * kw * work[2])
+    t_ops = 1e3 * ops / (N_SM * INT32_LANES_PER_SM * clock_hz)
+    t_bytes = 1e3 * in_bytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
+        else "bytes", ops
+
+
+def serial_timing(tag, model, h, F, clock_hz, plain_on="cpu"):
+    """One launch of the whole walk of h at F on the card, from launch to
+    end and on the device, beside the plain version (on the host's CPU,
+    or with plain_on=DEV in PyTorch on the card) and the bound."""
+    card = serial_inputs(model, h, DEV)
+    plain_in = serial_inputs(model, h, plain_on)
+    n = card[1].n_events
+    work = torch.zeros(3, dtype=torch.int64, device=DEV)
+    serial_walk(card, F, 0, n, work=work)                 # warm
+    ms = launch_ms(lambda: serial_walk(card, F, 0, n, work=work), 3)
+    dev_ms = device_ms(lambda: serial_walk(card, F, 0, n), 3)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain = serial_walk(plain_in, F, 0, n, plain=True)
+    plain["out"].cpu()                                  # the walk's end
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    got = serial_walk(card, F, 0, n, work=work)
+    w = work.tolist()
+    err = max(int((got[k].cpu().to(torch.int64)
+                   - plain[k].cpu().to(torch.int64)).abs().max())
+              for k in ("out", "final_masks", "final_states",
+                        "final_valid"))
+    kw = max((card[4] + 31) // 32, 1) + 1           # key words a row
+    in_bytes = sum(x.numel() * x.element_size() for x in card[2]) \
+        + 2 * F * (kw * 4 + 1)
+    bound, by, ops = serial_bound_ms(w, kw, in_bytes, clock_hz)
+    log(f"[{tag}] wgl_frontier over {len(h)} ops ({n} returns) at F={F}: "
+        f"{ms:.3f} ms launch to end, {dev_ms:.3f} ms on the device; plain "
+        f"({'the host CPU' if plain_on == 'cpu' else 'PyTorch on the card'}"
+        f") {plain_ms:.1f} ms; out {got['out'].tolist()}; work= "
+        f"{w[0]} expansions, {w[1]} sorted row-levels, {w[2]} dominance "
+        f"pairs ({ops} operations, {in_bytes} bytes): bound {bound:.7f} "
+        f"ms ({by}), reached {100 * bound / dev_ms:.4f}% on the device; "
+        f"max abs difference {err}")
+    if err:
+        raise SystemExit(f"[{tag}] wgl_frontier disagrees with its plain "
+                         f"version")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "err": err, "F": F,
+            "work": w}
+
+
+def phase_serial_main(clock_hz):
+    """The JAX package's mixed-depth envelope batch, not cut
+    (bench.py:1996-2033): three histories of SERIAL_MAIN_CALLS calls at
+    concurrency 16 and max_open 14, one of 1,200 calls plus a 15-write
+    burst (R = 15) and one of 1,200 calls at concurrency 22 plus an
+    18-write burst (R = 18), vmax 9, through wgl_deep.check_pipeline:
+    all valid, R = 15 word-split on the deep grid, R = 18 a straggler on
+    the serial engine (wgl_frontier launched).  Then the R = 18 history
+    and a stale read planted in its twin through Linearizable: valid,
+    and refuted at the planted read.  Then the R = 18 history's walks
+    timed: at F = 1024 (an overflow, then a death at return 37) against
+    the plain version on the host's CPU, and the walk that decides it,
+    at the last of the frontier sizes, against the plain version in
+    PyTorch on the card (on the host's CPU it takes minutes).  Returns
+    (the kernel's launches on the batch, the deciding walk's timing,
+    the F = 1024 walk's timing)."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import frontier_kernel, wgl_deep
+    t = time.perf_counter()
+    mixed = [serial_history(977 + s, SERIAL_MAIN_CALLS, 16, 0)
+             for s in range(3)]
+    mixed += [serial_history(981, 1_200, 18, 15),
+              serial_history(983, 1_200, 22, 18)]
+    log(f"[serial-main] made the mixed batch ({sum(map(len, mixed))} ops) "
+        f"in {time.perf_counter() - t:.1f} s")
+    attach_columns("the mixed batch", mixed)
+    model = CASRegister()
+    frontier_kernel.LAUNCHES["wgl_frontier"] = 0
+    st = {}
+    t = time.perf_counter()
+    res = wgl_deep.check_pipeline(model, mixed, stats=st)
+    wall = time.perf_counter() - t
+    launches = frontier_kernel.LAUNCHES["wgl_frontier"]
+    r18 = res[-1]
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in st.items()
+                       if k != "kernel_ms")
+    log(f"[serial-main] check_pipeline: valid? "
+        f"{[r['valid?'] for r in res]}, engines "
+        f"{[r.get('engine') for r in res]}, R = 15 "
+        f"{res[3].get('deep_variant')}; R = 18 frontier "
+        f"{r18.get('frontier_size')} ({r18.get('final_frontier')} configs "
+        f"left), walk {r18.get('time_kernel_s', 0.0):.3f} s; wall "
+        f"{wall:.3f} s; stages: {stages}; wgl_frontier launches "
+        f"{launches}")
+    ok = (all(r["valid?"] is True for r in res)
+          and res[3].get("deep_variant") == "word-split"
+          and all(r["engine"] == "wgl_deep" for r in res[:4])
+          and r18["engine"] == r18["dispatch"]["engine"] == "wgl")
+    if not ok or not launches:
+        raise SystemExit("[serial-main] the mixed batch was judged or "
+                         "routed wrong, or wgl_frontier was not launched")
+    h18 = mixed[-1]
+    twin = copy_history(h18)
+    wit = plant_stale_read(twin, 0.5, 9)
+    out = {}
+    for name, h in (("R = 18", h18), ("its planted twin", twin)):
+        t = time.perf_counter()
+        out[name] = Linearizable(model).check(None, h)
+        r = out[name]
+        log(f"[serial-main] Linearizable on {name}: valid? {r['valid?']}, "
+            f"engine {r.get('engine')}, op_index {r.get('op_index')} "
+            f"(planted {wit}), frontier {r.get('frontier_size')}, walk "
+            f"{r.get('time_kernel_s', 0.0):.3f} s, wall "
+            f"{time.perf_counter() - t:.3f} s")
+    if (out["R = 18"]["valid?"] is not True
+            or out["its planted twin"]["valid?"] is not False
+            or out["its planted twin"].get("op_index") != wit
+            or out["its planted twin"].get("engine") != "wgl"):
+        raise SystemExit("[serial-main] Linearizable's serial verdicts "
+                         "are wrong")
+    first = serial_timing("serial-main", model, h18, 1024, clock_hz)
+    F = r18["frontier_size"]
+    deciding = serial_timing(f"serial-main] [deciding F={F}", model, h18,
+                             F, clock_hz, plain_on=DEV)
+    return launches, deciding, first
+
+
+def serial_crash_keys():
+    """(name, History) of [serial-crash]: C3's keys, then the residual
+    keys of the [many-crash] shape."""
+    from jepsen_tpu_torch.convert import history_from_dicts
+    keys = [(f"C3 {s}", history_from_dicts(key_dicts(
+        s, n_calls=n, conc=c, buggy=0.3, crash_rate=0.15)))
+        for s, n, c in C3_KEYS]
+    for seed, rate in SERIAL_CRASH_KEYS:
+        h = make_history(MANY_CALLS, 5, seed=seed, vmax=4, crash_rate=rate)
+        plant_stale_read(h, 0.5, 4)
+        keys.append((f"many-crash {seed}", h))
+    return keys
+
+
+def phase_serial_crash(clock_hz):
+    """C3's keys and the residual keys of the [many-crash] shape: each
+    one wgl_seg.check leaves open (the relaxed refutation does not
+    refute it), through check_many (engine fallback) and Linearizable
+    (engine wgl): the CPU oracle's verdict and witness.  Returns the
+    kernel's launches over it."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.errors import Unsupported
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import frontier_kernel, wgl_cpu, wgl_seg
+    model = CASRegister()
+    keys = serial_crash_keys()
+    log(f"[serial-crash] keys: C3 seeds {[s for s, _, _ in C3_KEYS]}; "
+        f"[many-crash] shape (seed, crash rate) {list(SERIAL_CRASH_KEYS)}")
+    for name, h in keys:
+        try:
+            wgl_seg.check(model, h, localize=False)
+        except Unsupported as e:
+            if "relaxed refutation" in str(e):
+                continue
+        raise SystemExit(f"[serial-crash] {name} is not a residual key")
+    frontier_kernel.LAUNCHES["wgl_frontier"] = 0
+    st = {}
+    t = time.perf_counter()
+    many = wgl_seg.check_many(model, [h for _, h in keys], stats=st)
+    wall = time.perf_counter() - t
+    launches = frontier_kernel.LAUNCHES["wgl_frontier"]
+    bad = []
+    for (name, h), r in zip(keys, many):
+        oracle = wgl_cpu.check(model, h)
+        lin = Linearizable(model).check(None, h)
+        want = (oracle["valid?"], oracle.get("op_index"))
+        got = [(x["valid?"], x.get("op_index")) for x in (r, lin)]
+        log(f"[serial-crash] {name}: {len(h)} ops, "
+            f"{sum(o.type == 'info' for o in h.ops)} crashed; check_many "
+            f"{got[0]} ({r.get('engine')}, frontier "
+            f"{r.get('frontier_size')}), Linearizable {got[1]} "
+            f"({lin.get('engine')}), CPU oracle {want}")
+        if (got != [want, want] or r.get("engine") != "fallback"
+                or lin.get("engine") != "wgl"):
+            bad.append(name)
+    log(f"[serial-crash] check_many over {len(keys)} keys in {wall:.3f} s "
+        f"(fallback stage {st.get('fallback', 0.0):.3f} s); wgl_frontier "
+        f"launches {launches}")
+    if bad or not launches:
+        raise SystemExit(f"[serial-crash] keys {bad} disagree with the CPU "
+                         f"oracle, or wgl_frontier was not launched")
+    name, h = keys[1]
+    serial_timing(f"serial-crash] [{name}", model, h, 1024, clock_hz)
+    return launches
+
+
 def main() -> int:
     smi, clock_hz = phase_device()
     built = phase_build()
@@ -2474,6 +2935,9 @@ def main() -> int:
     phase_many_crash()
     keys = phase_many_kernel(many_hs, built, clock_hz)
     phase_many_independent(many_hs)
+    serial_err = phase_serial_kernel(clock_hz)
+    serial_launches, serial, serial_first = phase_serial_main(clock_hz)
+    phase_serial_crash(clock_hz)
     kernels = [{"name": f"wgl_deep_{arm}", "route": "cuda",
                 "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",
                 "replaces": "jepsen_tpu/ops/wgl_deep.py:358",
@@ -2526,6 +2990,20 @@ def main() -> int:
                     "plain_ms": keys["plain_ms"],
                     "bound_ms": keys["bound_ms"],
                     "bound_by": "operations", "library_ms": None})
+    kernels.append({"name": "wgl_frontier", "route": "cuda",
+                    "source": "jepsen_tpu_torch/csrc/wgl_frontier.cu",
+                    "replaces": "jepsen_tpu/ops/wgl.py:212",
+                    "launches": serial_launches,
+                    "max_abs_err": max(serial_err, serial["err"],
+                                       serial_first["err"]),
+                    "ms": serial["ms"], "device_ms": serial["device_ms"],
+                    "plain_ms": serial["plain_ms"],
+                    "bound_ms": serial["bound_ms"],
+                    "bound_by": serial["bound_by"], "library_ms": None,
+                    "F": serial["F"], "plain_on": "cuda",
+                    "first_walk": {k: serial_first[k] for k in (
+                        "F", "ms", "device_ms", "plain_ms", "bound_ms",
+                        "bound_by")}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

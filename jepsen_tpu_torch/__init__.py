@@ -6,7 +6,9 @@ depth up to 16 through hand-written CUDA kernels: the register-delta
 segment kernel at depth <= 6 (`ops/regs_kernel.py`, `csrc/wgl_regs.cu`),
 its crash variants for histories with crashed (:info) calls
 (`ops/crash_kernel.py`, `csrc/wgl_crash.cu`) and the deep-overlap kernel
-at 7..16 (`ops/deep_kernel.py`, `csrc/wgl_deep.cu`).  The host scan of a
+at 7..16 (`ops/deep_kernel.py`, `csrc/wgl_deep.cu`); what those refuse
+goes, as in jepsen_tpu, to the serial frontier engine (`ops/wgl.py`,
+`ops/frontier_kernel.py`, `csrc/wgl_frontier.cu`).  The host scan of a
 history is C (`native/histscan.c`, built by the host compiler at first
 use).  Entry points run on the card unless the caller passes
 `device="cpu"`, which runs the kernel's plain PyTorch version."""

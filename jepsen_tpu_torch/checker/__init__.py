@@ -4,15 +4,16 @@ The `Checker` protocol and the linearizability checker, which runs
 `ops.wgl_seg.check` on the card (or the kernels' plain versions on a CPU
 device the caller names) instead of knossos: the register-delta segment
 kernel at overlap depth R <= 6, the deep-overlap kernel at 7..16, and
-the crash tiers for histories with crashed (:info) calls.  Every
-checker returns a dict with at least a "valid?" key: True, False or
-"unknown"."""
+the crash tiers for histories with crashed (:info) calls.  A history
+those refuse (`Unsupported`) goes to the serial frontier engine
+(`ops.wgl.check`), as in the reference.  Every checker returns a dict
+with at least a "valid?" key: True, False or "unknown"."""
 
 from __future__ import annotations
 
 from jepsen_tpu_torch.errors import Unsupported
 from jepsen_tpu_torch.history import History
-from jepsen_tpu_torch.ops import planner, wgl_cpu, wgl_seg
+from jepsen_tpu_torch.ops import planner, wgl, wgl_cpu, wgl_seg
 
 UNKNOWN = "unknown"
 
@@ -43,14 +44,20 @@ class Checker:
 
 class Linearizable(Checker):
     """algorithm: 'device' (or 'auto', the same here) checks on
-    `device`, the card by default; 'cpu' runs the exact CPU oracle
-    because the caller asks for it.  A model without a device spec
-    raises Unsupported under 'device'/'auto'.
+    `device`, the card by default: `wgl_seg.check` first, and a history
+    it refuses (`Unsupported`: overlap past max_open_bits or 16, states
+    past max_states, crashed calls no crash tier settles) through the
+    serial frontier engine `wgl.check`, as the reference's
+    `_device_check` does.  'cpu' runs the exact CPU oracle because the
+    caller asks for it.  A model without a device spec raises
+    Unsupported under 'device'/'auto'.
 
-    Keyword options: max_states, max_open_bits, localize, stats (the
-    device check); max_configs, time_limit (the CPU oracle)."""
+    Keyword options: max_states, max_open_bits, localize (the segment
+    check); frontier_sizes, pad (the serial engine); stats (either);
+    max_configs, time_limit (the CPU oracle)."""
 
     _SEG_KEYS = ("max_states", "max_open_bits", "localize", "stats")
+    _SER_KEYS = ("frontier_sizes", "pad")
     _CPU_KEYS = ("max_configs", "time_limit")
 
     def __init__(self, model=None, algorithm: str = "auto", device=None,
@@ -63,7 +70,8 @@ class Linearizable(Checker):
             raise Unsupported(f"competition mode: {planner.ITEM_CPU_AUTO}")
         if algorithm not in ("auto", "device", "cpu"):
             raise ValueError(f"unknown algorithm {algorithm!r}")
-        unknown = set(kw) - set(self._SEG_KEYS) - set(self._CPU_KEYS)
+        unknown = (set(kw) - set(self._SEG_KEYS) - set(self._SER_KEYS)
+                   - set(self._CPU_KEYS))
         if unknown:
             raise TypeError(f"unknown linearizable checker option(s): "
                             f"{sorted(unknown)}")
@@ -78,9 +86,15 @@ class Linearizable(Checker):
                               **{k: v for k, v in self.kw.items()
                                  if k in self._CPU_KEYS})
         else:
-            a = wgl_seg.check(self.model, history, device=self.device,
-                              **{k: v for k, v in self.kw.items()
-                                 if k in self._SEG_KEYS})
+            try:
+                a = wgl_seg.check(self.model, history, device=self.device,
+                                  **{k: v for k, v in self.kw.items()
+                                     if k in self._SEG_KEYS})
+            except Unsupported as e:
+                a = wgl.decide(self.model, history, device=self.device,
+                               why=f"the batched engines refuse it: {e}",
+                               **{k: v for k, v in self.kw.items()
+                                  if k in self._SER_KEYS + ("stats",)})
         if (a.get("valid?") is False and "final-paths" not in a
                 and not a.get("localized")
                 and a.get("op_index") is not None):

@@ -5,11 +5,15 @@
     ├── BackendUnavailable no usable device: no card where the caller
     │                     asked for one, or a device type the port has
     │                     no kernel for
-    └── Unsupported       a history or model outside the port
-                          (overlap past the deep plane, too many states,
-                          an undecomposable or spec-less model, crashed
-                          calls that no crash tier settles); the message
-                          names the ROADMAP item that will cover it
+    ├── Unsupported       a history or model outside an engine
+    │                     (overlap past the deep plane, too many states,
+    │                     an undecomposable or spec-less model, crashed
+    │                     calls that no crash tier settles, a model the
+    │                     serial kernel has no transition for); the
+    │                     message names what covers it
+    └── Unencodable       an op the device encoding cannot hold (an f
+                          the model has no code for, a value past
+                          int32): only the exact CPU oracle checks it
 """
 
 from __future__ import annotations
@@ -43,6 +47,17 @@ class BackendUnavailable(CheckError):
 
 
 class Unsupported(CheckError):
-    """The history or model is outside what this package checks on the
-    device.  Never answered by another engine behind the caller's back:
-    the caller decides (for example `Linearizable(algorithm="cpu")`)."""
+    """The history or model is outside what an engine checks on the
+    device.  The engine that raises it answers nothing else; the callers
+    that answer it do so as the reference's do (`Linearizable`,
+    `check_many`'s fallback and `wgl_deep.check_pipeline`'s stragglers
+    run the serial frontier engine), or the caller decides (for example
+    `Linearizable(algorithm="cpu")`)."""
+
+
+class Unencodable(CheckError):
+    """An op of the history has no device encoding: the model has no
+    f-code for it, or its value passes int32.  The serial engine's plan
+    raises it where the reference's raises ValueError (it is one), and
+    `check_many`'s default fallback answers it, and nothing else, with
+    the CPU oracle."""

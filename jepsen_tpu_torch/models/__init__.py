@@ -50,6 +50,10 @@ class DeviceSpec:
     decode     : optional np.int32[state_size] -> Model, the inverse of
                  `encode`; the segment kernel's witness localization
                  seeds the CPU oracle with decoded entry states
+    device_step: the transition the serial frontier kernel compiles in
+                 (`csrc/wgl_frontier.cu`): "register" (the reference's
+                 `_register_step`) or "mutex" (`_mutex_step`); None for
+                 a model that kernel cannot run
     """
 
     state_size: int
@@ -58,6 +62,7 @@ class DeviceSpec:
     step: Callable
     pure: Optional[Callable] = None
     decode: Optional[Callable] = None
+    device_step: Optional[str] = None
 
 
 class Model:
@@ -131,7 +136,8 @@ class CASRegister(Model):
     def device_spec(self):
         return DeviceSpec(1, dict(_REG_F), _register_encode,
                           _register_step, pure=_register_pure,
-                          decode=lambda s: CASRegister(_register_value(s)))
+                          decode=lambda s: CASRegister(_register_value(s)),
+                          device_step="register")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,7 +160,8 @@ class Register(Model):
     def device_spec(self):
         return DeviceSpec(1, dict(_REG_F), _register_encode,
                           _register_step, pure=_register_pure,
-                          decode=lambda s: Register(_register_value(s)))
+                          decode=lambda s: Register(_register_value(s)),
+                          device_step="register")
 
 
 # ---------------------------------------------------------------------------
@@ -193,4 +200,5 @@ class Mutex(Model):
         return DeviceSpec(1, dict(_MUTEX_F),
                           lambda m: np.array([int(m.locked)], np.int32),
                           _mutex_step,
-                          decode=lambda s: Mutex(bool(int(s[0]))))
+                          decode=lambda s: Mutex(bool(int(s[0]))),
+                          device_step="mutex")

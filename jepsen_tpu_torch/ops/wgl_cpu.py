@@ -1,11 +1,14 @@
 """CPU linearizability oracle: just-in-time linearization with memoization.
 
 The knossos-equivalent exact oracle, a copy of `jepsen_tpu.ops.wgl_cpu`.
-In this package it serves two callers and is never a fallback:
+In this package it serves three callers:
 
   1. `Linearizable(algorithm="cpu")`, when the caller asks for it;
   2. the final-paths / configs artifacts of an invalid device verdict,
-     computed on the prefix through the witness.
+     computed on the prefix through the witness;
+  3. `wgl_seg.check_many`'s default fallback, for a key the serial
+     frontier engine raises ValueError on (a value past int32), as in
+     the reference.
 
 Algorithm (Lowe-style JIT linearization, equivalent to knossos :linear):
 walk history events in order keeping a set of *configurations*

@@ -15,10 +15,12 @@ failing call's invoke op.
 The model must decompose into diagonal + rank-1 transitions with at
 most 32 states, at overlap depth R <= 16; crashed calls ride as
 permanent slots, counted in R (`ops.wgl_seg`'s crash tier 2).
-Everything else raises `Unsupported` (see ops.planner).
-`ops.wgl_seg` routes only R 7..16 here, as the reference does; this
-module's own entry points (`check_tables`, `check_pipeline`) walk any
-depth 1..16 a caller hands them."""
+Everything else raises `Unsupported` (see ops.planner), except in
+`check_pipeline`, whose stragglers go on to the serial frontier engine
+(`ops.wgl`) as the reference's do.  `ops.wgl_seg` routes only R 7..16
+here, as the reference does; this module's own entry points
+(`check_tables`, `check_pipeline`) walk any depth 1..16 a caller hands
+them."""
 
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import torch
 
 from jepsen_tpu_torch.backend import resolve_device
 from jepsen_tpu_torch.errors import Unsupported
-from jepsen_tpu_torch.ops import deep_kernel, planner
+from jepsen_tpu_torch.ops import deep_kernel, planner, wgl
 
 EB = deep_kernel.EB
 
@@ -231,12 +233,12 @@ def pack_pipeline(model, histories, *, max_open_bits=None,
     every history into one grid, each history's tables from the scan's
     delta stream (`planner._pack_regs_single`).  Returns (results,
     grid, pend): `results` holds the entries already decided on the
-    host (empty or out-of-scope histories) and None for the rest; `grid`
-    is the `_Grid` to launch;
-    pend[k] = (i, fk, ret_t, ops, R, Sn) describes the grid's k-th CTA,
-    history i.  A history with crashed calls is in neither: its entry
-    stays None, as does every history from the one whose alphabet the
-    batch's state space could not take."""
+    host (empty histories) and None for the rest; `grid` is the `_Grid`
+    to launch; pend[k] = (i, fk, ret_t, ops, R, Sn) describes the grid's
+    k-th CTA, history i.  A straggler is in neither: its entry stays
+    None.  These are a history with crashed calls, one the scan or the
+    deep gate refuses, and every history from the one whose alphabet
+    the batch's state space could not take."""
     dev = resolve_device(device)
     spec = model.device_spec()
     if spec is None:
@@ -261,11 +263,9 @@ def pack_pipeline(model, histories, *, max_open_bits=None,
             fk = planner._scan_history(planner.columns_of(h), ops, spec,
                                        seen, rows, max_open_bits,
                                        want_snaps=False)
-        except planner.CrashedCalls:
-            lap("scan")              # check_pipeline's crash tiers take it
-            continue
-        except Unsupported as e:
-            results[i] = _unsupported(e, i)
+        except Unsupported:
+            # crashed calls (check_pipeline's crash tiers take them) or a
+            # history the scan refuses (R past max_open_bits): stragglers
             lap("scan")
             continue
         lap("scan")
@@ -293,10 +293,8 @@ def pack_pipeline(model, histories, *, max_open_bits=None,
                                               t0c)
             U_at = len(rows)
         lap("tables")
-        why = planner.deep_gate(R, Sn, len(rows), True)
-        if why is not None:
-            results[i] = _unsupported(Unsupported(why), i)
-            continue
+        if planner.deep_gate(R, Sn, len(rows), True) is not None:
+            continue                 # a straggler
         # the grid runs under the newest uop tables an in-scope history
         # was gated with: interning only appends uops and enumeration
         # only adds states, so this version covers every earlier
@@ -327,15 +325,14 @@ def check_pipeline(model, histories, *, max_open_bits=None,
     history, each at its own overlap depth) on the current stream, and
     synchronise once for all verdicts.
 
-    A history with crashed calls goes through `wgl_seg.check`'s crash
-    tiers after the grid, as the reference's stragglers do.  A history
-    outside the port does not poison the batch: its entry is
-    {"valid?": "unknown", "cause": "unsupported", "error": {...}} with
-    the Unsupported message naming the ROADMAP item, and the others
-    keep their verdicts.  As in the reference pipeline, once the shared
-    alphabet's state space fails (too many states, undecomposable), that
-    history and every later one become stragglers: each goes through
-    `wgl_seg.check` after the grid, on its own alphabet.
+    The stragglers, as in the reference: a history with crashed calls,
+    one the scan refuses (R past `max_open_bits`, by default 16) or the
+    deep gate refuses, and, once the shared alphabet's state space
+    fails (too many states, undecomposable), that history and every
+    later one.  Each goes through `wgl_seg.check` after the grid, on its
+    own alphabet, and where that raises Unsupported through the serial
+    frontier engine (`wgl.check`, `engine: "wgl"`), which has no
+    overlap-depth limit; a straggler never poisons the batch.
 
     `stats`, when given a dict, receives host seconds per stage (scan,
     tables, pack, copy, launch, sync, assemble) and, on a CUDA device,
@@ -393,7 +390,11 @@ def check_pipeline(model, histories, *, max_open_bits=None,
                     model, histories[i], max_states=max_states,
                     max_open_bits=(planner.deep_r_max() if max_open_bits
                                    is None else max_open_bits), device=dev)
+                continue
             except Unsupported as e:
-                results[i] = _unsupported(e, i)
+                why = e
+            results[i] = wgl.decide(
+                model, histories[i], device=dev,
+                why=f"deep straggler beyond every batched gate ({why})")
     lap("stragglers")
     return results

@@ -16,7 +16,9 @@ the deep kernel (tier 2); past that, a valid verdict on the history
 with every crash stripped is the history's (tier 3), and an invalid one
 is followed by a sound refutation under relaxed crash semantics (tier
 4).  Shapes outside all of these raise `Unsupported` naming the ROADMAP
-item that will cover them; nothing falls through to another engine.
+item that covers them; as in the reference, `check()` itself falls to
+no other engine, and its callers that do (`Linearizable`,
+`check_many`'s fallback) run the serial frontier engine (`ops.wgl`).
 
 The segment route cuts a history at its quiescent returns (no normal
 call open) into segments of at least TARGET_RETURNS returns.
@@ -39,11 +41,11 @@ import numpy as np
 import torch
 
 from jepsen_tpu_torch.backend import resolve_device
-from jepsen_tpu_torch.errors import Unsupported
+from jepsen_tpu_torch.errors import Unencodable, Unsupported
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.ops import (crash_kernel, deep_kernel, planner,
-                                  regs_kernel, wgl_cpu, wgl_deep)
-from jepsen_tpu_torch.ops.prep import PreparedHistory
+                                  regs_kernel, wgl, wgl_cpu, wgl_deep)
+from jepsen_tpu_torch.ops.prep import PreparedHistory, prepare
 
 WHY = ("register-delta segment kernel: decomposable model with Sn <= 32 and "
        "overlap depth R <= 6, one lane per (quiescent segment, entry "
@@ -80,6 +82,12 @@ WHY_KEYS_DEEP = ("deep-overlap kernel: the keys at overlap depth 7..16 in "
                  "candidate-table lanes are ROADMAP P5)")
 WHY_KEYS_HOST = ("decided on the host: the key has no client call, or "
                  "every client call of it crashed")
+WHY_FALLBACK = ("check_many's fallback (the serial frontier engine "
+                "ops.wgl; the CPU oracle for an op past its int32 "
+                "encoding): a key the "
+                "scan refuses, a PreparedHistory, a crash key every crash "
+                "tier leaves open, or every lane key when the lanes' state "
+                "space outgrows max_states or the segment kernel's gate")
 
 
 class _SegGrid:
@@ -704,10 +712,11 @@ def check_pipeline(model, histories, *, max_states: int = 64,
     (with the deepest group so far) or model falls outside the segment
     kernel, and a history the scan refuses, go through `check()` one by
     one: R 7..16 to the deep kernel, histories with crashed calls to
-    the crash tiers, and shapes outside the port to an entry {"valid?":
-    "unknown", "cause": "unsupported", "error": {...}} naming the
-    ROADMAP item, as in `wgl_deep.check_pipeline`.  The uop tables are
-    rebuilt only when the alphabet grows.
+    the crash tiers, and shapes `check()` refuses to an entry
+    {"valid?": "unknown", "cause": "unsupported", "error": {...}}
+    naming the ROADMAP item (where the reference's `check()` raises out
+    of the whole pipeline).  The uop tables are rebuilt only when the
+    alphabet grows.
 
     `stats`, when given a dict, receives host seconds per stage (scan,
     segment, tables, pack, copy, launch, sync, assemble, stragglers;
@@ -900,13 +909,15 @@ class _KeySort(NamedTuple):
     already decided on the host (None elsewhere), the key lanes and the
     deep keys as (i, scan, History), the crashed-call count of each key
     whose crash-stripped twin stands for it, the keys that go through
-    check(), and the lane keys' interned ops."""
+    check(), the lane keys' interned ops, and the keys that go to the
+    fallback (a PreparedHistory, a key the scan refuses)."""
     results: list
     lanes: list
     deep: list
     twins: dict
     crash: list
     rows: list
+    fall: list
 
 
 def _sort_keys(spec, histories, max_open_bits: int,
@@ -918,13 +929,12 @@ def _sort_keys(spec, histories, max_open_bits: int,
     results: list = [None] * len(histories)
     seen: dict = {}
     rows: list = []
-    lanes, deep, crash, twins = [], [], [], {}
+    lanes, deep, crash, twins, fall = [], [], [], {}, []
     host = {"valid?": True, "op_count": 0, "backend": backend,
             "engine": "wgl_seg_batch", "time_kernel_s": 0.0}
     for i, h in enumerate(histories):
         if isinstance(h, PreparedHistory):
-            results[i] = wgl_deep._unsupported(Unsupported(
-                f"a PreparedHistory key: {planner.ITEM_SERIAL}"), i)
+            fall.append(i)
             continue
         hist = h if isinstance(h, History) else History(h)
         n0 = len(rows)
@@ -946,8 +956,8 @@ def _sort_keys(spec, histories, max_open_bits: int,
                 results[i] = dict(host, crashed_ignored=len(crashed))
                 continue
             twins[i] = len(crashed)
-        except Unsupported as e:
-            results[i] = wgl_deep._unsupported(e, i)
+        except Unsupported:
+            fall.append(i)
             continue
         if fk.n_calls == 0:
             results[i] = dict(host)
@@ -958,7 +968,7 @@ def _sort_keys(spec, histories, max_open_bits: int,
                 del seen[op]
             del rows[n0:]
             deep.append((i, fk, hist))
-    return _KeySort(results, lanes, deep, twins, crash, rows)
+    return _KeySort(results, lanes, deep, twins, crash, rows, fall)
 
 
 class _KeyLaunch(NamedTuple):
@@ -1082,24 +1092,22 @@ def check_many(model, histories, *, max_states: int = 64,
     An invalid key's witness and artifacts (op, op_index, final-paths,
     configs) come from the CPU oracle under ORACLE_CAPS when `localize`
     is set (not for keys that went through `check()`, which localizes
-    its own).  A key outside the port comes back as {"valid?":
-    "unknown", "cause": "unsupported", "error": {...}} naming the
-    ROADMAP item: one the scan refuses, a PreparedHistory, one every
-    crash tier leaves open, and every lane key when the batch's state
-    space outgrows `max_states` or the segment kernel's gate.  A double
-    invoke raises ValueError; a model without a device spec, `fallback`
-    (the serial engines, P5) and `mesh` / `mesh_axis` (P8) raise
-    Unsupported.
+    its own).  As in the reference, `fallback(model, prepared) -> dict`
+    decides the keys the batched engines refuse (`engine: "fallback"`
+    unless the result names its own): one the scan refuses, a
+    PreparedHistory, one every crash tier leaves open, and every lane
+    key when the batch's state space outgrows `max_states` or the
+    segment kernel's gate.  The default is the serial frontier engine
+    (`wgl.check` on `device`), and the CPU oracle where that raises
+    ValueError.  A double invoke raises ValueError; a model without a
+    device spec and `mesh` / `mesh_axis` (P8) raise Unsupported.
 
     A lane key's `time_kernel_s` is the key launch's, from the launch
     to the end of the verdicts' copy (the host wait included).
     `stats`, when given a dict, receives host seconds per stage (scan,
-    tables, pack, launch, sync, assemble, deep, crash, localize), the
-    key launches (`launches`) and, on a CUDA device, `kernel_ms`, the
-    key launch's device time (CUDA events)."""
-    if fallback is not None:
-        raise Unsupported(f"check_many(fallback=...), the engines a key "
-                          f"falls to: {planner.ITEM_SERIAL}")
+    tables, pack, launch, sync, assemble, deep, crash, fallback,
+    localize), the key launches (`launches`) and, on a CUDA device,
+    `kernel_ms`, the key launch's device time (CUDA events)."""
     if mesh is not None or mesh_axis is not None:
         raise Unsupported(f"check_many(mesh=..., mesh_axis=...): "
                           f"{planner.ITEM_MESH}")
@@ -1114,6 +1122,7 @@ def check_many(model, histories, *, max_states: int = 64,
     n = len(histories)
     keys = _sort_keys(spec, histories, max_open_bits, dev.type)
     results, lanes, deep, twins, crash = keys[:5]
+    fall = list(keys.fall)
     lap("scan")
 
     R_lanes = max((int(fk.max_open) for _, fk, _ in lanes), default=0)
@@ -1122,10 +1131,9 @@ def check_many(model, histories, *, max_states: int = 64,
     if lanes:
         try:
             launch = _key_launch(model, spec, keys, max_states, lap)
-        except Unsupported as e:
+        except Unsupported:
             lap("tables")
-            for i, _, _ in lanes:
-                results[i] = wgl_deep._unsupported(e, i)
+            fall.extend(i for i, _, _ in lanes)
     if launch is not None:
         alive, t_kernel = _run_keys(launch, dev=dev, lap=lap, stats=stats)
         for (i, fk, hist), ok in zip(lanes, alive):
@@ -1152,12 +1160,9 @@ def check_many(model, histories, *, max_states: int = 64,
         t_kernel = dst.get("launch", 0.0) + dst.get("sync", 0.0)
         for (i, _, hist), res in zip(deep, out):
             results[i] = res
-            if "error" in res:
-                res["error"]["history_index"] = i
-            else:
-                res.setdefault("time_kernel_s", t_kernel)
-                if res.get("pipelined"):     # the grid's, not check()'s
-                    del res["dispatch"]
+            res.setdefault("time_kernel_s", t_kernel)
+            if res.get("pipelined"):     # the grid's, not check()'s
+                del res["dispatch"]
             if i in twins:
                 if res["valid?"] is True:
                     res["crashed_ignored"] = twins[i]
@@ -1173,13 +1178,25 @@ def check_many(model, histories, *, max_states: int = 64,
             res = check(model, histories[i], max_states=max_states,
                         max_open_bits=max_open_bits, localize=localize,
                         device=dev)
-        except Unsupported as e:
-            results[i] = wgl_deep._unsupported(e, i)
+        except Unsupported:
+            fall.append(i)
             continue
         # the relaxed tier reports no kernel time: the call's own
         res.setdefault("time_kernel_s", time.monotonic() - t1)
         results[i] = res
     lap("crash")
+    if fall:
+        if fallback is None:
+            fallback = _serial_fallback(dev)
+        for i in fall:
+            t1 = time.monotonic()
+            h = histories[i]
+            res = fallback(model, h if isinstance(h, PreparedHistory)
+                           else prepare(h))
+            res.setdefault("time_kernel_s", time.monotonic() - t1)
+            results[i] = wgl.dispatched(res, "fallback", WHY_FALLBACK, n,
+                                        dev)
+    lap("fallback")
     if localize:
         for i, hist in invalid:
             _localize_key(results[i], model, hist)
@@ -1194,6 +1211,21 @@ def check_many(model, histories, *, max_states: int = 64,
                    ("wgl_seg_batch", WHY_KEYS_HOST, None))}
     for r in results:
         r["time_total_s"] = t_total
-        if "error" not in r and "dispatch" not in r:
+        if "dispatch" not in r:
             r["dispatch"] = records[r["engine"]]
     return results
+
+
+def _serial_fallback(dev):
+    """check_many's default fallback, the reference's: the serial
+    frontier engine on `dev`, and the exact CPU oracle for a key whose
+    plan that engine refuses as the reference's does with ValueError (an
+    op past int32, or one the model has no f-code for: Unencodable).
+    Nothing else reaches the CPU oracle: the kernel's own refusals
+    (Unsupported) and failures raise."""
+    def fallback(model, prep):
+        try:
+            return wgl.check(model, prep, device=dev)
+        except Unencodable:
+            return wgl_cpu.check(model, prep)
+    return fallback

@@ -18,7 +18,7 @@ from jepsen_tpu_torch import convert, models
 from jepsen_tpu_torch.checker import Linearizable
 from jepsen_tpu_torch.errors import BackendUnavailable, Unsupported
 from jepsen_tpu_torch.history import History, info_op, invoke_op, ok_op
-from jepsen_tpu_torch.ops import deep_kernel, wgl_deep, wgl_seg
+from jepsen_tpu_torch.ops import deep_kernel, wgl_cpu, wgl_deep, wgl_seg
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "jepsen_tpu_torch").rglob("*.py")) + \
@@ -142,8 +142,9 @@ def test_unknown_device_type_raises():
 
 def test_crashed_history_raises_unsupported():
     # crashed calls have verdicts now (the crash tiers); only the
-    # residual case, where every tier leaves the history open, raises,
-    # naming the serial engines
+    # residual case, where every tier leaves the history open, raises in
+    # wgl_seg.check, naming the serial engines, and the checker then
+    # runs the serial frontier engine, as the reference's does
     h = History([invoke_op(0, "write", 1), info_op(0, "write", 1),
                  invoke_op(1, "read", None), ok_op(1, "read", 1)]).index()
     r = Linearizable(models.CASRegister(), device="cpu").check(None, h)
@@ -157,20 +158,32 @@ def test_crashed_history_raises_unsupported():
         ops += [invoke_op(9, "read", None), ok_op(9, "read", i % 3 + 1),
                 invoke_op(8, "write", 0), ok_op(8, "write", 0)]
     ops += [info_op(i, "write", i % 3 + 1) for i in range(6)]
+    residual = History(ops).index()
     with pytest.raises(Unsupported, match="P5"):
-        Linearizable(models.CASRegister(), device="cpu").check(
-            None, History(ops).index())
+        wgl_seg.check(models.CASRegister(), residual, device="cpu")
+    r = Linearizable(models.CASRegister(), device="cpu").check(None,
+                                                               residual)
+    assert r["engine"] == "wgl" and "P5" in r["dispatch"]["why"]
+    assert r["valid?"] is wgl_cpu.check(models.CASRegister(),
+                                        residual)["valid?"]
 
 
 @pytest.mark.parametrize("depth", [11, 17])
 def test_over_deep_history_raises_unsupported(depth):
+    # past max_open_bits (11 at 10) or past the deep kernel (17): the
+    # batched engines refuse it, and the checker's serial frontier
+    # engine decides it
     ops = [invoke_op(p, "write", p % 3) for p in range(depth)]
     ops += [ok_op(p, "write", p % 3) for p in range(depth)]
     h = History(ops).index()
     bits = 10 if depth == 11 else 18
     with pytest.raises(Unsupported, match="P5"):
-        Linearizable(models.CASRegister(), device="cpu",
+        wgl_seg.check(models.CASRegister(), h, device="cpu",
+                      max_open_bits=bits)
+    r = Linearizable(models.CASRegister(), device="cpu",
                      max_open_bits=bits).check(None, h)
+    assert r["valid?"] is True and r["engine"] == "wgl"
+    assert r["op_count"] == depth
 
 
 def test_too_many_states_raises_unsupported():

@@ -17,6 +17,7 @@ from jepsen_tpu.ops import wgl_seg as ref_seg
 from jepsen_tpu_torch import convert, models
 from jepsen_tpu_torch.checker import Linearizable, linearizable
 from jepsen_tpu_torch.errors import Unsupported
+from jepsen_tpu_torch.ops import wgl_seg
 
 
 def subtle_stale_read():
@@ -96,14 +97,26 @@ def test_cpu_algorithm_is_the_oracle(results):
 
 
 def test_default_max_open_bits_refuses_deeper_histories():
-    ph = convert.history_from_dicts(burst_history(12, seed=4).to_dicts())
+    # the batched engines refuse R = 12 at the default max_open_bits;
+    # the checker then runs the serial frontier engine, as the
+    # reference's _device_check does
+    h = burst_history(12, seed=4)
+    ph = convert.history_from_dicts(h.to_dicts())
     with pytest.raises(Unsupported, match="max_open_bits=10"):
-        Linearizable(models.CASRegister(), device="cpu").check(None, ph)
+        wgl_seg.check(models.CASRegister(), ph, device="cpu")
+    got = Linearizable(models.CASRegister(), device="cpu").check(None, ph)
+    assert got["engine"] == got["dispatch"]["engine"] == "wgl"
+    assert "max_open_bits=10" in got["dispatch"]["why"]
+    assert got["valid?"] is ref_cpu.check(ref_models.CASRegister(),
+                                          h)["valid?"] is True
 
 
 def test_checker_options_are_validated():
+    # frontier_sizes and pad are the serial engine's (the reference's
+    # serial keys); its other keywords are not checker options there
+    Linearizable(models.CASRegister(), frontier_sizes=(64,), pad=False)
     with pytest.raises(TypeError):
-        Linearizable(models.CASRegister(), frontier_sizes=4)
+        Linearizable(models.CASRegister(), events_per_call=4)
     with pytest.raises(ValueError):
         Linearizable(None)
     with pytest.raises(Unsupported, match="P6"):

@@ -128,15 +128,14 @@ def test_pipeline_matches_reference_and_isolates_out_of_scope():
     assert got[2]["op_index"] == ref_cpu.check(model, hs[2])["op_index"]
     assert got[3]["deep_variant"] == "word-split"
     assert got[6]["valid?"] is False and got[6]["max_open"] == 1
-    # R = 18: a per-history Unsupported entry naming the ROADMAP item,
-    # never another engine's verdict; the crashed history: the crash
-    # tiers' verdict, as the reference's stragglers get it
-    for i, item in ((1, "P5"),):
-        assert got[i]["valid?"] == "unknown"
-        assert got[i]["cause"] == "unsupported"
-        assert got[i]["error"]["error"] == "Unsupported"
-        assert item in got[i]["error"]["message"]
-        assert got[i]["error"]["history_index"] == i
+    # R = 18: a straggler beyond every batched gate, decided by the
+    # serial frontier engine as the reference's is; the crashed history:
+    # the crash tiers' verdict, as the reference's stragglers get it
+    assert got[1]["valid?"] is ref[1]["valid?"] is True
+    for key in ("frontier_size", "final_frontier", "op_count"):
+        assert got[1][key] == ref[1][key], key
+    assert got[1]["engine"] == got[1]["dispatch"]["engine"] == "wgl"
+    assert "P5" in got[1]["dispatch"]["why"]
     assert got[4]["valid?"] is ref[4]["valid?"] is True
     assert got[4]["crashed"] == ref[4]["crashed"] == 1
     assert {"scan", "pack", "sync"} <= set(st)
@@ -146,8 +145,8 @@ def test_pipeline_state_space_failure_makes_stragglers():
     # history 1's 85 states outgrow max_states 64: as in the reference,
     # it and every later history become stragglers, each checked on its
     # own alphabet after the grid.  Histories 0 and 2 get the
-    # reference's verdicts; history 1's reference verdict comes from its
-    # serial engine, which the port does not have
+    # reference's verdicts; history 1's comes from the serial engine in
+    # both
     wide = []
     for p in range(3):
         for v in range(p * 30, p * 30 + 28):
@@ -166,9 +165,10 @@ def test_pipeline_state_space_failure_makes_stragglers():
     for i in (0, 2):
         assert got[i]["valid?"] is ref[i]["valid?"] is True
         assert got[i].get("op_index") == ref[i].get("op_index")
-    assert got[1]["cause"] == "unsupported"
-    assert "max_states" in got[1]["error"]["message"]
-    assert "ROADMAP P5" in got[1]["error"]["message"]
+    assert got[1]["valid?"] is ref[1]["valid?"] is True
+    assert got[1]["engine"] == "wgl"
+    assert "max_states" in got[1]["dispatch"]["why"]
+    assert got[1]["final_frontier"] == ref[1]["final_frontier"]
     assert got[2]["valid?"] is True
 
 

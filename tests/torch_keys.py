@@ -1,66 +1,13 @@
 """Seeded independent keys for the jepsen_tpu_torch tests of batched
-keys, as op dicts made with numpy, and the port's key launch inputs
-over them.  Imports no JAX, so the card's test file can use it."""
+keys, as op dicts made with numpy (`key_dicts`, shared with
+chip_smoke.py, whose serial phases check such keys), and the port's key
+launch inputs over them.  Imports no JAX, so the card's test file can
+use it."""
 
-import numpy as np
-
-from chip_smoke import WARP_KEY_CALLS
+from chip_smoke import WARP_KEY_CALLS, key_dicts, op
 from jepsen_tpu_torch import convert, models
 from jepsen_tpu_torch.history import pack_history
 from jepsen_tpu_torch.ops import wgl_seg
-
-
-def op(p, t, f, v):
-    return {"process": p, "type": t, "f": f, "value": v, "time": None}
-
-
-def key_dicts(seed, n_calls=40, conc=5, vmax=4, max_open=0, burst=0,
-              crash_rate=0.0, buggy=0.0):
-    """One key's ops as dicts, made with numpy from `seed`: a register
-    workload (read/read/write/cas) run against a sequential register,
-    with at most `max_open` normal calls open at once; `burst` writes
-    open together at the end (overlap depth at least `burst`);
-    `crash_rate` of the calls crash at once (:info, no effect on the
-    register); `buggy` of the reads see a random value."""
-    rng = np.random.default_rng(seed)
-    ops, value, open_ops = [], None, {}
-    i = 0
-    while i < n_calls:
-        p = int(rng.integers(conc))
-        if p in open_ops:
-            ops.append(open_ops.pop(p))
-            continue
-        if max_open and len(open_ops) >= max_open:
-            ops.append(open_ops.pop(
-                sorted(open_ops)[int(rng.integers(len(open_ops)))]))
-            continue
-        i += 1
-        f = ("read", "read", "write", "cas")[int(rng.integers(4))]
-        a, b = int(rng.integers(vmax + 1)), int(rng.integers(vmax + 1))
-        if crash_rate and rng.random() < crash_rate:
-            v = None if f == "read" else a if f == "write" else [a, b]
-            ops += [op(p, "invoke", f, v), op(p, "info", f, v)]
-            continue
-        if f == "read":
-            ops.append(op(p, "invoke", "read", None))
-            seen = a if buggy and rng.random() < buggy else value
-            open_ops[p] = op(p, "ok", "read", seen)
-        elif f == "write":
-            ops.append(op(p, "invoke", "write", a))
-            value = a
-            open_ops[p] = op(p, "ok", "write", a)
-        else:
-            ops.append(op(p, "invoke", "cas", [a, b]))
-            if value == a:
-                value = b
-                open_ops[p] = op(p, "ok", "cas", [a, b])
-            else:
-                open_ops[p] = op(p, "fail", "cas", [a, b])
-    ops.extend(open_ops.values())
-    ops += [op(conc + q, "invoke", "write", q % (vmax + 1))
-            for q in range(burst)]
-    ops += [op(conc + q, "ok", "write", q % (vmax + 1)) for q in range(burst)]
-    return [dict(d, index=j) for j, d in enumerate(ops)]
 
 
 def indexed(ops):
