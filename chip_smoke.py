@@ -7,8 +7,8 @@ any failure exits non-zero:
 
   device     - the card, and nvidia-smi's name and power limit;
   build      - one nvcc per source (csrc/wgl_deep.cu, csrc/wgl_regs.cu,
-               csrc/wgl_crash.cu, csrc/wgl_frontier.cu), started
-               together, for sm_90a
+               csrc/wgl_crash.cu, csrc/wgl_frontier.cu, csrc/elle_pmm.cu),
+               started together, for sm_90a
                (timed); ptxas registers and
                spill bytes of each kernel instantiation; a spill in the
                deep kernel's warp arm fails; then the native history
@@ -155,7 +155,34 @@ any failure exits non-zero:
                [many-crash] shape (fixed seeds, printed), each one that
                wgl_seg.check leaves open, through check_many (engine
                fallback) and Linearizable (engine wgl): the CPU oracle's
-               verdict and witness; one walk timed.
+               verdict and witness; one walk timed;
+  elle-kernel
+             - elle_pmm (the packed boolean product) against its plain
+               version on the card, bit for bit with the change flag:
+               random packed planes at n_pad 128, 1024 and 10,112 and
+               densities 1/n, 4/n, 0.05 and 0.5 (a product and a closure
+               round each), and every round of the bench's 10,000-txn
+               closure; its first and last rounds timed both ways beside
+               the plain version, the library's product (4 torch.matmul
+               of bf16 operands, thresholded) and the bound; registers
+               and spills from [build];
+  elle-main  - the JAX package's Elle bench planes (bench.py:2139-2188):
+               8 histories of 1,000 txns and 1 of 10,000, a planted
+               G-single in the even ones, through elle_graph.classify_batch
+               (dense) and elle_mesh.classify_mesh (packed): anomalies
+               exactly {G-single} or {}, equal defining edges, the
+               1,000-txn rows equal to the numpy oracle; seconds a
+               history, rounds and peak device memory of each tier;
+  elle-check - Elle().check on simulated list-append histories (a
+               serializable store, concurrency 10, the JAX package's
+               list-append defaults) of 1,000 txns (the dense tier) and
+               10,000 (the packed tier), clean and with a planted G1c,
+               G-single, G2-item and G1a block: verdict, anomaly-types,
+               not, weakest-violated, every witness a cycle of the
+               planes, infer_s and classify_s; then
+               independent.batch_checker(Elle()) over 64 keys with three
+               planted keys; elle_pmm's launches over the checks are the
+               kernel line's.
 
 Kernel times come two ways, each a field of the JSON kernel line: "ms",
 from an idle card's launch to its end (CUDA events around one call,
@@ -168,7 +195,9 @@ is missing."""
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import multiprocessing
 import os
 import random
@@ -418,14 +447,16 @@ def phase_build():
     """Both kernels' nvcc at once, timed; ptxas registers and spills of
     every instantiation; a warp-arm spill of the deep kernel fails."""
     from jepsen_tpu_torch.ops import (crash_kernel, cuda_build, deep_kernel,
-                                      frontier_kernel, regs_kernel)
+                                      elle_kernel, frontier_kernel,
+                                      regs_kernel)
     t = time.perf_counter()
     libs = cuda_build.build("wgl_deep", "wgl_regs", "wgl_crash",
-                            "wgl_frontier")
+                            "wgl_frontier", "elle_pmm")
     deep_kernel._load()
     cuda_build.load("wgl_regs", regs_kernel._declare)
     cuda_build.load("wgl_crash", crash_kernel._declare)
     cuda_build.load("wgl_frontier", frontier_kernel._declare)
+    cuda_build.load("elle_pmm", elle_kernel._declare)
     dt = time.perf_counter() - t
     kernels, entries = {}, []
     for lib in libs.values():
@@ -435,7 +466,7 @@ def phase_build():
         entries += [ln for ln in text.splitlines() if "entry function" in ln]
     if not all(any(k.startswith(n) for k in kernels)
                for n in ("wgl_regs_kernel", "wgl_regs_keys", "wgl_warp",
-                         "wgl_crash", "wgl_frontier")):
+                         "wgl_crash", "wgl_frontier", "elle_pmm")):
         raise SystemExit("[build] ptxas reported no kernel of a source: "
                          + " | ".join(entries))
     log(f"[build] {', '.join(p.name for p in libs.values())} in {dt:.2f} s "
@@ -2915,6 +2946,474 @@ def phase_serial_crash(clock_hz):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Elle: the transactional isolation checker (inference, the dense tier and
+# the packed tier on the kernel elle_pmm)
+# ---------------------------------------------------------------------------
+
+ELLE_CONC = 10                      # client processes of a simulated store
+ELLE_KEY_COUNT = 3                  # the JAX package's list-append
+ELLE_MIN_LEN, ELLE_MAX_LEN = 1, 4   # defaults (workloads/list_append.py:
+ELLE_WRITES_PER_KEY = 32            # 26-28): active keys, micro-ops a txn,
+ELLE_READ_RATIO = 0.5               # appends before a key retires, reads
+ELLE_PLANT_KEY = 1 << 20            # first key of a planted block
+ELLE_PLANTS = ("G1c", "G-single", "G2-item", "G1a")
+#: (valid?, anomaly-types, weakest-violated, not) of a clean history and
+#: of each planted block
+ELLE_EXPECT = {
+    None: (True, [], None, []),
+    "G1c": (False, ["G1c"], "read-committed",
+            ["read-committed", "snapshot-isolation", "serializable"]),
+    "G-single": (False, ["G-single"], "snapshot-isolation",
+                 ["snapshot-isolation", "serializable"]),
+    "G2-item": (False, ["G2-item"], "serializable", ["serializable"]),
+    "G1a": (False, ["G1a"], "read-committed",
+            ["read-committed", "snapshot-isolation", "serializable"]),
+}
+ELLE_MAIN = ((1000, 8), (10_000, 1))    # (txns, histories): the bench's rows
+ELLE_CHECK_SIZES = (1000, 10_000)       # auto: dense tier, packed tier
+ELLE_MESH_AT = 8192                     # Elle()'s mesh_threshold
+ELLE_KEYS, ELLE_KEY_TXNS = 64, 100      # the [elle-check] keyed history
+ELLE_KEY_PLANTS = (5, 17, 42)           # its keys with a planted G-single
+ELLE_KERNEL_NPADS = (128, 1024, 10_112)
+INT8_OPS_PER_S = 1.979e15           # H100 SXM dense int8 tensor cores
+
+
+def elle_expected(plant):
+    return ELLE_EXPECT[plant]
+
+
+def elle_plant_block(emit, kind):
+    """One planted anomaly on two fresh keys, emitted while every client
+    is idle (so the block's txns meet the rest only through po and rt,
+    which order them after everything before and before everything
+    after): the planted histories of the JAX package's tests/test_elle.py
+    (:38-143)."""
+    a, b = ELLE_PLANT_KEY, ELLE_PLANT_KEY + 1
+    if kind == "G1c":           # wr a then ww b against it
+        t0 = [["append", a, 1], ["append", b, 2]]
+        emit(0, "invoke", t0)
+        emit(1, "invoke", [["r", a, None], ["append", b, 1]])
+        emit(1, "ok", [["r", a, [1]], ["append", b, 1]])
+        emit(0, "ok", t0)
+        emit(2, "invoke", [["r", b, None]])
+        emit(2, "ok", [["r", b, [1, 2]]])
+    elif kind == "G-single":    # read skew: one append seen, one missed
+        t1 = [["append", a, 1], ["append", b, 1]]
+        emit(0, "invoke", [["r", b, None], ["r", a, None]])
+        emit(1, "invoke", t1)
+        emit(1, "ok", t1)
+        emit(0, "ok", [["r", b, [1]], ["r", a, []]])
+    elif kind == "G2-item":     # write skew: each misses the other
+        emit(0, "invoke", [["r", a, None], ["append", b, 1]])
+        emit(1, "invoke", [["r", b, None], ["append", a, 1]])
+        emit(0, "ok", [["r", a, []], ["append", b, 1]])
+        emit(1, "ok", [["r", b, []], ["append", a, 1]])
+        emit(2, "invoke", [["r", a, None], ["r", b, None]])
+        emit(2, "ok", [["r", a, [1]], ["r", b, [1]]])
+    elif kind == "G1a":         # a read of a failed append
+        t0 = [["append", a, 9]]
+        emit(0, "invoke", t0)
+        emit(0, "fail", t0)
+        emit(1, "invoke", [["r", a, None]])
+        emit(1, "ok", [["r", a, [9]]])
+    else:
+        raise ValueError(f"no planted block {kind!r}")
+
+
+def list_append_history(n_txns, seed, plant=None, conc=ELLE_CONC):
+    """Op dicts of a list-append test against a serializable store: conc
+    clients each run one txn at a time (the JAX package's list-append
+    generator: ELLE_KEY_COUNT active keys, ELLE_MIN_LEN..ELLE_MAX_LEN
+    micro-ops, a read with probability ELLE_READ_RATIO, else an append of
+    the key's next value, the key retired after ELLE_WRITES_PER_KEY
+    appends); the store applies a txn whole when it completes, so the
+    history is strictly serializable.  With `plant`, every open txn is
+    completed halfway through and a planted block (`elle_plant_block`)
+    is emitted."""
+    rng = random.Random(seed)
+    state: dict = {}
+    active = list(range(ELLE_KEY_COUNT))
+    counters = {k: 0 for k in active}
+    next_key = ELLE_KEY_COUNT
+    ops: list = []
+    inflight: dict = {}
+
+    def emit(p, typ, value):
+        ops.append({"index": len(ops), "process": p, "type": typ,
+                    "f": "txn", "value": value, "time": len(ops)})
+
+    def mop():
+        nonlocal next_key
+        k = rng.choice(active)
+        if rng.random() < ELLE_READ_RATIO:
+            return ["r", k, None]
+        counters[k] += 1
+        v = counters[k]
+        if v >= ELLE_WRITES_PER_KEY:
+            active[active.index(k)] = next_key
+            counters[next_key] = 0
+            next_key += 1
+        return ["append", k, v]
+
+    def complete(p):
+        out = []
+        for f, k, v in inflight.pop(p):
+            if f == "r":
+                out.append(["r", k, list(state.get(k, ()))])
+            else:
+                state.setdefault(k, []).append(v)
+                out.append(["append", k, v])
+        emit(p, "ok", out)
+
+    started = 0
+    planted = plant is None
+    while started < n_txns or inflight:
+        if not planted and started >= n_txns // 2:
+            for p in sorted(inflight):
+                complete(p)
+            elle_plant_block(emit, plant)
+            planted = True
+        p = rng.randrange(conc)
+        if p in inflight:
+            complete(p)
+        elif started < n_txns:
+            txn = [mop() for _ in range(rng.randint(ELLE_MIN_LEN,
+                                                    ELLE_MAX_LEN))]
+            inflight[p] = txn
+            emit(p, "invoke", [list(m) for m in txn])
+            started += 1
+    return ops
+
+
+def keyed_list_append(n_keys, n_txns, plant_keys, seed0):
+    """One history over n_keys independent keys: key j a simulated store
+    history (a planted G-single where j is in plant_keys) on its own
+    conc processes, values tagged as independent tuples, the keys' ops
+    merged round-robin."""
+    streams = []
+    for j in range(n_keys):
+        ops = list_append_history(
+            n_txns, seed0 + j, plant="G-single" if j in plant_keys else None)
+        streams.append([dict(d, process=ELLE_CONC * j + d["process"],
+                             value={"__kv__": [j, d["value"]]})
+                        for d in ops])
+    merged = [d for group in itertools.zip_longest(*streams) for d in group
+              if d is not None]
+    return [dict(d, index=i, time=i) for i, d in enumerate(merged)]
+
+
+def elle_stack(n, seed, plant):
+    """The JAX package's Elle bench planes (bench.py:2139-2165): a random
+    DAG of ww and wr edges at 4/n density over a random order, a po
+    chain along it, an rt sample at 1/n, no rw; with `plant`, one
+    backward rw edge, whose only cycles are single-rw: G-single."""
+    rng = np.random.RandomState(seed)
+    st = np.zeros((5, n, n), bool)
+    perm = rng.permutation(n)
+    pos = np.empty(n, int)
+    pos[perm] = np.arange(n)
+    fwd = pos[:, None] < pos[None, :]
+    for p in range(2):
+        st[p] = fwd & (rng.rand(n, n) < 4.0 / n)
+    for a, b in zip(perm, perm[1:]):
+        st[3, a, b] = True
+    st[4] = fwd & (rng.rand(n, n) < 1.0 / n)
+    if plant:
+        a, b = int(perm[n // 3]), int(perm[2 * n // 3])
+        st[2, b, a] = True
+    return st
+
+
+def elle_bench_stacks():
+    """[(n, [stacks])] of ELLE_MAIN, seeded as the bench seeds them
+    (bench.py:2175-2188): a planted G-single in the even ones."""
+    return [(n, [elle_stack(n, 1000 + n + i, plant=i % 2 == 0)
+                 for i in range(b)]) for n, b in ELLE_MAIN]
+
+
+def elle_triple(stack, dev):
+    """(ww, wr, rw, cww, p0, p1): a bench stack's packed planes on dev and
+    its closure's starting triple, order planes included."""
+    from jepsen_tpu_torch.ops import elle_mesh
+    t = elle_mesh._to_device(elle_mesh.pack_planes(stack), dev)
+    ww, wr, rw, od = t[0], t[1], t[2], t[3] | t[4]
+    eye = elle_mesh._eye(t.shape[1], dev)
+    return ww, wr, rw, ww | od, ww | wr | od | eye, rw.clone()
+
+
+def random_packed(n_pad, n, dens, gen, dev):
+    from jepsen_tpu_torch.ops import elle_kernel
+    bits = torch.rand((n_pad, n_pad), generator=gen, device=dev) < dens
+    bits[n:] = False
+    bits[:, n:] = False
+    return elle_kernel.pack(bits)
+
+
+def nz_rows(a):
+    return int((a != 0).any(1).sum())
+
+
+def bits_set(a):
+    from jepsen_tpu_torch.ops import elle_kernel
+    return int(elle_kernel.unpack(a).sum())
+
+
+def pmm_bound(jobs_a, planes, n_pad, clock_hz):
+    """(ms, by) of boolean products whose left operands are jobs_a, over
+    `planes` packed planes read or written once: the products' work is
+    the cheaper of the dense form (2 r n_pad^2 int8 operations a
+    product, r its left operand's nonzero rows, over 1,979 TOP/s) and
+    the sparse form (one word OR for each set bit of the left operand
+    and word of a row, over every INT32 lane), and the bound is the
+    larger of that and the packed bytes over 3.35 TB/s."""
+    w = n_pad // 32
+    dense = sum(2.0 * nz_rows(a) * n_pad * n_pad for a in jobs_a)
+    sparse = sum(float(bits_set(a)) * w for a in jobs_a)
+    t_dense = dense / INT8_OPS_PER_S
+    t_sparse = sparse / (N_SM * 64 * clock_hz)
+    t_ops = min(t_dense, t_sparse)
+    t_bytes = planes * n_pad * n_pad / 8 / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            {"int8_ms": t_dense * 1e3, "word_or_ms": t_sparse * 1e3,
+             "bytes_ms": t_bytes * 1e3})
+
+
+def library_round(cww, p0, p1):
+    """The round through the library's product: the operands unpacked to
+    bf16 once (untimed), then a closure that multiplies them with
+    torch.matmul and thresholds (timed)."""
+    from jepsen_tpu_torch.ops import elle_kernel
+    d = [elle_kernel.unpack(x).to(torch.bfloat16) for x in (cww, p0, p1)]
+    q = (d[1] + d[2]).clamp(max=1)
+
+    def run():
+        return ((torch.matmul(d[0], d[0]) > 0.5),
+                (torch.matmul(d[1], d[1]) > 0.5),
+                (torch.matmul(q, d[2]) > 0.5) | (torch.matmul(d[2], q) > 0.5))
+    return run
+
+
+def round_err(got, want):
+    """Largest disagreement between two rounds' outputs: 1 if any bit or
+    the change flag differs, else 0."""
+    same = all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
+    return 0 if same and bool(got[3]) == bool(want[3]) else 1
+
+
+def phase_elle_kernel(kernels, stacks, clock_hz):
+    """elle_pmm against its plain version on the card, bit for bit, the
+    change flag included: random packed operands at ELLE_KERNEL_NPADS and
+    densities 1/n to 0.5 (one product and one round each), and every
+    round of the bench's 10,000-txn closure; then that closure's first
+    and last rounds timed beside the plain version, the library's
+    product and the bound."""
+    from jepsen_tpu_torch.ops import elle_kernel, elle_mesh
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1717)
+    err, cases = 0, 0
+    for n_pad in ELLE_KERNEL_NPADS:
+        n = n_pad - 100 if n_pad > 128 else n_pad
+        for dens in (1.0 / n, 4.0 / n, 0.05, 0.5):
+            a, b, x = (random_packed(n_pad, n, dens, gen, dev)
+                       for _ in range(3))
+            e = int(not torch.equal(elle_kernel.product(a, b, x),
+                                    elle_kernel.product_plain(a, b, x)))
+            e = max(e, round_err(elle_kernel.closure_round(a, b, x),
+                                 elle_kernel.closure_round_plain(a, b, x)))
+            torch.cuda.synchronize()
+            err = max(err, e)
+            cases += 2
+            if e:
+                log(f"[elle-kernel] MISMATCH n_pad={n_pad} density={dens}")
+    log(f"[elle-kernel] {cases} random cases (n_pad {ELLE_KERNEL_NPADS}, "
+        f"densities 1/n, 4/n, 0.05, 0.5; a product and a round each): "
+        f"{'equal bit for bit' if not err else 'DIFFER'}")
+    n, group = stacks[-1]
+    stack = group[0]
+    ww, wr, rw, cww, p0, p1 = elle_triple(stack, dev)
+    n_pad = cww.shape[0]
+    steps = max(1, math.ceil(math.log2(max(n_pad - 1, 2))))
+    triples, rounds, done = [], 0, False
+    while not done and rounds < steps:
+        triples.append((cww, p0, p1))
+        got = elle_kernel.closure_round(cww, p0, p1)
+        want = elle_kernel.closure_round_plain(cww, p0, p1)
+        e = round_err(got, want)
+        err = max(err, e)
+        if e:
+            log(f"[elle-kernel] MISMATCH bench round {rounds + 1}")
+        cww, p0, p1 = got[:3]
+        done = not bool(got[3])
+        rounds += 1
+    log(f"[elle-kernel] bench n={n} (n_pad {n_pad}): {rounds} rounds of "
+        f"{steps}, each equal to the plain version's"
+        f"{'' if not err else ' - DIFFER'}")
+    if err:
+        raise SystemExit("[elle-kernel] elle_pmm disagrees with its plain "
+                         "version")
+    out = {"err": err}
+    for tag, tri in (("first", triples[0]), ("last", triples[-1])):
+        c, a, b = tri
+        q = a | b
+        bound, by, parts = pmm_bound([c, a, q, b], 6, n_pad, clock_hz)
+        ms = launch_ms(lambda: elle_kernel.closure_round(c, a, b), 5)
+        dms = device_ms(lambda: elle_kernel.closure_round(c, a, b), 5)
+        plain = device_ms(lambda: elle_kernel.closure_round_plain(c, a, b),
+                          2)
+        lib = device_ms(library_round(c, a, b), 3)
+        density = [round(float(elle_kernel.unpack(x).float().mean()), 6)
+                   for x in (c, a, b)]
+        log(f"[elle-kernel] bench round {tag} (n_pad {n_pad}, densities "
+            f"cww/p0/p1 {density}): {ms:.4f} ms launch to end, {dms:.4f} ms "
+            f"on the device; plain {plain:.3f} ms; library (4 torch.matmul "
+            f"of bf16 operands, thresholded) {lib:.3f} ms; bound {bound:.4f} "
+            f"ms ({by}; int8 form {parts['int8_ms']:.4f}, word-OR form "
+            f"{parts['word_or_ms']:.4f}, bytes {parts['bytes_ms']:.4f} ms), "
+            f"reached {100 * bound / dms:.2f}% on the device")
+        out[tag] = {"ms": ms, "device_ms": dms, "plain_ms": plain,
+                    "library_ms": lib, "bound_ms": bound, "bound_by": by}
+    k = next((v for name, v in kernels.items()
+              if name.startswith("elle_pmm")), None)
+    log(f"[elle-kernel] elle_pmm_kernel<8>: {k and k['regs']} registers, "
+        f"spill {k and k['spill']} bytes, {k and k['smem']} bytes of static "
+        f"shared memory; phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_elle_main(stacks):
+    """The JAX package's Elle bench rows through both tiers on the card:
+    8 histories of 1,000 txns and 1 of 10,000, a planted G-single in the
+    even ones; the anomalies exactly {G-single} or {}, equal defining
+    edges on both tiers, the 1,000-txn rows equal to the numpy oracle.
+    Returns elle_pmm's launches."""
+    from jepsen_tpu_torch.ops import elle_graph, elle_kernel, elle_mesh
+    t0 = time.perf_counter()
+    elle_graph.classify_batch([elle_stack(100, 1, True)])   # cuBLAS warm-up
+    elle_kernel.LAUNCHES["elle_pmm"] = 0
+    bad = []
+    for n, group in stacks:
+        walls, peaks, rows = {}, {}, {}
+        splits = {}
+        for tier, fn in (("dense", elle_graph.classify_batch),
+                         ("packed", elle_mesh.classify_mesh)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            splits[tier] = {}
+            t = time.perf_counter()
+            rows[tier] = fn(group, stats=splits[tier])
+            torch.cuda.synchronize()
+            walls[tier] = time.perf_counter() - t
+            peaks[tier] = torch.cuda.max_memory_allocated() - base
+        for i, (d, p) in enumerate(zip(rows["dense"], rows["packed"])):
+            want = {"G-single"} if i % 2 == 0 else set()
+            if set(d["anomalies"]) != want or d["anomalies"] != \
+                    p["anomalies"]:
+                bad.append((n, i, d["anomalies"], p["anomalies"]))
+        host_s = None
+        if n <= 1000:
+            t = time.perf_counter()
+            for i, s in enumerate(group):
+                h = elle_graph.classify_host(s)
+                if h["anomalies"] != rows["dense"][i]["anomalies"]:
+                    bad.append((n, i, "host", h["anomalies"]))
+            host_s = (time.perf_counter() - t) / len(group)
+        log(f"[elle-main] n={n} x {len(group)}: dense "
+            f"{walls['dense'] / len(group):.4f} s a history (peak "
+            f"{peaks['dense'] / 2**20:.1f} MiB), packed "
+            f"{walls['packed'] / len(group):.4f} s a history (peak "
+            f"{peaks['packed'] / 2**20:.1f} MiB, rounds "
+            f"{[r['rounds'] for r in rows['packed']]}); numpy oracle "
+            f"{'not run' if host_s is None else f'{host_s:.3f} s a history'}"
+            f"; anomalies {[sorted(r['anomalies']) for r in rows['packed']]}"
+            f"; stage seconds: dense {elle_stages(splits['dense'])}, packed "
+            f"{elle_stages(splits['packed'])}")
+    launches = elle_kernel.LAUNCHES["elle_pmm"]
+    log(f"[elle-main] elle_pmm launches {launches}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad or not launches:
+        raise SystemExit(f"[elle-main] misclassified {bad[:4]}, or elle_pmm "
+                         f"was not launched")
+    return launches
+
+
+def elle_stages(st):
+    return ", ".join(f"{k} {v:.4f}" for k, v in st.items())
+
+
+def witness_ok(v, inf):
+    """Every cycle witness of verdict v is a cycle of inf's planes, each
+    hop on the plane its label names."""
+    for cls in ("G0", "G1c", "G-single", "G2-item"):
+        for w in v["anomalies"].get(cls, ()):
+            steps, labels = w.get("steps"), w.get("edges")
+            if (not steps or steps[0] != steps[-1] or len(steps) < 3
+                    or len(labels) != len(steps) - 1):
+                return False
+            if not all(inf.planes[e][x, y]
+                       for e, x, y in zip(labels, steps, steps[1:])):
+                return False
+    return True
+
+
+def phase_elle_check():
+    """Elle().check on simulated list-append histories at 1,000 txns (the
+    dense tier) and 10,000 (the packed tier): clean and each planted
+    block, verdict, anomaly-types, not, weakest-violated and every
+    witness a real cycle; then independent.batch_checker(Elle()) over
+    ELLE_KEYS keys.  Returns elle_pmm's launches over the checks."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.elle import Elle
+    from jepsen_tpu_torch.elle import infer
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.ops import elle_kernel
+    t0 = time.perf_counter()
+    elle_kernel.LAUNCHES["elle_pmm"] = 0
+    bad = []
+    for n in ELLE_CHECK_SIZES:
+        for plant in (None,) + ELLE_PLANTS:
+            h = History(list_append_history(n, 9000 + n, plant=plant))
+            t = time.perf_counter()
+            v = Elle().check(None, h)
+            wall = time.perf_counter() - t
+            got = (v["valid?"], v["anomaly-types"], v["weakest-violated"],
+                   v["not"])
+            engine = "elle-mesh" if n >= ELLE_MESH_AT else "elle-device"
+            ok = got == ELLE_EXPECT[plant] and v["engine"] == engine
+            if ok and plant in ("G1c", "G-single", "G2-item"):
+                ok = witness_ok(v, infer.infer(h))
+            log(f"[elle-check] n={n} {plant or 'clean'}: {got[0]} "
+                f"{got[1]} weakest {got[2]}, engine {v['engine']}, rounds "
+                f"{v.get('rounds')}; wall {wall:.3f} s; stages "
+                f"{elle_stages(v['stages'])}{'' if ok else ' - WRONG'}")
+            if not ok:
+                bad.append((n, plant))
+    launches = elle_kernel.LAUNCHES["elle_pmm"]
+    h = History(keyed_list_append(ELLE_KEYS, ELLE_KEY_TXNS, ELLE_KEY_PLANTS,
+                                  7000))
+    t = time.perf_counter()
+    out = independent.batch_checker(Elle()).check(None, h)
+    wall = time.perf_counter() - t
+    planted = sorted(ELLE_KEY_PLANTS, key=repr)   # the keys in repr order
+    if (out["valid?"] is not False or out["failures"] != planted
+            or any(out["results"][k]["anomaly-types"] != ["G-single"]
+                   for k in planted)
+            or len(out["results"]) != ELLE_KEYS):
+        bad.append(("batch_checker", out["failures"]))
+    log(f"[elle-check] batch_checker(Elle()) over {ELLE_KEYS} keys of "
+        f"{ELLE_KEY_TXNS} txns ({len(h)} ops): failures {out['failures']} "
+        f"in {wall:.3f} s; elle_pmm launches over the checks {launches}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    if bad or not launches:
+        raise SystemExit(f"[elle-check] wrong verdicts {bad}, or elle_pmm "
+                         f"was not launched")
+    return launches
+
+
 def main() -> int:
     smi, clock_hz = phase_device()
     built = phase_build()
@@ -2938,6 +3437,10 @@ def main() -> int:
     serial_err = phase_serial_kernel(clock_hz)
     serial_launches, serial, serial_first = phase_serial_main(clock_hz)
     phase_serial_crash(clock_hz)
+    elle_stacks = elle_bench_stacks()
+    elle = phase_elle_kernel(built, elle_stacks, clock_hz)
+    phase_elle_main(elle_stacks)
+    elle_launches = phase_elle_check()
     kernels = [{"name": f"wgl_deep_{arm}", "route": "cuda",
                 "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",
                 "replaces": "jepsen_tpu/ops/wgl_deep.py:358",
@@ -3004,6 +3507,14 @@ def main() -> int:
                     "first_walk": {k: serial_first[k] for k in (
                         "F", "ms", "device_ms", "plain_ms", "bound_ms",
                         "bound_by")}})
+    kernels.append({"name": "elle_pmm", "route": "cuda",
+                    "source": "jepsen_tpu_torch/csrc/elle_pmm.cu",
+                    "replaces": "jepsen_tpu/ops/elle_mesh.py:261",
+                    "launches": elle_launches, "max_abs_err": elle["err"],
+                    **{k: elle["last"][k] for k in (
+                        "ms", "device_ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")},
+                    "first_round": dict(elle["first"])})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,12 @@ its crash variants for histories with crashed (:info) calls
 (`ops/crash_kernel.py`, `csrc/wgl_crash.cu`) and the deep-overlap kernel
 at 7..16 (`ops/deep_kernel.py`, `csrc/wgl_deep.cu`); what those refuse
 goes, as in jepsen_tpu, to the serial frontier engine (`ops/wgl.py`,
-`ops/frontier_kernel.py`, `csrc/wgl_frontier.cu`).  The host scan of a
-history is C (`native/histscan.c`, built by the host compiler at first
+`ops/frontier_kernel.py`, `csrc/wgl_frontier.cu`).  Elle
+(`checker/elle.py`) checks the transactional isolation of list-append
+and rw-register histories: inference on the host (`elle/infer.py`), the
+closure on the card, dense (`ops/elle_graph.py`) or bit-packed on the
+kernel `elle_pmm` (`ops/elle_mesh.py`, `ops/elle_kernel.py`,
+`csrc/elle_pmm.cu`).  The host scan of a history is C (`native/histscan.c`, built by the host compiler at first
 use).  Entry points run on the card unless the caller passes
 `device="cpu"`, which runs the kernel's plain PyTorch version."""
 

@@ -12,11 +12,11 @@ Each op is a small record with the fields
   time     relative nanoseconds since test start
   error    optional error payload on non-ok completions
 
-Only what the linearizability path reads is kept here: the op record,
-its constructors, an indexed list, and the history's columnar form
-(`PackedHistory`, built by `pack_history` or journaled op by op by
-`ColumnJournal`), which the native scanners read without touching the
-Op objects.  Persistence (the write-ahead log and its readers) is not
+Only what the linearizability path and Elle's inference read is kept
+here: the op record, its constructors, an indexed list, and the
+history's columnar form (`PackedHistory`, built by `pack_history` or
+journaled op by op by `ColumnJournal`), which the native scanners read
+without touching the Op objects.  Persistence (the write-ahead log and its readers) is not
 part of the checker and is left out."""
 
 from __future__ import annotations
@@ -60,6 +60,18 @@ class Op:
     @property
     def is_invoke(self):
         return self.type == INVOKE
+
+    @property
+    def is_ok(self):
+        return self.type == OK
+
+    @property
+    def is_fail(self):
+        return self.type == FAIL
+
+    @property
+    def is_info(self):
+        return self.type == INFO
 
     def to_dict(self) -> dict:
         v = self.value

@@ -6,9 +6,11 @@ linearizability checking cheap.
 
 `batch_checker(model)` checks every key's subhistory in one
 `ops.wgl_seg.check_many` call: each key one lane of the key kernel
-(`wgl_regs_keys`, several keys a warp) on the card (or the kernels' plain versions on a CPU device the caller
-names).  The key generators are workload code and are not here; the
-host-parallel `IndependentChecker` and the resilient runner behind the
+(`wgl_regs_keys`, several keys a warp) on the card (or the kernels'
+plain versions on a CPU device the caller names).
+`batch_checker(Elle())` checks them through the Elle checker's
+`check_many` (`checker.elle.BatchedElleChecker`).  The key generators
+are workload code and are not here; the host-parallel `IndependentChecker` and the resilient runner behind the
 reference's batch checker (OOM bisection, quarantine, deadlines,
 checkpoints) are ROADMAP P4R, and the failing-window SVG is P6, as in
 `checker.Linearizable`."""
@@ -105,13 +107,19 @@ class BatchedLinearizableChecker(Checker):
 
 
 def batch_checker(model_or_checker, frontier_size: int = 256, mesh=None,
-                  device=None) -> BatchedLinearizableChecker:
-    """The batched independent checker over a model.  Handed a Checker
-    that batches through its own `check_many` (the reference's Elle),
-    it raises Unsupported: those analyses are ROADMAP P7."""
+                  device=None):
+    """The batched independent checker.  Handed a model, every key's
+    subhistory is one lane of `wgl_seg.check_many` on `device`.  Handed
+    a Checker that batches through its own `check_many` (`checker.elle.
+    Elle`), the same key split batches through that checker, which
+    carries its own device (so `device` must be None there), as the
+    reference routes it."""
     if isinstance(model_or_checker, Checker) \
             and callable(getattr(model_or_checker, "check_many", None)):
-        raise Unsupported(f"a batch checker over {model_or_checker!r}: "
-                          f"{planner.ITEM_ANALYSES}")
+        if device is not None:
+            raise ValueError("pass the device to the checker itself, "
+                             "not to batch_checker")
+        from jepsen_tpu_torch.checker.elle import BatchedElleChecker
+        return BatchedElleChecker(model_or_checker)
     return BatchedLinearizableChecker(model_or_checker, frontier_size, mesh,
                                       device=device)

@@ -23,7 +23,11 @@ or none) are found by `_split_crashed`; the scan carries up to
 MAX_CRASHED of them as permanent slots above the normal ones when asked
 (`_fast_scan(max_crashed=...)`), `crash_gate` says whether the segment
 kernel's crash variant takes them, and `_snapshot_deltas` writes their
-segment wire."""
+segment wire.
+
+`plan_elle` picks the Elle checker's tier (dense or bit-packed closure
+on the card, or the numpy oracle when asked), as the reference's
+`plan_elle` heads its chain."""
 
 from __future__ import annotations
 
@@ -948,3 +952,44 @@ def _snapshot_deltas(fk: _FastKey, seg_ends, R: int, I: int):
     return (rho[key_end - 1] + 1, ret_key, rho, rs.astype(np.int64),
             ret_key[ent_ret], row, col, dslot.astype(np.int64),
             duop.astype(np.int64))
+
+
+# -- Elle routing -------------------------------------------------------------
+
+#: The Elle tiers' engine names and what each runs.
+ELLE_WHY = {
+    "elle-mesh": "bit-packed planes, closure rounds on elle_pmm with "
+                 "early exit",
+    "elle-device": "typed-plane closure on the card (dense, torch.matmul)",
+    "elle-host": "host closure oracle (numpy)",
+}
+
+
+def plan_elle(n_max: int, batch: int = 1, *, algorithm: str = "auto",
+              mesh_threshold: int = 8192) -> dict:
+    """The Elle tier for a batch whose largest history has n_max
+    transactions (the reference's `plan_elle`, one tier and no chain):
+    `auto` takes the packed tier at n_max >= mesh_threshold and the
+    dense tier below it; "mesh", "device" and "host" are strict.
+    Returns the start of the dispatch record: engine, why, batch,
+    n_max."""
+    if algorithm == "host":
+        engine, why = "elle-host", "host oracle requested (algorithm='host')"
+    elif algorithm == "mesh":
+        engine, why = "elle-mesh", "packed tier requested (algorithm='mesh')"
+    elif algorithm == "device":
+        engine, why = ("elle-device",
+                       "dense tier requested (algorithm='device')")
+    elif algorithm == "auto":
+        if n_max >= mesh_threshold:
+            engine = "elle-mesh"
+            why = (f"n_max={n_max} >= mesh_threshold={mesh_threshold}: "
+                   f"{ELLE_WHY[engine]}")
+        else:
+            engine = "elle-device"
+            why = (f"n_max={n_max} < mesh_threshold={mesh_threshold}: "
+                   f"{ELLE_WHY[engine]}")
+    else:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    return {"engine": engine, "why": why, "batch": int(batch),
+            "n_max": int(n_max)}

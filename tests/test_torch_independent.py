@@ -4,7 +4,8 @@ on one keyed history fed to both packages as op dicts (values tagged
 {"__kv__": [k, v]}, as the JAX package's `Op.to_dict()` writes them);
 the verdict, the failures and every key's result are the reference's.
 The reference's options that need what the port lacks raise
-Unsupported naming the ROADMAP item."""
+Unsupported naming the ROADMAP item; a Checker with its own
+`check_many` (Elle) batches through it, as in the reference."""
 
 import itertools
 
@@ -145,12 +146,42 @@ def test_refused_options_name_their_roadmap_items():
         independent.batch_checker(m, device="cpu").check(
             None, h, {"checkpoint_dir": "ckpt"})
 
-    class Elle(Checker):
-        def check_many(self, test, histories):
-            return []
 
-    with pytest.raises(Unsupported, match="ROADMAP P7"):
-        independent.batch_checker(Elle())
+def test_batch_checker_routes_a_batching_checker_as_the_reference(
+        monkeypatch):
+    """A Checker with its own check_many (Elle) is no longer refused: the
+    key split batches through it, as the reference's batch_checker does;
+    each key's verdict is the reference's (the dispatch record aside)."""
+    from chip_smoke import keyed_list_append
+
+    from jepsen_tpu.checker import elle as ref_elle
+    from jepsen_tpu.ops import elle_mesh as ref_mesh
+    from jepsen_tpu_torch.checker import elle
+
+    class Batching(Checker):
+        def check_many(self, test, histories, opts=None):
+            return [{"valid?": len(h) % 2 == 0} for h in histories]
+
+    dicts = keyed_list_append(6, 20, (1, 4), 300)
+    rh, h = both(dicts)
+    out = independent.batch_checker(Batching()).check(None, h)
+    assert out["results"] == {k: {"valid?": len(independent.subhistory(
+        k, h)) % 2 == 0} for k in range(6)}
+    devices = ref_mesh._devices
+    monkeypatch.setattr(ref_mesh, "_devices",
+                        lambda d=None, max_devices=None: devices(d, 1))
+    for alg in ("auto", "mesh"):
+        want = ref_ind.batch_checker(ref_elle.Elle(algorithm=alg)).check(
+            None, rh)
+        got = independent.batch_checker(
+            elle.Elle(algorithm=alg, device="cpu")).check(None, h)
+        assert got["failures"] == want["failures"] == [1, 4]
+        assert got["valid?"] is want["valid?"] is False
+        for k, r in got["results"].items():
+            assert {f: v for f, v in r.items()
+                    if f not in ("dispatch", "stages")} == \
+                {f: v for f, v in want["results"][k].items()
+                 if f not in ("dispatch", "stages")}
 
 
 def test_batch_checker_without_a_card_raises(monkeypatch):
