@@ -157,15 +157,24 @@ any failure exits non-zero:
                fallback) and Linearizable (engine wgl): the CPU oracle's
                verdict and witness; one walk timed;
   elle-kernel
-             - elle_pmm (the packed boolean product) against its plain
-               version on the card, bit for bit with the change flag:
-               random packed planes at n_pad 128, 1024 and 10,112 and
-               densities 1/n, 4/n, 0.05 and 0.5 (a product and a closure
-               round each), and every round of the bench's 10,000-txn
-               closure; its first and last rounds timed both ways beside
-               the plain version, the library's product (4 torch.matmul
-               of bf16 operands, thresholded) and the bound; registers
-               and spills from [build];
+             - elle_pmm (the packed boolean product) and its tile count
+               elle_tile_bits against their plain versions on the card,
+               bit for bit with the change flag: random packed planes at
+               n_pad 128, 384, 1024 and 10,112 and densities 1/n, 4/n,
+               0.05 and 0.5; mixed planes at n_pad 384 and 10,112 (row
+               tiles split between sparse and dense, so that one launch
+               takes both forms; a tile at the crossover and one bit
+               above it; all zero; all one), a product and a closure
+               round each, the forms each launch took checked against
+               the rule; every round of the bench's 10,000-txn closure,
+               each timed both ways beside its densities, its row tiles
+               per form, the plain version, the library's product (4
+               torch.matmul of bf16 operands, thresholded) and its bound,
+               and the closure's total; the crossover measured again
+               (a dense round's time a term-tile over gathered rounds'
+               time a set bit); the tile count timed beside its plain
+               version and bound; registers, spills and shared memory of
+               every instantiation from [build];
   elle-main  - the JAX package's Elle bench planes (bench.py:2139-2188):
                8 histories of 1,000 txns and 1 of 10,000, a planted
                G-single in the even ones, through elle_graph.classify_batch
@@ -181,8 +190,8 @@ any failure exits non-zero:
                not, weakest-violated, every witness a cycle of the
                planes, infer_s and classify_s; then
                independent.batch_checker(Elle()) over 64 keys with three
-               planted keys; elle_pmm's launches over the checks are the
-               kernel line's.
+               planted keys; the Elle kernels' launches over the checks
+               are the kernel line's.
 
 Kernel times come two ways, each a field of the JSON kernel line: "ms",
 from an idle card's launch to its end (CUDA events around one call,
@@ -466,7 +475,8 @@ def phase_build():
         entries += [ln for ln in text.splitlines() if "entry function" in ln]
     if not all(any(k.startswith(n) for k in kernels)
                for n in ("wgl_regs_kernel", "wgl_regs_keys", "wgl_warp",
-                         "wgl_crash", "wgl_frontier", "elle_pmm")):
+                         "wgl_crash", "wgl_frontier", "elle_pmm",
+                         "elle_tile_bits")):
         raise SystemExit("[build] ptxas reported no kernel of a source: "
                          + " | ".join(entries))
     log(f"[build] {', '.join(p.name for p in libs.values())} in {dt:.2f} s "
@@ -2975,8 +2985,11 @@ ELLE_CHECK_SIZES = (1000, 10_000)       # auto: dense tier, packed tier
 ELLE_MESH_AT = 8192                     # Elle()'s mesh_threshold
 ELLE_KEYS, ELLE_KEY_TXNS = 64, 100      # the [elle-check] keyed history
 ELLE_KEY_PLANTS = (5, 17, 42)           # its keys with a planted G-single
-ELLE_KERNEL_NPADS = (128, 1024, 10_112)
+ELLE_KERNEL_NPADS = (128, 384, 1024, 10_112)
+ELLE_MIXED_NPADS = (384, 10_112)
+ELLE_CROSS_DENSITIES = (0.002, 0.005, 0.01)   # gathered rounds
 INT8_OPS_PER_S = 1.979e15           # H100 SXM dense int8 tensor cores
+BF16_FLOPS_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 
 
 def elle_expected(plant):
@@ -3150,6 +3163,69 @@ def random_packed(n_pad, n, dens, gen, dev):
     return elle_kernel.pack(bits)
 
 
+def tile_plane(n_pad, dens, gen, dev):
+    """A packed plane whose 128-row tile t has density dens[t % len(dens)]
+    (every column)."""
+    from jepsen_tpu_torch.ops import elle_kernel
+    tile = torch.arange(n_pad, device=dev) // elle_kernel.TILE
+    d = torch.tensor(dens, device=dev)[tile % len(dens)]
+    bits = torch.rand((n_pad, n_pad), generator=gen, device=dev) < d[:, None]
+    return elle_kernel.pack(bits)
+
+
+def exact_plane(n_pad, counts, gen, dev):
+    """A packed plane whose 128-row tile t holds exactly counts[t] set bits
+    at random places (tiles past the list none)."""
+    from jepsen_tpu_torch.ops import elle_kernel
+    tile = elle_kernel.TILE
+    bits = torch.zeros((n_pad, n_pad), dtype=torch.bool, device=dev)
+    for t, k in enumerate(counts):
+        idx = torch.randperm(tile * n_pad, generator=gen, device=dev)[:k]
+        bits[tile * t:tile * (t + 1)].view(-1)[idx] = True
+    return elle_kernel.pack(bits)
+
+
+def gather_max_bits(n_pad, nterms=1):
+    """The most set bits a (job, row tile) of nterms terms may hold and
+    still take the gather form (elle_kernel.GATHER_DENSITY)."""
+    from jepsen_tpu_torch.ops import elle_kernel
+    num, den = elle_kernel.GATHER_DENSITY
+    return nterms * elle_kernel.TILE * n_pad * num // den
+
+
+def elle_mixed_cases(n_pad, gen, dev):
+    """[(name, a, b, x, forms)]: planes whose product(a, b) takes both
+    forms in one launch.  "split": a's even row tiles half set, its odd
+    ones almost empty (b the other way round, x at 1%), so the three
+    jobs of a closure round take both forms too; "edge": a's tile 0 holds
+    exactly gather_max_bits (gathered), tile 1 one bit more (dense), the
+    rest none; "zero" and "one": the all-zero and all-one planes; "heavy":
+    two full rows in an almost empty tile 0, a gathered tile whose rows
+    are split among warps.  forms is the form row product(a, b) must take
+    (1 dense, 0 gather)."""
+    from jepsen_tpu_torch.ops import elle_kernel
+    tiles = n_pad // elle_kernel.TILE
+    cap = gather_max_bits(n_pad)
+    zero = torch.zeros((n_pad, n_pad // 32), dtype=torch.int32, device=dev)
+    one = torch.full_like(zero, -1)
+    split = [1 - t % 2 for t in range(tiles)]
+    full_rows = zero.clone()
+    full_rows[[0, 5]] = -1
+    edge = [0, 1] + [0] * (tiles - 2)
+    return [
+        ("split", tile_plane(n_pad, (0.5, 1e-4), gen, dev),
+         tile_plane(n_pad, (1e-4, 0.5), gen, dev),
+         tile_plane(n_pad, (0.01,), gen, dev), split),
+        ("edge", exact_plane(n_pad, (cap, cap + 1), gen, dev),
+         random_packed(n_pad, n_pad, 0.05, gen, dev),
+         random_packed(n_pad, n_pad, 0.01, gen, dev), edge),
+        ("zero", zero, zero, zero, [0] * tiles),
+        ("one", one, one, zero, [1] * tiles),
+        ("heavy", tile_plane(n_pad, (1e-4,), gen, dev) | full_rows,
+         random_packed(n_pad, n_pad, 0.05, gen, dev),
+         random_packed(n_pad, n_pad, 0.01, gen, dev), [0] * tiles)]
+
+
 def nz_rows(a):
     return int((a != 0).any(1).sum())
 
@@ -3202,15 +3278,67 @@ def round_err(got, want):
     return 0 if same and bool(got[3]) == bool(want[3]) else 1
 
 
+def elle_case_err(a, b, x):
+    """1 if product(a, b), product(a, b, x), closure_round(a, b, x) or
+    the tile counts of their launches differ from the plain versions', or
+    if a launch's forms differ from the rule on its counts; else 0."""
+    from jepsen_tpu_torch.ops import elle_kernel as ek
+    n_pad = a.shape[0]
+    e = int(not torch.equal(ek.product(a, b), ek.product_plain(a, b)))
+    e |= int(not launch_forms_ok([[(a, None)]], n_pad))
+    e |= int(not torch.equal(ek.product(a, b, x), ek.product_plain(a, b, x)))
+    e |= round_err(ek.closure_round(a, b, x), ek.closure_round_plain(a, b, x))
+    e |= int(not launch_forms_ok(round_terms(a, b, x), n_pad))
+    return e
+
+
+def round_terms(cww, p0, p1):
+    """A closure round's left operands (a0, a1), a list a job."""
+    return [[(cww, None)], [(p0, None)], [(p0, p1), (p1, None)]]
+
+
+def launch_operands(terms):
+    """The distinct left operands of jobs' terms (a list a job) in the
+    wrapper's order, and each job's operand indices."""
+    from jepsen_tpu_torch.ops import elle_kernel as ek
+    ops, flat, _ = ek._operands([(None, None, [(a0, a1, None, None)
+                                              for a0, a1 in job])
+                                 for job in terms])
+    it = iter(flat)
+    return ops, [[next(it) for _ in job] for job in terms]
+
+
+def launch_forms_ok(terms, n_pad):
+    """The last launch's tile counts equal tile_bits_plain's, and its forms
+    the rule's on them."""
+    from jepsen_tpu_torch.ops import elle_kernel as ek
+    operands, term_ops = launch_operands(terms)
+    bits = ek.tile_bits_plain(operands)
+    last = ek.LAST_LAUNCH
+    return (torch.equal(last["tile_bits"], bits)
+            and torch.equal(last["forms"],
+                            ek.forms_plain(bits, term_ops, n_pad)))
+
+
+def forms_of_last():
+    """[(dense, gather)] row tiles of each job of the last launch."""
+    from jepsen_tpu_torch.ops import elle_kernel as ek
+    f = ek.LAST_LAUNCH["forms"]
+    return [(int(r.sum()), int(r.numel() - r.sum())) for r in f]
+
+
 def phase_elle_kernel(kernels, stacks, clock_hz):
-    """elle_pmm against its plain version on the card, bit for bit, the
-    change flag included: random packed operands at ELLE_KERNEL_NPADS and
-    densities 1/n to 0.5 (one product and one round each), and every
-    round of the bench's 10,000-txn closure; then that closure's first
-    and last rounds timed beside the plain version, the library's
-    product and the bound."""
-    from jepsen_tpu_torch.ops import elle_kernel, elle_mesh
+    """elle_pmm and elle_tile_bits against their plain versions on the
+    card, bit for bit, the change flag and each launch's forms included:
+    random packed operands at ELLE_KERNEL_NPADS and densities 1/n to 0.5,
+    the mixed cases at ELLE_MIXED_NPADS (one product and one round each),
+    and every round of the bench's 10,000-txn closure; then every round of
+    that closure timed beside the plain version, the library's product and
+    the bound, the crossover measured again, and the tile count timed.
+    Records each launch's forms (elle_kernel.RECORD) while it runs."""
+    from jepsen_tpu_torch.ops import elle_kernel as ek
     t0 = time.perf_counter()
+    ek.RECORD = True
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1717)
@@ -3220,29 +3348,37 @@ def phase_elle_kernel(kernels, stacks, clock_hz):
         for dens in (1.0 / n, 4.0 / n, 0.05, 0.5):
             a, b, x = (random_packed(n_pad, n, dens, gen, dev)
                        for _ in range(3))
-            e = int(not torch.equal(elle_kernel.product(a, b, x),
-                                    elle_kernel.product_plain(a, b, x)))
-            e = max(e, round_err(elle_kernel.closure_round(a, b, x),
-                                 elle_kernel.closure_round_plain(a, b, x)))
+            e = elle_case_err(a, b, x)
             torch.cuda.synchronize()
-            err = max(err, e)
-            cases += 2
+            err, cases = max(err, e), cases + 2
             if e:
                 log(f"[elle-kernel] MISMATCH n_pad={n_pad} density={dens}")
     log(f"[elle-kernel] {cases} random cases (n_pad {ELLE_KERNEL_NPADS}, "
-        f"densities 1/n, 4/n, 0.05, 0.5; a product and a round each): "
-        f"{'equal bit for bit' if not err else 'DIFFER'}")
+        f"densities 1/n, 4/n, 0.05, 0.5; a product and a round each, tile "
+        f"counts and forms): {'equal bit for bit' if not err else 'DIFFER'}")
+    for n_pad in ELLE_MIXED_NPADS:
+        for name, a, b, x, want in elle_mixed_cases(n_pad, gen, dev):
+            ek.product(a, b)
+            got = ek.LAST_LAUNCH["forms"][0].tolist()
+            e = elle_case_err(a, b, x) | int(got != want)
+            rnd = forms_of_last()
+            torch.cuda.synchronize()
+            err = max(err, e)
+            log(f"[elle-kernel] mixed {name} n_pad {n_pad}: product's row "
+                f"tiles dense {sum(got)} / gather {len(got) - sum(got)}"
+                f"{'' if got == want else ' - NOT THE RULE'}; the round's "
+                f"(dense, gather) a job {rnd}: "
+                f"{'equal bit for bit' if not e else 'DIFFER'}")
     n, group = stacks[-1]
-    stack = group[0]
-    ww, wr, rw, cww, p0, p1 = elle_triple(stack, dev)
+    *_, cww, p0, p1 = elle_triple(group[0], dev)
     n_pad = cww.shape[0]
     steps = max(1, math.ceil(math.log2(max(n_pad - 1, 2))))
     triples, rounds, done = [], 0, False
     while not done and rounds < steps:
         triples.append((cww, p0, p1))
-        got = elle_kernel.closure_round(cww, p0, p1)
-        want = elle_kernel.closure_round_plain(cww, p0, p1)
-        e = round_err(got, want)
+        got = ek.closure_round(cww, p0, p1)
+        e = round_err(got, ek.closure_round_plain(cww, p0, p1))
+        e |= int(not launch_forms_ok(round_terms(cww, p0, p1), n_pad))
         err = max(err, e)
         if e:
             log(f"[elle-kernel] MISMATCH bench round {rounds + 1}")
@@ -3250,38 +3386,140 @@ def phase_elle_kernel(kernels, stacks, clock_hz):
         done = not bool(got[3])
         rounds += 1
     log(f"[elle-kernel] bench n={n} (n_pad {n_pad}): {rounds} rounds of "
-        f"{steps}, each equal to the plain version's"
-        f"{'' if not err else ' - DIFFER'}")
+        f"{steps}, each equal to the plain version's, tile counts and "
+        f"forms included{'' if not err else ' - DIFFER'}")
     if err:
         raise SystemExit("[elle-kernel] elle_pmm disagrees with its plain "
                          "version")
-    out = {"err": err}
-    for tag, tri in (("first", triples[0]), ("last", triples[-1])):
-        c, a, b = tri
+    out = {"err": err, "rounds": []}
+    for r, (c, a, b) in enumerate(triples):
         q = a | b
         bound, by, parts = pmm_bound([c, a, q, b], 6, n_pad, clock_hz)
-        ms = launch_ms(lambda: elle_kernel.closure_round(c, a, b), 5)
-        dms = device_ms(lambda: elle_kernel.closure_round(c, a, b), 5)
-        plain = device_ms(lambda: elle_kernel.closure_round_plain(c, a, b),
-                          2)
+        ms = launch_ms(lambda: ek.closure_round(c, a, b), 5)
+        dms = device_ms(lambda: ek.closure_round(c, a, b), 5)
+        forms = forms_of_last()
+        plain = device_ms(lambda: ek.closure_round_plain(c, a, b), 2)
         lib = device_ms(library_round(c, a, b), 3)
-        density = [round(float(elle_kernel.unpack(x).float().mean()), 6)
+        density = [round(float(ek.unpack(x).float().mean()), 6)
                    for x in (c, a, b)]
-        log(f"[elle-kernel] bench round {tag} (n_pad {n_pad}, densities "
-            f"cww/p0/p1 {density}): {ms:.4f} ms launch to end, {dms:.4f} ms "
-            f"on the device; plain {plain:.3f} ms; library (4 torch.matmul "
-            f"of bf16 operands, thresholded) {lib:.3f} ms; bound {bound:.4f} "
-            f"ms ({by}; int8 form {parts['int8_ms']:.4f}, word-OR form "
+        log(f"[elle-kernel] bench round {r + 1} (n_pad {n_pad}, densities "
+            f"cww/p0/p1 {density}; row tiles (dense, gather) a job "
+            f"{forms}): {ms:.4f} ms launch to end, {dms:.4f} ms on the "
+            f"device; plain {plain:.3f} ms; library (4 torch.matmul of bf16 "
+            f"operands, thresholded) {lib:.3f} ms; bound {bound:.4f} ms "
+            f"({by}; int8 form {parts['int8_ms']:.4f}, word-OR form "
             f"{parts['word_or_ms']:.4f}, bytes {parts['bytes_ms']:.4f} ms), "
             f"reached {100 * bound / dms:.2f}% on the device")
-        out[tag] = {"ms": ms, "device_ms": dms, "plain_ms": plain,
-                    "library_ms": lib, "bound_ms": bound, "bound_by": by}
-    k = next((v for name, v in kernels.items()
-              if name.startswith("elle_pmm")), None)
-    log(f"[elle-kernel] elle_pmm_kernel<8>: {k and k['regs']} registers, "
-        f"spill {k and k['spill']} bytes, {k and k['smem']} bytes of static "
-        f"shared memory; phase {time.perf_counter() - t0:.1f} s")
+        out["rounds"].append({"ms": ms, "device_ms": dms, "plain_ms": plain,
+                              "library_ms": lib, "bound_ms": bound,
+                              "bound_by": by, "forms": forms,
+                              "densities": density})
+    out["first"], out["last"] = out["rounds"][0], out["rounds"][-1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    c, a, b = triples[0]
+    rounds_again, done = 0, False
+    while not done and rounds_again < steps:    # as elle_mesh.closure
+        c, a, b, changed = ek.closure_round(c, a, b)
+        done = not bool(changed)
+        rounds_again += 1
+    wall = time.perf_counter() - t
+    tot = {k: sum(r[k] for r in out["rounds"])
+           for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                     "bound_ms")}
+    out["closure"] = dict(tot, wall_s=wall, rounds=rounds_again)
+    log(f"[elle-kernel] the closure's {rounds} rounds: kernels "
+        f"{tot['device_ms']:.4f} ms on the device, {tot['ms']:.4f} ms launch "
+        f"to end (summed); the rounds as elle_mesh.closure runs them (a "
+        f"change flag read each) {wall:.4f} s on the host clock "
+        f"({rounds_again} rounds); bounds "
+        f"{tot['bound_ms']:.4f} ms; plain {tot['plain_ms']:.1f} ms; library "
+        f"{tot['library_ms']:.3f} ms")
+    out["crossover"] = elle_crossover(gen, dev)
+    out["tile_bits"] = elle_tile_bits_timing(triples[-1], n_pad)
+    for name, v in kernels.items():
+        if name.startswith(("elle_pmm", "elle_tile_bits")):
+            dyn = (ek.dynamic_smem(n_pad) if name.startswith("elle_pmm")
+                   else 0)
+            log(f"[elle-kernel] {name}: {v['regs']} registers, spill "
+                f"{v['spill']} bytes, {v['smem']} bytes of static shared "
+                f"memory, {dyn} bytes of dynamic shared memory at n_pad "
+                f"{n_pad}")
+    ek.RECORD = False
+    log(f"[elle-kernel] phase {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def elle_crossover(gen, dev):
+    """The forms' crossover measured on the card at n_pad 10,112: a round
+    of half-set random planes (every tile dense) over its term-tiles, and
+    rounds of sparse ones (every tile gathered) fitted to a time a set
+    bit; the density where a gathered tile costs a dense one."""
+    from jepsen_tpu_torch.ops import elle_kernel as ek
+    n_pad = ELLE_KERNEL_NPADS[-1]
+    tiles = n_pad // ek.TILE
+    planes = [random_packed(n_pad, n_pad, 0.45, gen, dev) for _ in range(3)]
+    dms = device_ms(lambda: ek.closure_round(*planes), 5)
+    dense = forms_of_last()
+    term_tiles = sum(d * t for (d, _), t in zip(dense, (1, 1, 2)))
+    per_tile = dms / term_tiles
+    pts = []
+    for d in ELLE_CROSS_DENSITIES:
+        c, a, b = (random_packed(n_pad, n_pad, d, gen, dev) for _ in range(3))
+        bits = int(ek.tile_bits_plain(
+            launch_operands(round_terms(c, a, b))[0])[..., 0].sum())
+        pts.append((bits, device_ms(lambda: ek.closure_round(c, a, b), 5),
+                    forms_of_last()))
+    x = np.array([p[0] for p in pts], float)
+    y = np.array([p[1] for p in pts], float)
+    per_bit = float(np.polyfit(x, y, 1)[0])
+    density = per_tile / per_bit / (ek.TILE * n_pad)
+    num, den = ek.GATHER_DENSITY
+    log(f"[elle-kernel] crossover at n_pad {n_pad}: a dense round "
+        f"{dms:.4f} ms over {term_tiles} term-tiles ({dense}) = "
+        f"{1e3 * per_tile:.3f} us a term-tile; gathered rounds "
+        + ", ".join(f"{b} bits {t:.4f} ms {f}" for b, t, f in pts)
+        + f": {1e6 * per_bit:.4f} ns a set bit; crossover density "
+        f"{100 * density:.2f}% (the source's {num}/{den} = "
+        f"{100 * num / den:.2f}%)")
+    return {"us_per_term_tile": 1e3 * per_tile, "ns_per_bit": 1e6 * per_bit,
+            "density": density}
+
+
+def elle_tile_bits_timing(triple, n_pad):
+    """elle_tile_bits as a round launches it (the counts of its four left
+    operands, q = p0 | p1 read as two planes, and the transposes of its
+    three right planes) against its plain version, timed both ways beside
+    it and its bound (each distinct plane read once, each transpose and the
+    counts written once, over 3.35 TB/s; the kernel's re-reads of p0 and
+    p1, as operands and as the planes it transposes, are its own cost)."""
+    from jepsen_tpu_torch.ops import elle_kernel as ek
+    ops = launch_operands(round_terms(*triple))[0]
+    planes = list(triple)
+    counts, tposes = ek.prepare(ops, planes)
+    want = ek.tile_bits_plain(ops)
+    err = int(not torch.equal(counts, want)
+              or not all(torch.equal(t, ek.tpose_plain(p))
+                         for t, p in zip(tposes, planes)))
+    ms = launch_ms(lambda: ek.prepare(ops, planes), 5)
+    dms = device_ms(lambda: ek.prepare(ops, planes), 5)
+    plain = device_ms(lambda: (ek.tile_bits_plain(ops),
+                               [ek.tpose_plain(p) for p in planes]), 2)
+    read = {t.data_ptr() for a0, a1 in ops for t in (a0, a1)
+            if t is not None} | {p.data_ptr() for p in planes}
+    nbytes = (len(read) + len(planes)) * n_pad * n_pad / 8 \
+        + counts.numel() * 4
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    log(f"[elle-kernel] elle_tile_bits as a round launches it ({len(ops)} "
+        f"operands counted, {len(planes)} planes transposed): {ms:.4f} ms "
+        f"launch to end, {dms:.4f} ms on the device; plain {plain:.3f} ms; "
+        f"bound {bound:.4f} ms (bytes), reached {100 * bound / dms:.2f}% on "
+        f"the device{'' if not err else ' - DIFFER'}")
+    if err:
+        raise SystemExit("[elle-kernel] elle_tile_bits disagrees with its "
+                         "plain version")
+    return {"err": err, "ms": ms, "device_ms": dms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
 
 
 def phase_elle_main(stacks):
@@ -3289,24 +3527,37 @@ def phase_elle_main(stacks):
     8 histories of 1,000 txns and 1 of 10,000, a planted G-single in the
     even ones; the anomalies exactly {G-single} or {}, equal defining
     edges on both tiers, the 1,000-txn rows equal to the numpy oracle.
-    Returns elle_pmm's launches."""
+    Returns the Elle kernels' launches."""
     from jepsen_tpu_torch.ops import elle_graph, elle_kernel, elle_mesh
     t0 = time.perf_counter()
     elle_graph.classify_batch([elle_stack(100, 1, True)])   # cuBLAS warm-up
-    elle_kernel.LAUNCHES["elle_pmm"] = 0
+    for k in elle_kernel.LAUNCHES:
+        elle_kernel.LAUNCHES[k] = 0
     bad = []
+    sq = elle_graph._sq
     for n, group in stacks:
         walls, peaks, rows = {}, {}, {}
         splits = {}
+        products = [0, 0.0]           # the dense tier's bf16 products, ops
+
+        def counted(a, b):
+            products[0] += 1
+            products[1] += 2.0 * a[..., 0, 0].numel() * a.shape[-2] * \
+                a.shape[-1] * b.shape[-1]
+            return sq(a, b)
         for tier, fn in (("dense", elle_graph.classify_batch),
                          ("packed", elle_mesh.classify_mesh)):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             splits[tier] = {}
+            elle_graph._sq = counted if tier == "dense" else sq
             t = time.perf_counter()
-            rows[tier] = fn(group, stats=splits[tier])
-            torch.cuda.synchronize()
+            try:
+                rows[tier] = fn(group, stats=splits[tier])
+                torch.cuda.synchronize()
+            finally:
+                elle_graph._sq = sq
             walls[tier] = time.perf_counter() - t
             peaks[tier] = torch.cuda.max_memory_allocated() - base
         for i, (d, p) in enumerate(zip(rows["dense"], rows["packed"])):
@@ -3331,13 +3582,17 @@ def phase_elle_main(stacks):
             f"{'not run' if host_s is None else f'{host_s:.3f} s a history'}"
             f"; anomalies {[sorted(r['anomalies']) for r in rows['packed']]}"
             f"; stage seconds: dense {elle_stages(splits['dense'])}, packed "
-            f"{elle_stages(splits['packed'])}")
-    launches = elle_kernel.LAUNCHES["elle_pmm"]
-    log(f"[elle-main] elle_pmm launches {launches}; phase "
+            f"{elle_stages(splits['packed'])}; the dense tier's "
+            f"{products[0]} bf16 products ({products[1]:.4g} operations; "
+            f"bound {1e3 * products[1] / BF16_FLOPS_PER_S:.4f} ms at 989 "
+            f"TFLOP/s, {1e3 * products[1] / BF16_FLOPS_PER_S / len(group):.4f}"
+            f" ms a history)")
+    launches = dict(elle_kernel.LAUNCHES)
+    log(f"[elle-main] launches {launches}; phase "
         f"{time.perf_counter() - t0:.1f} s")
-    if bad or not launches:
-        raise SystemExit(f"[elle-main] misclassified {bad[:4]}, or elle_pmm "
-                         f"was not launched")
+    if bad or not all(launches.values()):
+        raise SystemExit(f"[elle-main] misclassified {bad[:4]}, or an Elle "
+                         f"kernel was not launched ({launches})")
     return launches
 
 
@@ -3365,14 +3620,15 @@ def phase_elle_check():
     dense tier) and 10,000 (the packed tier): clean and each planted
     block, verdict, anomaly-types, not, weakest-violated and every
     witness a real cycle; then independent.batch_checker(Elle()) over
-    ELLE_KEYS keys.  Returns elle_pmm's launches over the checks."""
+    ELLE_KEYS keys.  Returns the Elle kernels' launches over the checks."""
     from jepsen_tpu_torch import independent
     from jepsen_tpu_torch.checker.elle import Elle
     from jepsen_tpu_torch.elle import infer
     from jepsen_tpu_torch.history import History
     from jepsen_tpu_torch.ops import elle_kernel
     t0 = time.perf_counter()
-    elle_kernel.LAUNCHES["elle_pmm"] = 0
+    for k in elle_kernel.LAUNCHES:
+        elle_kernel.LAUNCHES[k] = 0
     bad = []
     for n in ELLE_CHECK_SIZES:
         for plant in (None,) + ELLE_PLANTS:
@@ -3392,7 +3648,7 @@ def phase_elle_check():
                 f"{elle_stages(v['stages'])}{'' if ok else ' - WRONG'}")
             if not ok:
                 bad.append((n, plant))
-    launches = elle_kernel.LAUNCHES["elle_pmm"]
+    launches = dict(elle_kernel.LAUNCHES)
     h = History(keyed_list_append(ELLE_KEYS, ELLE_KEY_TXNS, ELLE_KEY_PLANTS,
                                   7000))
     t = time.perf_counter()
@@ -3406,11 +3662,11 @@ def phase_elle_check():
         bad.append(("batch_checker", out["failures"]))
     log(f"[elle-check] batch_checker(Elle()) over {ELLE_KEYS} keys of "
         f"{ELLE_KEY_TXNS} txns ({len(h)} ops): failures {out['failures']} "
-        f"in {wall:.3f} s; elle_pmm launches over the checks {launches}; "
+        f"in {wall:.3f} s; launches over the checks {launches}; "
         f"phase {time.perf_counter() - t0:.1f} s")
-    if bad or not launches:
-        raise SystemExit(f"[elle-check] wrong verdicts {bad}, or elle_pmm "
-                         f"was not launched")
+    if bad or not all(launches.values()):
+        raise SystemExit(f"[elle-check] wrong verdicts {bad}, or an Elle "
+                         f"kernel was not launched ({launches})")
     return launches
 
 
@@ -3507,14 +3763,22 @@ def main() -> int:
                     "first_walk": {k: serial_first[k] for k in (
                         "F", "ms", "device_ms", "plain_ms", "bound_ms",
                         "bound_by")}})
+    figures = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
     kernels.append({"name": "elle_pmm", "route": "cuda",
                     "source": "jepsen_tpu_torch/csrc/elle_pmm.cu",
                     "replaces": "jepsen_tpu/ops/elle_mesh.py:261",
-                    "launches": elle_launches, "max_abs_err": elle["err"],
-                    **{k: elle["last"][k] for k in (
-                        "ms", "device_ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")},
-                    "first_round": dict(elle["first"])})
+                    "launches": elle_launches["elle_pmm"],
+                    "max_abs_err": elle["err"],
+                    **{k: elle["last"][k] for k in figures},
+                    "first_round": {k: elle["first"][k] for k in figures},
+                    "closure": elle["closure"]})
+    kernels.append({"name": "elle_tile_bits", "route": "cuda",
+                    "source": "jepsen_tpu_torch/csrc/elle_pmm.cu",
+                    "replaces": "jepsen_tpu/ops/elle_mesh.py:261",
+                    "launches": elle_launches["elle_tile_bits"],
+                    "max_abs_err": elle["tile_bits"]["err"],
+                    **{k: elle["tile_bits"][k] for k in figures}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,13 +13,15 @@ package's bench plane generator (`chip_smoke.elle_stack`)."""
 import itertools
 import math
 import random
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import test_elle as ref_cases
 import torch
-from chip_smoke import (ELLE_PLANTS, elle_expected, elle_stack,
-                        keyed_list_append, list_append_history)
+from chip_smoke import (ELLE_PLANTS, elle_expected, elle_mixed_cases,
+                        elle_stack, keyed_list_append, list_append_history)
 
 from jepsen_tpu import independent as ref_independent
 from jepsen_tpu import lattice as ref_lattice
@@ -406,6 +408,80 @@ def test_closure_round_plain_reaches_the_reference_closure(n):
     _, _, _, changed = elle_kernel.closure_round(cww, p0, p1)
     assert not bool(changed)
     assert 2 <= rounds <= math.ceil(math.log2(n - 1)) + 1
+
+
+def np_tile_bits(words, tile=128):
+    """Set bits of each tile-row band of packed u32 words and the most in
+    one of its rows, by numpy: [tiles, 2]."""
+    pop = np.unpackbits(np.ascontiguousarray(words).view(np.uint8), axis=1)
+    rows = pop.sum(1).reshape(-1, tile)
+    return np.stack([rows.sum(1), rows.max(1)], 1)
+
+
+@pytest.mark.parametrize("n_pad,dens,two", [(128, 0.01, False),
+                                            (384, 0.3, False),
+                                            (384, 0.001, True),
+                                            (1152, 0.05, True)])
+def test_tile_bits_plain_matches_numpy_popcount(n_pad, dens, two):
+    rng = np.random.default_rng(n_pad + int(1000 * dens))
+    a0 = rng.random((n_pad, n_pad)) < dens
+    a1 = rng.random((n_pad, n_pad)) < dens
+    t0, t1 = packed(a0), packed(a1)
+    operands = [(t0, t1 if two else None), (t1, None)]
+    got = elle_kernel.tile_bits_plain(operands)
+    want = np.stack([
+        np_tile_bits(elle_mesh.pack_bits(a0 | a1) if two
+                     else elle_mesh.pack_bits(a0)),
+        np_tile_bits(elle_mesh.pack_bits(a1))])
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(elle_kernel.prepare(operands)[0], got)
+
+
+@pytest.mark.parametrize("n_pad", [128, 384])
+def test_prepare_counts_and_transposes_on_cpu(n_pad):
+    rng = np.random.default_rng(n_pad)
+    dense = [rng.random((n_pad, n_pad)) < d for d in (0.02, 0.3)]
+    t0, t1 = (packed(d) for d in dense)
+    counts, tposes = elle_kernel.prepare([(t0, t1)], [t0, t1])
+    assert torch.equal(counts, elle_kernel.tile_bits_plain([(t0, t1)]))
+    for got, d in zip(tposes, dense):
+        assert np.array_equal(got.numpy().view(np.uint32),
+                              elle_mesh.pack_bits(d.T))
+
+
+@pytest.mark.parametrize("nterms", [1, 2])
+def test_forms_plain_follows_the_crossover(nterms):
+    n_pad = 1024
+    num, den = elle_kernel.GATHER_DENSITY
+    cap = nterms * elle_kernel.TILE * n_pad * num // den
+    per_term = [[cap, cap + 1, 0, cap * den], [0, 0, 0, 0]][:nterms]
+    bits = torch.tensor([[[b, min(b, n_pad)] for b in row]
+                         for row in per_term], dtype=torch.int32)
+    forms = elle_kernel.forms_plain(bits, [list(range(nterms))], n_pad)
+    assert forms.tolist() == [[0, 1, 0, 1]]
+
+
+def test_gather_density_is_the_sources():
+    src = (Path(elle_kernel.__file__).resolve().parent.parent / "csrc"
+           / "elle_pmm.cu").read_text()
+    num = re.search(r"constexpr long long GATHER_NUM = (\d+);", src)
+    den = re.search(r"constexpr long long GATHER_DEN = (\d+);", src)
+    assert (int(num.group(1)), int(den.group(1))) == \
+        elle_kernel.GATHER_DENSITY
+
+
+@pytest.mark.parametrize("case", range(5), ids=["split", "edge", "zero",
+                                                 "one", "heavy"])
+def test_mixed_cases_take_the_forms_they_name(case):
+    gen = torch.Generator()
+    gen.manual_seed(case)
+    name, a, b, x, want = elle_mixed_cases(384, gen,
+                                           torch.device("cpu"))[case]
+    bits = elle_kernel.tile_bits_plain([(a, None)])
+    assert elle_kernel.forms_plain(bits, [[0]], 384)[0].tolist() == want
+    assert torch.equal(elle_kernel.product(a, b, x),
+                       elle_kernel.product_plain(a, b, x))
 
 
 def test_kernel_wrappers_refuse_bad_planes():
