@@ -133,12 +133,18 @@ any failure exits non-zero:
                on the subhistories, and failures names the planted key;
   serial-kernel
              - the serial frontier walk (wgl_frontier) against its plain
-               version on CPU copies, launch by launch from the same
+               version on CPU copies (on the card for the R = 18 walks at
+               F = 8192 and 65536), launch by launch from the same
                entering frontier: the fast path, every pool tier with
-               escalation, overflow at the last size (pools past the
-               shared-memory sort), chunk boundaries, crash groups with
-               dominance at 1, 2 and 4 mask words, a mutex; outputs,
-               frontier words and work= counts equal; one case timed;
+               escalation, overflow at the last size, chunk boundaries,
+               crash groups with dominance at 1, 2 and 4 mask words, a
+               mutex, write bursts at 2, 3 and 5 key words (varying bits
+               in every word, two values, truncations inside runs of
+               equal high digits), pools past one SM on the grid, and the
+               R = 18 history's deciding walk; outputs, frontier words and
+               work= counts equal; each case's rounds by form (shared
+               memory, grid-built, grid-sorted) and CTAs; two cases
+               timed;
   serial-main
              - the JAX package's mixed-depth envelope batch, not cut: three
                histories of 20,000 calls at concurrency 16 and max_open
@@ -148,8 +154,10 @@ any failure exits non-zero:
                the serial engine (wgl_frontier's launches counted); then
                the R = 18 history and a planted twin through
                Linearizable (refuted at the planted read); the R = 18
-               walk at F = 1024 timed beside its plain version and its
-               bound, for the JSON kernel line;
+               walk at F = 1024 and the walk that decides it timed beside
+               their plain versions and their bounds, for the JSON kernel
+               line, with the deciding walk's dedupes by pool size (the
+               plain version's count);
   serial-crash
              - ROADMAP C3's three keys and eight residual keys of the
                [many-crash] shape (fixed seeds, printed), each one that
@@ -487,6 +495,24 @@ def phase_build():
                if k.startswith("wgl_warp") and v["spill"]]
     if spilled:
         raise SystemExit(f"[build] the register plane spills: {spilled}")
+    fk = frontier_kernel
+    shapes = ((64, 4, 1), (1024, 8, 1), (4096, 16, 1), (1024, 32, 1),
+              (8192, 32, 1), (65536, 32, 1), (1024, 64, 2), (512, 128, 4),
+              (64, 16, 4), (1024, 16, 8))
+    lays = {sh: fk.layout(*sh) for sh in shapes}
+    grid = max(v["ctas"] for v in lays.values())
+    log("[build] wgl_frontier: " + " | ".join(
+        f"{k}: {v['regs']} registers, spill {v['spill']} bytes, "
+        f"{v['smem']} bytes static shared memory, "
+        f"{lays[shapes[0]]['smem_bytes']} bytes dynamic"
+        for k, v in kernels.items() if k.startswith("wgl_frontier"))
+        + "; a round's pool sorted in shared memory up to "
+        + " / ".join(str(fk.layout(1, 1, wd)["capacity"]) for wd in (1, 2, 4))
+        + " rows at 2 / 3 / 5 key words; a launch is 1 CTA where F (C + 1) "
+        f"rows fit, else a cooperative grid of {grid} CTAs (one an SM): "
+        + ", ".join(f"F={F} C={C} Wd={Wd} "
+                    f"{'grid' if lays[(F, C, Wd)]['grid'] else '1 CTA'}"
+                    for F, C, Wd in shapes))
     from jepsen_tpu_torch import native
     cc = native.compiler()
     version = subprocess.run([cc, "--version"], capture_output=True,
@@ -2607,10 +2633,12 @@ def serial_inputs(model, h, device, pad=True):
     return model.device_spec(), pl, t, crash, W
 
 
-def serial_walk(inp, F, r0, stop_r, frontier=None, work=None, plain=False):
+def serial_walk(inp, F, r0, stop_r, frontier=None, work=None, plain=False,
+                pools=None):
     """One launch of the walk (the kernel on CUDA inputs, the plain
     version on CPU ones, or with `plain` the plain version on the
-    inputs' device) from `frontier` (default: the initial one)."""
+    inputs' device, its dedupes by pool size into `pools`) from
+    `frontier` (default: the initial one)."""
     from jepsen_tpu_torch.ops import frontier_kernel, wgl
     spec, pl, t, crash, W = inp
     dev = t.f.device
@@ -2621,42 +2649,58 @@ def serial_walk(inp, F, r0, stop_r, frontier=None, work=None, plain=False):
               work=work)
     if plain:
         return frontier_kernel.walk_plain(
-            t, *(x.to(dev) for x in frontier), step=spec.step, **kw)
+            t, *(x.to(dev) for x in frontier), step=spec.step, pools=pools,
+            **kw)
     return frontier_kernel.walk(t, *(x.to(dev) for x in frontier),
                                 spec=spec, **kw)
 
 
-def serial_compare(model, h, F, chunk):
+def serial_compare(model, h, F, chunk, plain_on="cpu"):
     """The whole walk of h at frontier size F in launches of `chunk`
-    events, each launch on the card against the plain version from the
-    same entering frontier (the plain version's).  Returns (max abs
-    difference over the outputs, the frontier words and the work=
-    counts, launches, card seconds, plain seconds, last outputs)."""
+    events, each launch on the card against the plain version (on the
+    host's CPU, or in PyTorch on `plain_on`) from the same entering
+    frontier (the plain version's).  Returns (max abs difference over
+    the outputs, the frontier words and the work= counts, launches,
+    card seconds, plain seconds, last outputs, the rounds by form summed
+    over the launches (frontier_kernel.LAST_LAUNCH), the last launch's
+    CTAs)."""
+    from jepsen_tpu_torch.ops import frontier_kernel
     card = serial_inputs(model, h, DEV)
-    cpu = serial_inputs(model, h, "cpu")
+    cpu = serial_inputs(model, h, plain_on)
     n_events = cpu[1].n_events
     frontier, r, err, launches = None, 0, 0, 0
     t_card = t_plain = 0.0
+    forms, ctas = [0, 0, 0], 0
     while True:
         wc = torch.zeros(3, dtype=torch.int64, device=DEV)
-        wp = torch.zeros(3, dtype=torch.int64)
+        wp = torch.zeros(3, dtype=torch.int64, device=plain_on)
+        frontier_kernel.RECORD = True
+        try:
+            t = time.perf_counter()
+            a = serial_walk(card, F, r, r + chunk, frontier, wc)
+            a["out"].cpu()                              # the walk's end
+            t_card += time.perf_counter() - t
+        finally:
+            frontier_kernel.RECORD = False
+        last = frontier_kernel.LAST_LAUNCH
+        forms = [x + y for x, y in zip(forms, last["forms"].tolist())]
+        ctas = last["ctas"]
         t = time.perf_counter()
-        a = serial_walk(card, F, r, r + chunk, frontier, wc)
-        a["out"].cpu()                                  # the walk's end
-        t_card += time.perf_counter() - t
-        t = time.perf_counter()
-        b = serial_walk(cpu, F, r, r + chunk, frontier, wp)
+        b = serial_walk(cpu, F, r, r + chunk, frontier, wp,
+                        plain=plain_on != "cpu")
+        b["out"].cpu()
         t_plain += time.perf_counter() - t
         launches += 1
         for x, y in ((a["out"], b["out"]), (wc, wp),
                      (a["final_masks"], b["final_masks"]),
                      (a["final_states"], b["final_states"]),
                      (a["final_valid"], b["final_valid"])):
-            d = (x.cpu().to(torch.int64) - y.to(torch.int64)).abs()
+            d = (x.cpu().to(torch.int64) - y.cpu().to(torch.int64)).abs()
             err = max(err, int(d.max()) if d.numel() else 0)
         ok, _, _, _, r = b["out"].tolist()
         if not ok or r >= n_events:
-            return err, launches, t_card, t_plain, b["out"].tolist()
+            return (err, launches, t_card, t_plain, b["out"].tolist(),
+                    forms, ctas)
         frontier = (b["final_masks"], b["final_states"], b["final_valid"])
 
 
@@ -2691,20 +2735,45 @@ def mutex_dicts(seed, n=60, conc=4, bad=0.0, crash=0.3):
     return [dict(d, index=j) for j, d in enumerate(ops)]
 
 
+def write_burst(n, values=2, last_first=False):
+    """n writes invoked together (process p writes p % values) and
+    returned in invoke order (or last first): their slots 0..n-1 fill
+    ceil(n / 32) mask words, the closures overflow every tier, and with
+    few values most pool rows share their state digit.  Every order of
+    writes is valid, but a truncated frontier keeps the rows smallest in
+    word 0, so the walk lasts while those hold the returning slot (the
+    first returns with last_first and more than 32 writes)."""
+    from jepsen_tpu_torch.history import History, invoke_op, ok_op
+    ops = [invoke_op(p, "write", p % values) for p in range(n)]
+    order = reversed(range(n)) if last_first else range(n)
+    ops += [ok_op(p, "write", p % values) for p in order]
+    return History(ops).index()
+
+
 SERIAL_KERNEL_NAMES = ("fast-path", "tiers", "overflow", "chunks",
                        "crash-1-word", "crash-2-words", "crash-4-words",
-                       "crash-8192", "mutex")
+                       "crash-8192", "mutex", "burst-2-words",
+                       "burst-3-words", "burst-5-words", "grid-8192",
+                       "deciding-65536")
+#: Cases whose plain version runs in PyTorch on the card (on a CPU the
+#: walks at F = 8192 and 65536 take minutes).
+SERIAL_PLAIN_ON_CARD = ("grid-8192", "deciding-65536")
 
 
 def serial_kernel_cases():
     """(name, model, history, F, events a launch) of [serial-kernel]
     (SERIAL_KERNEL_NAMES, in order):
     the fast path, every tier with escalation, overflow at the last
-    size (pools past the shared-memory sort), chunk boundaries, crash
-    groups with dominance at 1, 2 and 4 mask words, crash groups in the
-    tier F = 8192 (17 crashed calls and a 10-write burst: the closure
-    passes 512 configs, so it runs past the dominance cap, and
-    overflows at 8192), and a mutex."""
+    size, chunk boundaries, crash groups with dominance at 1, 2 and 4
+    mask words, crash groups in the tier F = 8192 (17 crashed calls and
+    a 10-write burst: the closure passes 512 configs, so it runs past
+    the dominance cap, and overflows at 8192), a mutex; write bursts of
+    24, 40 and 100 writes of two values (2, 3 and 5 key words, varying
+    bits in every word, pools past one SM on the grid; each overflow
+    keeps the rows of smallest word 0, so the truncation falls inside a
+    run of equal high digits); the R = 18 deep history at F = 8192 (an
+    overflow at every size, pools up to 270,336 rows: the grid's sort)
+    and at F = 65536, the walk that decides it."""
     from jepsen_tpu_torch.convert import history_from_dicts
     from jepsen_tpu_torch.history import History, invoke_op, ok_op
     from jepsen_tpu_torch.models import CASRegister, Mutex
@@ -2729,29 +2798,51 @@ def serial_kernel_cases():
         ("crash-8192", cas, history_from_dicts(key_dicts(
             81, n_calls=40, conc=4, burst=10, crash_rate=0.25)), 8192, 20),
         ("mutex", Mutex(), history_from_dicts(mutex_dicts(63)), 64, 9),
+        ("burst-2-words", cas, write_burst(24), 1024, 4096),
+        ("burst-3-words", cas, write_burst(40), 1024, 16),
+        ("burst-5-words", cas, write_burst(100, last_first=True), 512,
+         4096),
+        ("grid-8192", cas, serial_history(983, 1_200, 22, 18), 8192, 4096),
+        ("deciding-65536", cas, serial_history(983, 1_200, 22, 18), 65536,
+         4096),
     ]
 
 
 def phase_serial_kernel(clock_hz):
     """wgl_frontier against its plain version, launch by launch, on
     serial_kernel_cases(): outputs, frontier words and work= counts
-    equal; then the "tiers" case timed.  Returns the largest difference
-    (0)."""
+    equal; each case's rounds by form; both forms of launch and every
+    form of round must appear.  Then the "tiers" and "crash-8192" cases
+    timed.  Returns the largest difference (0)."""
     err = 0
     cases = serial_kernel_cases()
+    seen = [0, 0, 0]
+    one_cta = grid = False
     for name, model, h, F, chunk in cases:
-        e, n, tc, tp, out = serial_compare(model, h, F, chunk)
+        plain_on = DEV if name in SERIAL_PLAIN_ON_CARD else "cpu"
+        e, n, tc, tp, out, forms, ctas = serial_compare(model, h, F, chunk,
+                                                        plain_on)
         wd = serial_inputs(model, h, "cpu")[4]
+        seen = [x + y for x, y in zip(seen, forms)]
+        one_cta |= ctas == 1
+        grid |= ctas > 1
         log(f"[serial-kernel] {name}: {len(h)} ops, F={F}, W={wd}, "
             f"{n} launches of <= {chunk} events, out {out}: card "
-            f"{1e3 * tc:.3f} ms, plain {1e3 * tp:.1f} ms, max abs "
-            f"difference {e} {'OK' if e == 0 else 'WRONG'}")
+            f"{1e3 * tc:.3f} ms, plain ({plain_on}) {1e3 * tp:.1f} ms; "
+            f"{ctas} CTA(s); rounds {forms[0]} in shared memory, "
+            f"{forms[1]} built on the grid and sorted in shared memory, "
+            f"{forms[2]} built and sorted on the grid; max abs difference "
+            f"{e} {'OK' if e == 0 else 'WRONG'}")
         err = max(err, e)
     if err:
         raise SystemExit("[serial-kernel] wgl_frontier disagrees with its "
                          "plain version")
-    name, model, h, F, _ = cases[1]
-    serial_timing(f"serial-kernel] [{name}", model, h, F, clock_hz)
+    if not (one_cta and grid and all(seen)):
+        raise SystemExit(f"[serial-kernel] a form did not run: one CTA "
+                         f"{one_cta}, grid {grid}, rounds by form {seen}")
+    for name, model, h, F, _ in cases:
+        if name in ("tiers", "crash-8192"):
+            serial_timing(f"serial-kernel] [{name}", model, h, F, clock_hz)
     return err
 
 
@@ -2770,10 +2861,13 @@ def serial_bound_ms(work, kw, in_bytes, clock_hz):
         else "bytes", ops
 
 
-def serial_timing(tag, model, h, F, clock_hz, plain_on="cpu"):
+def serial_timing(tag, model, h, F, clock_hz, plain_on="cpu", pools=None):
     """One launch of the whole walk of h at F on the card, from launch to
     end and on the device, beside the plain version (on the host's CPU,
-    or with plain_on=DEV in PyTorch on the card) and the bound."""
+    or with plain_on=DEV in PyTorch on the card; its dedupes by pool
+    size into `pools`) and the bound; the launch's CTAs and rounds by
+    form."""
+    from jepsen_tpu_torch.ops import frontier_kernel
     card = serial_inputs(model, h, DEV)
     plain_in = serial_inputs(model, h, plain_on)
     n = card[1].n_events
@@ -2783,10 +2877,16 @@ def serial_timing(tag, model, h, F, clock_hz, plain_on="cpu"):
     dev_ms = device_ms(lambda: serial_walk(card, F, 0, n), 3)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    plain = serial_walk(plain_in, F, 0, n, plain=True)
+    plain = serial_walk(plain_in, F, 0, n, plain=True, pools=pools)
     plain["out"].cpu()                                  # the walk's end
     plain_ms = 1e3 * (time.perf_counter() - t)
-    got = serial_walk(card, F, 0, n, work=work)
+    frontier_kernel.RECORD = True
+    try:
+        got = serial_walk(card, F, 0, n, work=work)
+    finally:
+        frontier_kernel.RECORD = False
+    forms = frontier_kernel.LAST_LAUNCH["forms"].tolist()
+    ctas = frontier_kernel.LAST_LAUNCH["ctas"]
     w = work.tolist()
     err = max(int((got[k].cpu().to(torch.int64)
                    - plain[k].cpu().to(torch.int64)).abs().max())
@@ -2803,13 +2903,15 @@ def serial_timing(tag, model, h, F, clock_hz, plain_on="cpu"):
         f"{w[0]} expansions, {w[1]} sorted row-levels, {w[2]} dominance "
         f"pairs ({ops} operations, {in_bytes} bytes): bound {bound:.7f} "
         f"ms ({by}), reached {100 * bound / dev_ms:.4f}% on the device; "
-        f"max abs difference {err}")
+        f"{ctas} CTA(s), rounds {forms[0]} in shared memory, {forms[1]} "
+        f"built on the grid, {forms[2]} sorted on the grid; max abs "
+        f"difference {err}")
     if err:
         raise SystemExit(f"[{tag}] wgl_frontier disagrees with its plain "
                          f"version")
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "err": err, "F": F,
-            "work": w}
+            "work": w, "forms": forms, "ctas": ctas}
 
 
 def phase_serial_main(clock_hz):
@@ -2885,8 +2987,19 @@ def phase_serial_main(clock_hz):
                          "are wrong")
     first = serial_timing("serial-main", model, h18, 1024, clock_hz)
     F = r18["frontier_size"]
+    pools = {}
     deciding = serial_timing(f"serial-main] [deciding F={F}", model, h18,
-                             F, clock_hz, plain_on=DEV)
+                             F, clock_hz, plain_on=DEV, pools=pools)
+    levels = sum(b * rows for b, (_, rows) in pools.items())
+    log(f"[serial-main] [deciding F={F}] dedupes by pool size P, "
+        f"2^(b-1) < P <= 2^b (the plain version's count on the card): "
+        + "; ".join(f"b={b}: {n} rounds, {rows} rows"
+                    for b, (n, rows) in sorted(pools.items()))
+        + f"; {sum(n for n, _ in pools.values())} rounds, "
+        f"{sum(rows for _, rows in pools.values())} rows, {levels} sorted "
+        f"row-levels (work= {deciding['work'][1]})")
+    if levels != deciding["work"][1]:
+        raise SystemExit("[serial-main] the pool sizes disagree with work=")
     return launches, deciding, first
 
 
@@ -3760,6 +3873,7 @@ def main() -> int:
                     "bound_ms": serial["bound_ms"],
                     "bound_by": serial["bound_by"], "library_ms": None,
                     "F": serial["F"], "plain_on": "cuda",
+                    "ctas": serial["ctas"], "rounds_by_form": serial["forms"],
                     "first_walk": {k: serial_first[k] for k in (
                         "F", "ms", "device_ms", "plain_ms", "bound_ms",
                         "bound_by")}})

@@ -30,9 +30,12 @@ event r0 <= r < min(n_events, stop_r):
   order, and the slot's bit cleared on every row.
 
 `walk` runs the kernel (`jepsen_tpu_torch/csrc/wgl_frontier.cu`: one
-CTA walks one history; see its note) for CUDA tensors and the plain
-version `walk_plain` (the reference kernel's body step by step on
-`ops.frontier`'s ops) for CPU tensors; there is no other route.  Both
+CTA walks one history, its rounds' pools radix-sorted in shared memory,
+and where a pool can outgrow that the launch is a cooperative grid of
+one CTA an SM that takes the larger rounds; see its note) for CUDA
+tensors and the plain version `walk_plain` (the reference kernel's body
+step by step on `ops.frontier`'s ops) for CPU tensors; there is no
+other route.  Both
 take the frontier (masks int32[F, Wd] holding 32-bit words, states
 int32[F, S], valid bool[F]) and return new tensors with the outputs
 (`out` int32[5]: ok, failed_event, overflow, frontier rows, r).
@@ -44,11 +47,14 @@ receives what the walk needed: the
 included), the sorted row-levels (each dedupe of P valid pool rows
 counts P * ceil(log2 P), the comparisons a comparison sort cannot go
 below) and the dominance pairs (m^2 for each dominance pass over m
-rows).  `LAUNCHES` counts kernel launches."""
+rows).  `LAUNCHES` counts kernel launches; with `RECORD` set,
+`LAST_LAUNCH` holds the last launch's CTAs and the rounds each form
+took."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -58,6 +64,14 @@ from jepsen_tpu_torch.ops import cuda_build, frontier
 
 #: Kernel launches since import (or since a caller reset them to 0).
 LAUNCHES = {"wgl_frontier": 0}
+#: When set, each launch also counts its closure rounds by form into
+#: LAST_LAUNCH; off, it allocates nothing for them.
+RECORD = False
+#: The last launch on the card while RECORD was set: "ctas" (1, or the
+#: grid's CTAs) and "forms" int64[3], the rounds built and sorted in
+#: shared memory, built on the grid and sorted in shared memory, and
+#: built and sorted on the grid.
+LAST_LAUNCH: dict = {}
 
 #: The closure's pool tiers below F (the reference's TIERS).
 TIERS = (64, 512)
@@ -72,7 +86,6 @@ EXPAND_OPS = 4
 CMP_OPS = 2
 DOM_OPS = 3
 _FULL = 0xFFFFFFFF
-
 
 class Tables(NamedTuple):
     """The plan on a device: ret_call / ret_slot int32[Rp], cand_call /
@@ -137,17 +150,27 @@ def _declare(lib):
     lib.wgl_frontier_launch.argtypes = (
         [ptr] * 9 + [i32] * 4 + [ptr] * 3 + [i32] * 2
         + [ptr] * 4 + [i32] * 2 + [ptr, ctypes.c_longlong]
-        + [ptr] * 2 + [ptr])
+        + [ptr] * 4 + [ptr])
     lib.wgl_frontier_launch.restype = i32
+    lib.wgl_frontier_layout.argtypes = [i32, i32, i32, ptr]
+    lib.wgl_frontier_layout.restype = i32
 
 
-def scratch_words(F: int, C: int, Wd: int) -> int:
-    """32-bit words of the kernel's global scratch: three working sets
-    of F rows, the pool of F * (C + 1) rows (rows of Wd + 1 words) and
-    the sort's indices over the pool, padded to a power of two."""
-    kw = Wd + 1
-    pool = F * (C + 1)
-    return 3 * F * kw + pool * kw + (1 << max(pool - 1, 0).bit_length())
+@functools.lru_cache(maxsize=None)
+def layout(F: int, C: int, Wd: int) -> dict:
+    """The kernel's layout of a walk at (F, C, Wd), from the built
+    library: capacity (pool rows a round sorts in shared memory), grid
+    (1 for the grid form: a pool can outgrow that), scratch_words,
+    smem_bytes, buffer_words, ctas (the launch's, on the current
+    device)."""
+    lib = cuda_build.load("wgl_frontier", _declare)
+    out = (ctypes.c_longlong * 6)()
+    err = lib.wgl_frontier_layout(F, C, Wd, ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"no wgl_frontier layout at F={F} C={C} Wd={Wd}: "
+                         f"cudaError {err}")
+    return dict(zip(("capacity", "grid", "scratch_words", "smem_bytes",
+                     "buffer_words", "ctas"), (int(x) for x in out)))
 
 
 def _check(t, name, dtype, dev, shape):
@@ -211,7 +234,8 @@ def walk(t: Tables, masks, states, valid, *, r0: int, n_events: int,
         raise ValueError(f"states must hold one word a row, got {S}")
     fm, fs, fv = masks.clone(), states.clone(), valid.clone()
     out = torch.empty(5, dtype=torch.int32, device=dev)
-    scratch = torch.empty(scratch_words(F, C, Wd), dtype=torch.int32,
+    lay = layout(F, C, Wd)
+    scratch = torch.empty(lay["scratch_words"], dtype=torch.int32,
                           device=dev)
     sizes = None
     if crash is not None:
@@ -219,6 +243,9 @@ def walk(t: Tables, masks, states, valid, *, r0: int, n_events: int,
                              device=dev)
     if work is not None:
         work.zero_()
+    forms = torch.zeros(3, dtype=torch.int64, device=dev) if RECORD \
+        else None
+    ctas = ctypes.c_int(0)
     lib = cuda_build.load("wgl_frontier", _declare)
     err = lib.wgl_frontier_launch(
         t.ret_call.data_ptr(), t.ret_slot.data_ptr(),
@@ -234,11 +261,15 @@ def walk(t: Tables, masks, states, valid, *, r0: int, n_events: int,
         STEPS[spec.device_step],
         scratch.data_ptr(), scratch.numel(), out.data_ptr(),
         None if work is None else work.data_ptr(),
+        None if forms is None else forms.data_ptr(),
+        ctypes.addressof(ctas),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wgl_frontier launch failed: cudaError {err} "
                            f"(F={F} Wd={Wd} C={C})")
     LAUNCHES["wgl_frontier"] += 1
+    if RECORD:
+        LAST_LAUNCH.update(ctas=ctas.value, forms=forms)
     return {"out": out, "final_masks": fm, "final_states": fs,
             "final_valid": fv}
 
@@ -266,10 +297,13 @@ def _as_int32(words: torch.Tensor) -> torch.Tensor:
 
 def walk_plain(t: Tables, masks, states, valid, *, r0: int, n_events: int,
                stop_r: int, step, crash: Optional[Crash] = None,
-               work=None) -> dict:
+               work=None, pools: Optional[dict] = None) -> dict:
     """The walk in plain PyTorch on masks' device, as the reference's
     kernel computes it (`step` is the DeviceSpec's torch transition).
-    Returns what `walk` returns."""
+    Returns what `walk` returns.  `pools`, when given a dict, receives
+    the dedupes' pool sizes by power of two: ceil(log2 P) -> [rounds,
+    rows] (so the sum of b * rows over it is `work`'s sorted
+    row-levels); the entry points never pass it."""
     dev = masks.device
     F, Wd = masks.shape
     S = states.shape[1]
@@ -353,6 +387,10 @@ def walk_plain(t: Tables, masks, states, valid, *, r0: int, n_events: int,
             P = int(pool_v.sum())
             counts[0] += int(expand.sum())
             counts[1] += P * _ceil_log2(P)
+            if pools is not None:
+                b = pools.setdefault(_ceil_log2(P), [0, 0])
+                b[0] += 1
+                b[1] += P
             if crash_mode and crash.sizes:
                 pool_m = torch.where(pool_v[:, None], canonicalize(pool_m),
                                      pool_m)

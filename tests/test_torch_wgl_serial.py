@@ -33,7 +33,7 @@ import random
 import numpy as np
 import pytest
 import torch
-from chip_smoke import mutex_dicts
+from chip_smoke import mutex_dicts, serial_inputs, serial_kernel_cases
 from test_wgl_cpu import H, simulate_register_history
 from torch_keys import key_dicts
 
@@ -408,6 +408,34 @@ def test_dedupe_compact_matches_reference(Wd, out_rows):
 # ---------------------------------------------------------------------------
 # work=, the wrapper, no card
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["fast-path", "tiers", "overflow", "chunks",
+                                  "crash-1-word", "crash-4-words", "mutex",
+                                  "burst-2-words", "burst-5-words"])
+def test_pool_sizes_sum_to_sorted_row_levels(name):
+    # walk_plain's optional count of its dedupes by pool size: each
+    # dedupe of P rows lands in bucket b = ceil(log2 P), so the buckets
+    # sum, b times their rows, to work='s sorted row-levels; the count
+    # changes nothing of the walk
+    _, model, h, F, _ = next(c for c in serial_kernel_cases()
+                             if c[0] == name)
+    spec, pl, t, crash, W = serial_inputs(model, h, "cpu")
+    kw = dict(r0=0, n_events=pl.n_events, stop_r=pl.n_events,
+              step=spec.step, crash=crash)
+    fr = wgl.init_frontier(F, W, 1, pl.init_state)
+    pools, work, bare = {}, torch.zeros(3, dtype=torch.int64), \
+        torch.zeros(3, dtype=torch.int64)
+    got = frontier_kernel.walk_plain(t, *fr, work=work, pools=pools, **kw)
+    want = frontier_kernel.walk_plain(t, *fr, work=bare, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(work, bare)
+    assert pools and sum(b * rows for b, (_, rows) in pools.items()) \
+        == int(work[1])
+    for b, (rounds, rows) in pools.items():
+        lo = 2 ** (b - 1) if b else 0
+        assert rounds >= 1 and rounds * lo < rows <= rounds * 2 ** b
+
 
 def test_work_counts_chunked_equal_one_launch():
     h = port(crash_dicts(741828, 38, 5, 0.15))
