@@ -7,8 +7,8 @@ any failure exits non-zero:
 
   device     - the card, and nvidia-smi's name and power limit;
   build      - one nvcc per source (csrc/wgl_deep.cu, csrc/wgl_regs.cu,
-               csrc/wgl_crash.cu, csrc/wgl_frontier.cu, csrc/elle_pmm.cu),
-               started together, for sm_90a
+               csrc/wgl_crash.cu, csrc/wgl_frontier.cu, csrc/elle_pmm.cu,
+               csrc/fold.cu, csrc/cycle.cu), started together, for sm_90a
                (timed); ptxas registers and
                spill bytes of each kernel instantiation; a spill in the
                deep kernel's warp arm fails; then the native history
@@ -199,7 +199,35 @@ any failure exits non-zero:
                planes, infer_s and classify_s; then
                independent.batch_checker(Elle()) over 64 keys with three
                planted keys; the Elle kernels' launches over the checks
-               are the kernel line's.
+               are the kernel line's;
+  fold       - the JAX package's config 5 at its bench's size
+               (bench.py:1406-1416): set_masks on 1,000,000 adds with
+               every 97th lost (10,310 lost), Set().check on a set
+               history of 1,000,000 adds (lost, unexpected and recovered
+               elements planted) and UniqueIds().check on 1,000,000 acks
+               (repeated ones planted), each equal to device="cpu"'s and
+               to the planted counts, with the seconds of the device call
+               against the host loop; fold_member's launches over them
+               counted; then fold_member against its plain version bit
+               for bit (the three modes, int32 and int64, empty ys and
+               xs) and timed on the bench's fold beside its plain
+               version, torch.searchsorted and its bound;
+  cycle      - config 4: scc of the bench's 2048-node graph with a
+               100-cycle (bench.py:1387-1399; the ring one component on
+               a cycle, everything equal to device="cpu"'s), then
+               TxnCycleChecker().check on simulated rw-register
+               histories of 1,000 and 10,000 txns, clean and with a
+               planted G0 (valid: commit-order versions admit no ww
+               cycle), G1c, G-single, G2 and G1a block: anomaly-types
+               exactly the planted ones, the 1,000-txn results equal to
+               device="cpu"'s, the wall split into scc, the cycle walks
+               and the host loops; elle_tile_bits', elle_pmm's and
+               cycle_labels' launches over them counted; then every
+               closure round (product, change flag, transpose) and
+               cycle_labels against their plain versions on 14 graphs
+               and on the six 10,000-txn checks' DSGs (n_pad 10,112),
+               and cycle_labels timed on the bench graph's closure and
+               the clean 10,000-txn DSG's.
 
 Kernel times come two ways, each a field of the JSON kernel line: "ms",
 from an idle card's launch to its end (CUDA events around one call,
@@ -463,17 +491,19 @@ def phase_device():
 def phase_build():
     """Both kernels' nvcc at once, timed; ptxas registers and spills of
     every instantiation; a warp-arm spill of the deep kernel fails."""
-    from jepsen_tpu_torch.ops import (crash_kernel, cuda_build, deep_kernel,
-                                      elle_kernel, frontier_kernel,
-                                      regs_kernel)
+    from jepsen_tpu_torch.ops import (crash_kernel, cuda_build, cycle,
+                                      deep_kernel, elle_kernel, fold,
+                                      frontier_kernel, regs_kernel)
     t = time.perf_counter()
     libs = cuda_build.build("wgl_deep", "wgl_regs", "wgl_crash",
-                            "wgl_frontier", "elle_pmm")
+                            "wgl_frontier", "elle_pmm", "fold", "cycle")
     deep_kernel._load()
     cuda_build.load("wgl_regs", regs_kernel._declare)
     cuda_build.load("wgl_crash", crash_kernel._declare)
     cuda_build.load("wgl_frontier", frontier_kernel._declare)
     cuda_build.load("elle_pmm", elle_kernel._declare)
+    cuda_build.load("fold", fold._declare)
+    cuda_build.load("cycle", cycle._declare)
     dt = time.perf_counter() - t
     kernels, entries = {}, []
     for lib in libs.values():
@@ -484,7 +514,7 @@ def phase_build():
     if not all(any(k.startswith(n) for k in kernels)
                for n in ("wgl_regs_kernel", "wgl_regs_keys", "wgl_warp",
                          "wgl_crash", "wgl_frontier", "elle_pmm",
-                         "elle_tile_bits")):
+                         "elle_tile_bits", "fold_member", "cycle_labels")):
         raise SystemExit("[build] ptxas reported no kernel of a source: "
                          + " | ".join(entries))
     log(f"[build] {', '.join(p.name for p in libs.values())} in {dt:.2f} s "
@@ -529,12 +559,19 @@ def ptxas_kernels(text):
     """{kernel<template args>: {"regs": n, "spill": store + load bytes,
     "smem": static shared bytes}} from `nvcc -Xptxas -v` output."""
     out, name = {}, None
+    types = {"i": "int", "l": "long", "j": "unsigned", "b": "bool"}
     for ln in text.splitlines():
-        m = re.search(r"entry function '_Z\d+(\w+?)I((?:L[ib]\d+E)+)E",
-                      ln)
+        m = re.search(r"entry function '_Z(\d+)(\w+)'", ln)
         if m:
-            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
-            name = f"{m.group(1)}<{args}>"
+            k = int(m.group(1))
+            name, rest = m.group(2)[:k], m.group(2)[k:]
+            if rest.startswith("I"):     # template arguments, up to E
+                args = []
+                for a in re.finditer(r"L[ib](\d+)E|([ijlb])|(E)", rest[1:]):
+                    if a.group(3):
+                        break
+                    args.append(a.group(1) or types[a.group(2)])
+                name = f"{name}<{','.join(args)}>"
             out[name] = {"regs": None, "spill": 0, "smem": 0}
             continue
         if name is None:
@@ -3783,6 +3820,638 @@ def phase_elle_check():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The commutative checkers (ops/fold.py, kernel fold_member) and the txn
+# cycle checker (ops/cycle.py: elle_pmm's closure, kernel cycle_labels):
+# the JAX package's bench configs 5 and 4 (bench.py:1387-1416)
+# ---------------------------------------------------------------------------
+
+FOLD_N = 1_000_000                  # bench.py:1406-1416: elements of the
+FOLD_LOST_EVERY = 97                # set fold, every 97th lost
+FOLD_CRASH_EVERY = 101              # [fold]'s Set history: adds left :info
+FOLD_UNEXPECTED = 1000              # read elements no add attempted
+FOLD_DUP_EVERY = 1999               # [fold]'s UniqueIds: a repeated ack
+CYCLE_N, CYCLE_SEED, CYCLE_RING = 2048, 11, 100     # bench.py:1387-1399
+CYCLE_CHECK_SIZES = (1000, 10_000)  # txns of [cycle]'s checked histories
+CYCLE_CPU_AT_MOST = 1000            # also checked with device="cpu"
+CYCLE_PLANTS = ("G0", "G1c", "G-single", "G2", "G1a")
+#: anomaly-types of a clean history and of each planted block. The
+#: checker's version order is the commit order of the writes, so no
+#: cycle of ww edges alone can exist: a planted G0 block (the JAX
+#: package's tests/test_cycle.py::test_g0_write_cycle) is valid.
+CYCLE_EXPECT = {None: [], "G0": [], "G1c": ["G1c"],
+                "G-single": ["G-single"], "G2": ["G2"], "G1a": ["G1a"]}
+CYCLE_KERNEL_NS = (100, 300, 1000, 2048)    # random graphs of [cycle]
+
+
+def fold_bench():
+    """(adds, final read) of the bench's set fold: 0..FOLD_N - 1, every
+    FOLD_LOST_EVERY-th missing from the read."""
+    adds = np.arange(FOLD_N, dtype=np.int64)
+    return adds, adds[adds % FOLD_LOST_EVERY != 0]
+
+
+def set_history(n):
+    """A set workload of n adds (process value % 10): each add invoked,
+    then ok'd, or left :info where its value is a multiple of
+    FOLD_CRASH_EVERY; then one read of every value that is not a multiple
+    of FOLD_LOST_EVERY and of FOLD_UNEXPECTED values no add attempted.
+    The History and its expected (lost, unexpected, recovered) counts."""
+    from jepsen_tpu_torch.history import History, Op
+    v = np.arange(n)
+    ok = v % FOLD_CRASH_EVERY != 0
+    read = v % FOLD_LOST_EVERY != 0
+    ops = []
+    for x, done in zip(v.tolist(), ok.tolist()):
+        ops.append(Op(process=x % 10, type="invoke", f="add", value=x))
+        ops.append(Op(process=x % 10, type="ok" if done else "info",
+                      f="add", value=x))
+    final = v[read].tolist() + list(range(n, n + FOLD_UNEXPECTED))
+    ops += [Op(process=10, type="invoke", f="read", value=None),
+            Op(process=10, type="ok", f="read", value=final)]
+    want = (int((ok & ~read).sum()), FOLD_UNEXPECTED, int((~ok & read).sum()))
+    return History(ops).index(), want
+
+
+def ids_history(n):
+    """n generate calls whose acks are distinct, negative and positive,
+    but for every FOLD_DUP_EVERY-th, which repeats the ack before it; the
+    History and its expected duplicated-count."""
+    from jepsen_tpu_torch.history import History, Op
+    ids = np.arange(n, dtype=np.int64) * 7 - 3 * n
+    dup = np.arange(FOLD_DUP_EVERY, n, FOLD_DUP_EVERY)
+    ids[dup] = ids[dup - 1]
+    ops = []
+    for i, x in enumerate(ids.tolist()):
+        ops.append(Op(process=i % 10, type="invoke", f="generate",
+                      value=None))
+        ops.append(Op(process=i % 10, type="ok", f="generate", value=x))
+    return History(ops).index(), len(dup)
+
+
+def fold_kernel_cases(seed):
+    """[(name, kind, arrays)]: fold_member's three modes at the bench's
+    size and at their edges: int32 and int64 values (past int32 and
+    negative), duplicates, an empty ys, an empty xs and both empty."""
+    rng = np.random.default_rng(seed)
+    big = rng.integers(-2 ** 62, 2 ** 62, 50_000)
+    small = rng.integers(-3000, 3000, 40_000)
+    adds, final = fold_bench()
+    return [
+        ("bench", "set", (adds, adds, final)),
+        ("set-int32", "set", (small[:20_000], small[10_000:25_000],
+                              small[5_000:30_000])),
+        ("set-int64", "set", (big[:30_000], big[10_000:40_000],
+                              np.concatenate([big[20_000:],
+                                              big[:100] + 1]))),
+        ("set-no-attempts", "set", (big[:0], big[:0], big[:500])),
+        ("set-no-read", "set", (small[:800], small[:500], small[:0])),
+        ("set-empty", "set", (small[:0], small[:0], small[:0])),
+        ("dups-int32", "dups", (small,)),
+        ("dups-int64", "dups", (np.concatenate([big, big[::7]]),)),
+        ("dups-bench", "dups", (np.concatenate(
+            [adds, adds[::FOLD_DUP_EVERY]]),)),
+        ("dups-empty", "dups", (small[:0],)),
+        ("minus-int32", "minus", (small, small[::3])),
+        ("minus-int64", "minus", (np.concatenate([big[:1000]] * 3),
+                                  big[:1500])),
+        ("minus-no-ys", "minus", (small[:900], small[:0])),
+        ("minus-empty", "minus", (small[:0], small[:10])),
+    ]
+
+
+def fold_calls(kind, arrays, dev):
+    """(kernel call, plain call, inputs, output bytes) of fold_member's
+    wrapper on one case, the inputs prepared as ops.fold prepares them:
+    narrowed together, on dev, ys sorted (xs sorted stably for minus)."""
+    from jepsen_tpu_torch.ops import fold
+    ts = fold._to(fold._narrow(*[fold._i64(a) for a in arrays]), dev)
+    if kind == "set":
+        att, add, read = ts
+        args = (read, add, torch.sort(att).values, torch.sort(read).values,
+                torch.sort(add).values)
+        fns = fold.set_member, fold.set_member_plain
+        out_bytes = 3 * len(read) + len(add)
+    elif kind == "dups":
+        (x,) = ts
+        args = (x, torch.sort(x).values)
+        fns = fold.dup_member, fold.dup_member_plain
+        out_bytes = 9 * len(x)
+    else:
+        x, y = ts
+        s, order = torch.sort(x, stable=True)
+        args = (s, torch.sort(y).values, order)
+        fns = fold.minus_member, fold.minus_member_plain
+        out_bytes = len(x)
+    return (lambda: fns[0](*args)), (lambda: fns[1](*args)), args, out_bytes
+
+
+def outputs_err(got, want):
+    """0 where two tuples of tensors (or two tensors) are equal bit for
+    bit, dtypes included, else 1."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return int(len(got) != len(want) or not all(
+        g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
+        for g, w in zip(got, want)))
+
+
+def searches_library(kind, args):
+    """torch.searchsorted for each search a case's function needs, on the
+    same sorted ys: the library's share of fold_member's work."""
+    if kind == "set":
+        read, add, att_s, read_s, add_s = args
+        return lambda: (torch.searchsorted(att_s, read),
+                        torch.searchsorted(read_s, add),
+                        torch.searchsorted(add_s, read))
+    if kind == "dups":
+        x, xs_s = args
+        return lambda: (torch.searchsorted(xs_s, x),
+                        torch.searchsorted(xs_s, x, side="right"))
+    s, ys_s, _ = args
+    return lambda: (torch.searchsorted(s, s), torch.searchsorted(ys_s, s),
+                    torch.searchsorted(ys_s, s, side="right"))
+
+
+def fold_timing(kind, arrays, dev):
+    """fold_member on one case timed both ways beside its plain version,
+    torch.searchsorted's searches and its bound (the inputs read once and
+    the outputs written once over HBM_BYTES_PER_S)."""
+    kern, plain, args, out_bytes = fold_calls(kind, arrays, dev)
+    in_bytes = sum(a.numel() * a.element_size() for a in args)
+    return {"ms": launch_ms(kern, 5), "device_ms": device_ms(kern, 20),
+            "plain_ms": device_ms(plain, 3),
+            "library_ms": device_ms(searches_library(kind, args), 5),
+            "bound_ms": 1e3 * (in_bytes + out_bytes) / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "bytes": in_bytes + out_bytes,
+            "dtype": str(args[0].dtype).replace("torch.", "")}
+
+
+def timing_line(t):
+    return (f"{t['ms']:.4f} ms launch to end, {t['device_ms']:.4f} ms on "
+            f"the device; plain {t['plain_ms']:.4f} ms; library "
+            + ("none" if t.get("library_ms") is None
+               else f"{t['library_ms']:.4f} ms")
+            + f"; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), reached "
+            f"{100 * t['bound_ms'] / t['device_ms']:.2f}% on the device")
+
+
+def timing_wrap(mod, name, acc):
+    """Wraps mod.name so that each call adds its host seconds to
+    acc[name]; returns the function that puts the original back."""
+    f = getattr(mod, name)
+
+    def wrapped(*a, **k):
+        t = time.perf_counter()
+        try:
+            return f(*a, **k)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t
+    setattr(mod, name, wrapped)
+    return lambda: setattr(mod, name, f)
+
+
+def phase_fold():
+    """The JAX package's config 5 at the bench's size: set_masks on
+    FOLD_N adds with every FOLD_LOST_EVERY-th lost (10,310 lost); then
+    Set().check on a FOLD_N-add set history with lost, unexpected and
+    recovered elements, and UniqueIds().check on FOLD_N acks with
+    repeated ones; each held against the same call with device="cpu" and
+    the planted counts, and fold_member's launches over them counted.
+    Then fold_member against its plain version bit for bit on
+    fold_kernel_cases, and timed on the bench's set fold."""
+    from jepsen_tpu_torch.checker import Set, UniqueIds
+    from jepsen_tpu_torch.ops import fold
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    adds, final = fold_bench()
+    hist, want = set_history(FOLD_N)
+    ids, n_dups = ids_history(FOLD_N)
+    made_s = time.perf_counter() - t0
+    fold.set_masks(adds[:100], adds[:100], final[:100])     # warm-up
+    fold.LAUNCHES["fold_member"] = 0
+    t = time.perf_counter()
+    masks = fold.set_masks(adds, adds, final)
+    bench_s = time.perf_counter() - t
+    acc: dict = {}
+    restore = [timing_wrap(fold, "set_masks", acc),
+               timing_wrap(fold, "duplicate_counts", acc)]
+    try:
+        t = time.perf_counter()
+        got_set = Set().check(None, hist)
+        set_s = time.perf_counter() - t
+        t = time.perf_counter()
+        got_ids = UniqueIds().check(None, ids)
+        ids_s = time.perf_counter() - t
+    finally:
+        for r in restore:
+            r()
+    launches = fold.LAUNCHES["fold_member"]
+    bad = []
+    n_lost = int(masks[2].sum())
+    if n_lost != (FOLD_N - 1) // FOLD_LOST_EVERY + 1:
+        bad.append(("bench lost", n_lost))
+    cpu = fold.set_masks(adds, adds, final, device="cpu")
+    if not all(np.array_equal(a, b) for a, b in zip(masks, cpu)):
+        bad.append("set_masks differs from the CPU's")
+    counts = (got_set.get("lost-count"), got_set.get("unexpected-count"),
+              got_set.get("recovered-count"))
+    if ("error" in got_set or got_set["valid?"] is not False
+            or counts != want
+            or got_set != Set(device="cpu").check(None, hist)):
+        bad.append(("Set", counts, want, got_set.get("error")))
+    if ("error" in got_ids or got_ids["valid?"] is not False
+            or got_ids["duplicated-count"] != n_dups
+            or got_ids != UniqueIds(device="cpu").check(None, ids)):
+        bad.append(("UniqueIds", got_ids.get("duplicated-count"), n_dups,
+                    got_ids.get("error")))
+    log(f"[fold] set_masks on the bench's {FOLD_N} adds: {n_lost} lost in "
+        f"{bench_s:.4f} s; Set().check ({len(hist)} ops; lost, unexpected, "
+        f"recovered {counts}) {set_s:.3f} s, of it set_masks "
+        f"{acc.get('set_masks', 0):.4f} s and the host loop "
+        f"{set_s - acc.get('set_masks', 0):.3f} s; UniqueIds().check "
+        f"({len(ids)} ops, {got_ids['duplicated-count']} duplicated) "
+        f"{ids_s:.3f} s, of it duplicate_counts "
+        f"{acc.get('duplicate_counts', 0):.4f} s; fold_member launches "
+        f"{launches}; histories made in {made_s:.1f} s"
+        + ("" if not bad else f" - WRONG {bad}"))
+    err = 0
+    for name, kind, arrays in fold_kernel_cases(2020):
+        kern, plain, args, _ = fold_calls(kind, arrays, dev)
+        e = outputs_err(kern(), plain())
+        torch.cuda.synchronize()
+        err |= e
+        if e:
+            log(f"[fold] MISMATCH {name}")
+    log(f"[fold] fold_member against its plain version on "
+        f"{len(fold_kernel_cases(2020))} cases (set, dups, minus; int32 and "
+        f"int64, empty ys and xs): "
+        f"{'equal bit for bit' if not err else 'DIFFER'}")
+    timing = {}
+    for name, kind, arrays in (("set", "set", (adds, adds, final)),
+                               ("dups", "dups", (np.concatenate(
+                                   [adds, adds[::FOLD_DUP_EVERY]]),)),
+                               ("minus", "minus", (adds, final))):
+        timing[name] = fold_timing(kind, arrays, dev)
+        log(f"[fold] fold_member {name} ({timing[name]['dtype']}, "
+            f"{timing[name]['bytes']} bytes): {timing_line(timing[name])}")
+    log(f"[fold] launches {launches}; phase {time.perf_counter() - t0:.1f} s")
+    if bad or err or not launches:
+        raise SystemExit(f"[fold] wrong results {bad}, fold_member differs "
+                         f"from its plain version ({err}), or it was not "
+                         f"launched ({launches})")
+    return dict(timing["set"], launches=launches, err=err,
+                dups=timing["dups"], minus=timing["minus"])
+
+
+def bench_graph():
+    """The bench's SCC input (bench.py:1387-1395): 6 n random edges over n
+    = CYCLE_N nodes (random.Random(CYCLE_SEED)) and a CYCLE_RING-cycle on
+    nodes 0..CYCLE_RING - 1."""
+    rng = random.Random(CYCLE_SEED)
+    adj = np.zeros((CYCLE_N, CYCLE_N), bool)
+    for _ in range(6 * CYCLE_N):
+        adj[rng.randrange(CYCLE_N), rng.randrange(CYCLE_N)] = True
+    ring = np.arange(CYCLE_RING)
+    adj[ring, (ring + 1) % CYCLE_RING] = True
+    return adj
+
+
+def cycle_kernel_cases(seed):
+    """[(name, adj)]: the bench graph; random digraphs at CYCLE_KERNEL_NS
+    nodes and mean degree 1 (many small components) or 3; a DAG; one
+    ring through 1500 nodes (its closure takes 12 rounds); the empty and
+    the complete graph; self-loops only."""
+    rng = np.random.default_rng(seed)
+    out = [("bench", bench_graph())]
+    for n in CYCLE_KERNEL_NS:
+        for deg in (1.0, 3.0):
+            out.append((f"random-{n}-{deg:g}", rng.random((n, n)) < deg / n))
+    out.append(("dag-500", np.triu(rng.random((500, 500)) < 0.01, 1)))
+    ring = np.zeros((1500, 1500), bool)
+    perm = rng.permutation(1500)
+    ring[perm, np.roll(perm, 1)] = True
+    out.append(("ring-1500", ring))
+    out.append(("empty-200", np.zeros((200, 200), bool)))
+    out.append(("complete-130", np.ones((130, 130), bool)))
+    out.append(("self-loops-64", np.eye(64, dtype=bool)))
+    return out
+
+
+def dsg_adj(history):
+    """The dependency graph TxnCycleChecker().check hands to the SCC of a
+    history: build_graph over its completed txns, no realtime edges."""
+    from jepsen_tpu_torch.checker import cycle as txn_cycle
+    return txn_cycle.build_graph(txn_cycle.completed_txns(history)).adj
+
+
+def packed_plane(adj, dev):
+    """A bool adjacency packed as ops/cycle.py packs it
+    (elle_mesh.pack_planes), int32 words on dev."""
+    from jepsen_tpu_torch.ops import elle_mesh
+    return elle_mesh._to_device(elle_mesh.pack_planes(adj[None])[0], dev)
+
+
+def labels_bytes(lab):
+    """The bytes cycle_labels' function must move for these labels (int
+    [n_pad], this run's): row i reads the words of both planes up to the
+    one holding its label's bit where the label is below i, else the
+    ceil(i / 32) words of the columns below i (label = min(i, j), so no
+    column at or past i is needed); R+'s diagonal word where those words
+    miss it; 8 bytes a row written."""
+    lab = np.asarray(lab, np.int64)
+    i = np.arange(len(lab))
+    words = np.where(lab < i, (lab >> 5) + 1, (i + 31) >> 5)
+    return int(4 * (2 * words.sum() + ((i >> 5) >= words).sum())
+               + 8 * len(lab))
+
+
+def labels_timing(r, t):
+    """cycle_labels on the closure r and its transpose t, timed both ways
+    beside its plain version; the bound is labels_bytes of its labels over
+    the card's memory rate."""
+    from jepsen_tpu_torch.ops import cycle
+    nbytes = labels_bytes(cycle.labels(r, t)[0].cpu().numpy())
+    return {"ms": launch_ms(lambda: cycle.labels(r, t), 5),
+            "device_ms": device_ms(lambda: cycle.labels(r, t), 20),
+            "plain_ms": device_ms(lambda: cycle.labels_plain(r, t), 3),
+            "library_ms": None, "bytes": nbytes,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
+
+
+def cycle_case_err(adj, dev):
+    """0 where the closure on dev (every round's product, change flag and
+    transpose: elle_kernel.square) and the labels (cycle.labels) equal
+    their plain versions on the same tensors, bit for bit; else 1."""
+    from jepsen_tpu_torch.ops import cycle, elle_kernel
+    r = packed_plane(adj, dev)
+    err = 0
+    while True:
+        got = elle_kernel.square(r)
+        err |= outputs_err(got, elle_kernel.square_plain(r))
+        if not bool(got[1]):
+            break
+        r = got[0]
+    t = got[2]
+    return err | outputs_err(cycle.labels(r, t), cycle.labels_plain(r, t))
+
+
+def rw_register_history(n_txns, seed, plant=None, conc=ELLE_CONC):
+    """Op dicts of an rw-register txn test against a serializable store:
+    conc clients each run one txn at a time of ELLE_MIN_LEN..ELLE_MAX_LEN
+    micro-ops over ELLE_KEY_COUNT active keys, a read with probability
+    ELLE_READ_RATIO, else a write of the key's next value, the key
+    retired after ELLE_WRITES_PER_KEY writes (`list_append_history`'s
+    shape, with writes); the store applies a txn whole when it completes,
+    so the history is serializable in completion order.  With `plant`,
+    every open txn is completed halfway through and a planted block
+    (`cycle_plant_block`) is emitted."""
+    rng = random.Random(seed)
+    state: dict = {}
+    active = list(range(ELLE_KEY_COUNT))
+    counters = {k: 0 for k in active}
+    next_key = ELLE_KEY_COUNT
+    ops: list = []
+    inflight: dict = {}
+
+    def emit(p, typ, value):
+        ops.append({"index": len(ops), "process": p, "type": typ,
+                    "f": "txn", "value": value, "time": len(ops)})
+
+    def mop():
+        nonlocal next_key
+        k = rng.choice(active)
+        if rng.random() < ELLE_READ_RATIO:
+            return ["r", k, None]
+        counters[k] += 1
+        v = counters[k]
+        if v >= ELLE_WRITES_PER_KEY:
+            active[active.index(k)] = next_key
+            counters[next_key] = 0
+            next_key += 1
+        return ["w", k, v]
+
+    def complete(p):
+        local, out = {}, []
+        for f, k, v in inflight.pop(p):
+            if f == "r":
+                out.append(["r", k, local.get(k, state.get(k))])
+            else:
+                local[k] = v
+                out.append(["w", k, v])
+        state.update(local)
+        emit(p, "ok", out)
+
+    started = 0
+    planted = plant is None
+    while started < n_txns or inflight:
+        if not planted and started >= n_txns // 2:
+            for p in sorted(inflight):
+                complete(p)
+            cycle_plant_block(emit, plant)
+            planted = True
+        p = rng.randrange(conc)
+        if p in inflight:
+            complete(p)
+        elif started < n_txns:
+            txn = [mop() for _ in range(rng.randint(ELLE_MIN_LEN,
+                                                    ELLE_MAX_LEN))]
+            inflight[p] = txn
+            emit(p, "invoke", [list(m) for m in txn])
+            started += 1
+    return ops
+
+
+def cycle_plant_block(emit, kind):
+    """One planted anomaly on two fresh keys, emitted while every client
+    is idle: the histories of the JAX package's tests/test_cycle.py
+    (:190-245)."""
+    a, b = ELLE_PLANT_KEY, ELLE_PLANT_KEY + 1
+    if kind == "G0":            # both write both: versioned by commit
+        t0, t1 = [["w", a, 1], ["w", b, 1]], [["w", a, 2], ["w", b, 2]]
+        emit(0, "invoke", t0)
+        emit(1, "invoke", t1)
+        emit(0, "ok", t0)
+        emit(1, "ok", t1)
+    elif kind == "G1c":         # each reads the other's write
+        emit(0, "invoke", [["w", a, 1], ["r", b, None]])
+        emit(1, "invoke", [["w", b, 1], ["r", a, None]])
+        emit(0, "ok", [["w", a, 1], ["r", b, 1]])
+        emit(1, "ok", [["w", b, 1], ["r", a, 1]])
+    elif kind == "G-single":    # read skew: one write seen, one missed
+        t0 = [["w", a, 1], ["w", b, 1]]
+        emit(0, "invoke", t0)
+        emit(0, "ok", t0)
+        emit(1, "invoke", [["r", a, None], ["r", b, None]])
+        emit(1, "ok", [["r", a, None], ["r", b, 1]])
+    elif kind == "G2":          # write skew: each misses the other
+        t0, t1 = [["r", b, None], ["w", a, 1]], [["r", a, None], ["w", b, 1]]
+        emit(0, "invoke", t0)
+        emit(1, "invoke", t1)
+        emit(0, "ok", t0)
+        emit(1, "ok", t1)
+    elif kind == "G1a":         # a read of a value no txn wrote
+        emit(0, "invoke", [["w", a, 1]])
+        emit(0, "ok", [["w", a, 1]])
+        emit(1, "invoke", [["r", a, None]])
+        emit(1, "ok", [["r", a, 99]])
+    else:
+        raise ValueError(f"no planted block {kind!r}")
+
+
+def closure_timing(adj, dev, clock_hz):
+    """Each round of adj's closure (elle_kernel.square: elle_tile_bits and
+    elle_pmm) timed both ways beside its plain version, the library's
+    product (one torch.matmul of the bf16 plane, thresholded; the unpack
+    untimed) and its bound (pmm_bound of one product over 3 planes: the
+    plane read, the result and its transpose written), summed over the
+    rounds."""
+    from jepsen_tpu_torch.ops import elle_kernel as ek
+    r = packed_plane(adj, dev)
+    n_pad = r.shape[0]
+    tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms",
+                         "bound_ms", "ops_bound_ms"), 0.0)
+    rounds = 0
+    while True:
+        x = r
+        d = ek.unpack(x).to(torch.bfloat16)
+        bound, by, parts = pmm_bound([x], 3, n_pad, clock_hz)
+        tot["ms"] += launch_ms(lambda: ek.square(x), 3)
+        tot["device_ms"] += device_ms(lambda: ek.square(x), 5)
+        tot["plain_ms"] += device_ms(lambda: ek.square_plain(x), 2)
+        tot["library_ms"] += device_ms(lambda: torch.matmul(d, d) > 0.5, 3)
+        tot["bound_ms"] += bound
+        tot["ops_bound_ms"] += min(parts["int8_ms"], parts["word_or_ms"])
+        r, changed, _ = ek.square(x)
+        rounds += 1
+        if not bool(changed):
+            break
+    by = ("operations" if tot["ops_bound_ms"] * 2 >= tot["bound_ms"]
+          else "bytes")
+    return dict(tot, rounds=rounds, n_pad=n_pad, bound_by=by)
+
+
+def phase_cycle(clock_hz):
+    """The JAX package's config 4: scc on the bench's graph (the ring's
+    nodes on a cycle and of one label; labels, diagonal and closure equal
+    to device="cpu"'s), then TxnCycleChecker().check on simulated
+    rw-register histories of CYCLE_CHECK_SIZES txns, clean and with each
+    planted block (anomaly-types exactly CYCLE_EXPECT's; at most
+    CYCLE_CPU_AT_MOST txns also equal to device="cpu"'s); the launches of
+    elle_tile_bits, elle_pmm and cycle_labels over them counted.  Then
+    each closure round and cycle_labels against their plain versions on
+    cycle_kernel_cases and on the DSG of every check above
+    CYCLE_CPU_AT_MOST txns, and cycle_labels timed on the bench graph's
+    closure and the largest clean DSG's."""
+    from jepsen_tpu_torch.checker import cycle as txn_cycle
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.ops import cycle, elle_kernel
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    adj = bench_graph()
+    hists = {(n, plant): History(rw_register_history(n, 9500 + n, plant))
+             for n in CYCLE_CHECK_SIZES for plant in (None,) + CYCLE_PLANTS}
+    made_s = time.perf_counter() - t0
+    cycle.scc(np.eye(3, dtype=bool))                         # warm-up
+    for k in elle_kernel.LAUNCHES:
+        elle_kernel.LAUNCHES[k] = 0
+    cycle.LAUNCHES["cycle_labels"] = 0
+    t = time.perf_counter()
+    lab, diag, clo = cycle.scc(adj)
+    scc_s = time.perf_counter() - t
+    results, walls, parts = {}, {}, {}
+    for key, h in hists.items():
+        acc: dict = {}
+        restore = [timing_wrap(cycle, "scc", acc),
+                   timing_wrap(cycle, "cycles_by_component", acc)]
+        try:
+            t = time.perf_counter()
+            results[key] = txn_cycle.TxnCycleChecker().check(None, h)
+            walls[key] = time.perf_counter() - t
+        finally:
+            for r in reversed(restore):
+                r()
+        parts[key] = acc
+    launches = dict(elle_kernel.LAUNCHES, **cycle.LAUNCHES)
+    bad = []
+    ring = slice(0, CYCLE_RING)
+    if not diag[ring].all() or len(set(lab[ring].tolist())) != 1:
+        bad.append("the ring's nodes are not one component on a cycle")
+    want = cycle.scc(adj, device="cpu")
+    if not all(np.array_equal(a, b) for a, b in zip((lab, diag, clo), want)):
+        bad.append("scc differs from the CPU's")
+    r, t_plane, rounds = cycle.closure_planes(adj, dev)
+    log(f"[cycle] scc of the bench's {CYCLE_N}-node graph: {scc_s:.4f} s, "
+        f"{rounds} closure rounds, {int(diag.sum())} nodes on cycles in "
+        f"{len(set(lab[diag].tolist()))} components, the {CYCLE_RING}-ring "
+        f"labelled {sorted(set(lab[ring].tolist()))}; histories made in "
+        f"{made_s:.1f} s")
+    for (n, plant), v in results.items():
+        ok = ("error" not in v and v["anomaly-types"] == CYCLE_EXPECT[plant]
+              and v["valid?"] is (not CYCLE_EXPECT[plant]))
+        if ok and n <= CYCLE_CPU_AT_MOST:
+            ok = v == txn_cycle.TxnCycleChecker(device="cpu").check(
+                None, hists[(n, plant)])
+        p = parts[(n, plant)]
+        log(f"[cycle] TxnCycleChecker n={n} {plant or 'clean'}: "
+            f"{v['valid?']} {v['anomaly-types']}, txns {v['txn-count']}, "
+            f"cycles {v['cycle-count']}; wall {walls[(n, plant)]:.3f} s, "
+            f"of it scc {p.get('scc', 0):.3f} s, the cycle walks "
+            f"{p.get('cycles_by_component', 0) - p.get('scc', 0):.3f} s, "
+            f"the host loops (pairing, G1a, G1b, the graph) "
+            f"{walls[(n, plant)] - p.get('cycles_by_component', 0):.3f} s"
+            + ("" if ok else " - WRONG"))
+        if not ok:
+            bad.append((n, plant))
+    err = 0
+    cases = cycle_kernel_cases(404)
+    dsgs = {f"dsg-{n}-{plant or 'clean'}": dsg_adj(hists[(n, plant)])
+            for (n, plant) in hists if n > CYCLE_CPU_AT_MOST}
+    for name, a in cases + list(dsgs.items()):
+        e = cycle_case_err(a, dev)
+        torch.cuda.synchronize()
+        err |= e
+        if e:
+            log(f"[cycle] MISMATCH {name}")
+    log(f"[cycle] each closure round (elle_tile_bits + elle_pmm: product, "
+        f"change flag, transpose) and cycle_labels against their plain "
+        f"versions on {len(cases)} graphs and the {len(dsgs)} DSGs of the "
+        f"checks above {CYCLE_CPU_AT_MOST} txns (n_pad "
+        f"{sorted({128 * -(-len(a) // 128) for a in dsgs.values()})}"
+        f"): {'equal bit for bit' if not err else 'DIFFER'}")
+    n_pad = r.shape[0]
+    timing = labels_timing(r, t_plane)
+    big = max(CYCLE_CHECK_SIZES)
+    dsg = dsgs[f"dsg-{big}-clean"]
+    r_dsg, t_dsg, rounds_dsg = cycle.closure_planes(dsg, dev)
+    at_dsg = dict(labels_timing(r_dsg, t_dsg), n_pad=r_dsg.shape[0])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cycle.closure_planes(adj, dev)
+    closure_s = time.perf_counter() - t
+    log(f"[cycle] cycle_labels at n_pad {n_pad} (the bench graph's "
+        f"closure, {timing['bytes']} bytes): {timing_line(timing)}; the "
+        f"closure's {rounds} rounds {closure_s:.4f} s on the host clock (a "
+        f"change flag read each)")
+    log(f"[cycle] cycle_labels at n_pad {at_dsg['n_pad']} (the clean "
+        f"{big}-txn DSG's closure, {rounds_dsg} rounds, {at_dsg['bytes']} "
+        f"bytes): {timing_line(at_dsg)}")
+    closures = {"bench": closure_timing(adj, dev, clock_hz),
+                f"dsg-{big}": closure_timing(dsg, dev, clock_hz)}
+    for name, c in closures.items():
+        log(f"[cycle] closure of the {name} graph (n_pad {c['n_pad']}, "
+            f"{c['rounds']} rounds of elle_tile_bits + elle_pmm), summed: "
+            + timing_line(c))
+    log(f"[cycle] launches {launches}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad or err or not all(launches.values()):
+        raise SystemExit(f"[cycle] wrong results {bad}, a kernel differs "
+                         f"from its plain version ({err}), or one was not "
+                         f"launched ({launches})")
+    return dict(timing, launches=launches, err=err, rounds=rounds,
+                n_pad=n_pad, closures=closures, at_dsg=at_dsg)
+
+
 def main() -> int:
     smi, clock_hz = phase_device()
     built = phase_build()
@@ -3810,6 +4479,8 @@ def main() -> int:
     elle = phase_elle_kernel(built, elle_stacks, clock_hz)
     phase_elle_main(elle_stacks)
     elle_launches = phase_elle_check()
+    fold = phase_fold()
+    cyc = phase_cycle(clock_hz)
     kernels = [{"name": f"wgl_deep_{arm}", "route": "cuda",
                 "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",
                 "replaces": "jepsen_tpu/ops/wgl_deep.py:358",
@@ -3882,7 +4553,12 @@ def main() -> int:
     kernels.append({"name": "elle_pmm", "route": "cuda",
                     "source": "jepsen_tpu_torch/csrc/elle_pmm.cu",
                     "replaces": "jepsen_tpu/ops/elle_mesh.py:261",
-                    "launches": elle_launches["elle_pmm"],
+                    "launches": elle_launches["elle_pmm"]
+                    + cyc["launches"]["elle_pmm"],
+                    "launches_by_path": {
+                        "elle-check": elle_launches["elle_pmm"],
+                        "cycle": cyc["launches"]["elle_pmm"]},
+                    "cycle_closures": cyc["closures"],
                     "max_abs_err": elle["err"],
                     **{k: elle["last"][k] for k in figures},
                     "first_round": {k: elle["first"][k] for k in figures},
@@ -3890,9 +4566,28 @@ def main() -> int:
     kernels.append({"name": "elle_tile_bits", "route": "cuda",
                     "source": "jepsen_tpu_torch/csrc/elle_pmm.cu",
                     "replaces": "jepsen_tpu/ops/elle_mesh.py:261",
-                    "launches": elle_launches["elle_tile_bits"],
+                    "launches": elle_launches["elle_tile_bits"]
+                    + cyc["launches"]["elle_tile_bits"],
+                    "launches_by_path": {
+                        "elle-check": elle_launches["elle_tile_bits"],
+                        "cycle": cyc["launches"]["elle_tile_bits"]},
                     "max_abs_err": elle["tile_bits"]["err"],
                     **{k: elle["tile_bits"][k] for k in figures}})
+    kernels.append({"name": "fold_member", "route": "cuda",
+                    "source": "jepsen_tpu_torch/csrc/fold.cu",
+                    "replaces": "jepsen_tpu/ops/fold.py:24",
+                    "launches": fold["launches"], "max_abs_err": fold["err"],
+                    **{k: fold[k] for k in figures},
+                    "dups": {k: fold["dups"][k] for k in figures},
+                    "minus": {k: fold["minus"][k] for k in figures}})
+    kernels.append({"name": "cycle_labels", "route": "cuda",
+                    "source": "jepsen_tpu_torch/csrc/cycle.cu",
+                    "replaces": "jepsen_tpu/ops/cycle.py:64",
+                    "launches": cyc["launches"]["cycle_labels"],
+                    "max_abs_err": cyc["err"],
+                    **{k: cyc[k] for k in figures},
+                    "at_dsg": {k: cyc["at_dsg"][k]
+                               for k in figures + ("n_pad",)}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

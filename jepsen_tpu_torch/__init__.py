@@ -13,8 +13,14 @@ goes, as in jepsen_tpu, to the serial frontier engine (`ops/wgl.py`,
 and rw-register histories: inference on the host (`elle/infer.py`), the
 closure on the card, dense (`ops/elle_graph.py`) or bit-packed on the
 kernel `elle_pmm` (`ops/elle_mesh.py`, `ops/elle_kernel.py`,
-`csrc/elle_pmm.cu`).  The host scan of a history is C (`native/histscan.c`, built by the host compiler at first
-use).  Entry points run on the card unless the caller passes
+`csrc/elle_pmm.cu`).  The txn cycle checker (`checker/cycle.py`) finds
+dependency cycles by SCC (`ops/cycle.py`): the closure on `elle_pmm`,
+the labels on the kernel `cycle_labels` (`csrc/cycle.cu`).  The checker
+library (`checker/__init__.py`: set, set-full, queue, total-queue,
+unique-ids, counter, compose) runs `Set` and `UniqueIds`' set algebra on
+the kernel `fold_member` (`ops/fold.py`, `csrc/fold.cu`) for large
+integer histories.  The host scan of a history is C
+(`native/histscan.c`, built by the host compiler at first use).  Entry points run on the card unless the caller passes
 `device="cpu"`, which runs the kernel's plain PyTorch version."""
 
 from jepsen_tpu_torch.errors import (BackendUnavailable, CheckError,

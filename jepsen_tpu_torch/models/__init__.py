@@ -202,3 +202,122 @@ class Mutex(Model):
                           _mutex_step,
                           decode=lambda s: Mutex(bool(int(s[0]))),
                           device_step="mutex")
+
+
+# ---------------------------------------------------------------------------
+# Host models without a device spec: `Linearizable` refuses them under
+# 'auto' and 'device' (ROADMAP P6); the queue checkers step them
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NoOp(Model):
+    """knossos noop: accepts everything."""
+
+    def step(self, op):
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class UnorderedQueue(Model):
+    """knossos unordered-queue: a multiset; dequeue of an absent element
+    is inconsistent (the queue checker's model)."""
+
+    items: tuple = ()       # the multiset, sorted by repr
+
+    def step(self, op):
+        if op.f == "enqueue":
+            return UnorderedQueue(tuple(sorted(self.items + (op.value,),
+                                               key=repr)))
+        if op.f == "dequeue":
+            if op.value in self.items:
+                items = list(self.items)
+                items.remove(op.value)
+                return UnorderedQueue(tuple(items))
+            return inconsistent(f"can't dequeue {op.value!r}: not present")
+        return inconsistent(f"unknown f {op.f!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FIFOQueue(Model):
+    """knossos fifo-queue."""
+
+    items: tuple = ()
+
+    def step(self, op):
+        if op.f == "enqueue":
+            return FIFOQueue(self.items + (op.value,))
+        if op.f == "dequeue":
+            if not self.items:
+                return inconsistent("can't dequeue an empty queue")
+            if self.items[0] != op.value:
+                return inconsistent(
+                    f"dequeued {op.value!r} but head was {self.items[0]!r}")
+            return FIFOQueue(self.items[1:])
+        return inconsistent(f"unknown f {op.f!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiRegister(Model):
+    """knossos multi-register: txn reads and writes over a few keys; an
+    op's value is a list of [f, k, v] micro-ops."""
+
+    registers: tuple = ()   # (key, value) pairs, sorted by repr
+
+    def as_dict(self):
+        return dict(self.registers)
+
+    def step(self, op):
+        regs = self.as_dict()
+        for mf, k, v in op.value or []:
+            if mf in ("r", "read"):
+                if v is not None and regs.get(k) != v:
+                    return inconsistent(
+                        f"read {v!r} from {k!r} which holds {regs.get(k)!r}")
+            elif mf in ("w", "write"):
+                regs[k] = v
+            else:
+                return inconsistent(f"unknown micro-op {mf!r}")
+        return MultiRegister(tuple(sorted(regs.items(), key=repr)))
+
+
+# ---------------------------------------------------------------------------
+# Registry: names usable from test maps
+# ---------------------------------------------------------------------------
+
+MODELS = {
+    "cas-register": CASRegister,
+    "register": Register,
+    "mutex": Mutex,
+    "noop": NoOp,
+    "unordered-queue": UnorderedQueue,
+    "fifo-queue": FIFOQueue,
+    "multi-register": MultiRegister,
+}
+
+
+def model(name: str, *args, **kw) -> Model:
+    return MODELS[name](*args, **kw)
+
+
+def cas_register(value=None):
+    return CASRegister(value)
+
+
+def register(value=None):
+    return Register(value)
+
+
+def mutex():
+    return Mutex()
+
+
+def noop():
+    return NoOp()
+
+
+def unordered_queue():
+    return UnorderedQueue()
+
+
+def fifo_queue():
+    return FIFOQueue()

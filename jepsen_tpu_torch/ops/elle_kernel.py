@@ -13,7 +13,9 @@ closure (`elle_mesh.py:362-364`):
 
     cww' = cww | cww.cww,  p0' = p0 | p0.p0,  p1' = p1 | q.p1 | p1.q,
 
-with q = p0 | p1, and a flag that says whether any plane changed. On
+with q = p0 | p1, and a flag that says whether any plane changed.
+`square(r)` is one round of a single plane's transitive closure, r |
+r.r, with its flag and r's packed transpose (`ops.cycle`). On
 CUDA tensors each is two launches (`jepsen_tpu_torch/csrc/elle_pmm.cu`):
 `elle_tile_bits` counts the set bits of each 128-row tile of each left
 operand and of its densest row, and writes the packed transposes of the
@@ -157,8 +159,10 @@ def prepare(operands, planes=()):
     return counts, tposes
 
 
-def _launch(jobs, dev, changed=None) -> None:
-    """jobs: [(x or None, out, [(a0, a1 or None, b0, b1 or None), ...])]."""
+def _launch(jobs, dev, changed=None) -> list:
+    """jobs: [(x or None, out, [(a0, a1 or None, b0, b1 or None), ...])].
+    Returns the packed transposes of the distinct right planes, in the
+    order of their first use."""
     n_pad = jobs[0][1].shape[0]
     ops, term_ops, rights = _operands(jobs)
     counts, tposes = prepare(ops, rights)
@@ -194,6 +198,7 @@ def _launch(jobs, dev, changed=None) -> None:
     LAUNCHES["elle_pmm"] += 1
     if RECORD:
         LAST_LAUNCH.update(tile_bits=counts, forms=forms)
+    return tposes
 
 
 def product(a, b, x=None):
@@ -208,6 +213,25 @@ def product(a, b, x=None):
     out = torch.zeros_like(a)
     _launch([(x, out, [(a, None, b, None)])], dev)
     return out
+
+
+def square(r):
+    """One round of a plane's transitive closure, r | r.r (the product
+    x | a.b with a, b and x all r): (r', changed, r's packed transpose),
+    changed a bool scalar tensor on r's device.  When changed is false
+    r' equals r, and the transpose is the closure's.  The plain version
+    for CPU tensors, one count and one product launch for CUDA tensors
+    (or raise)."""
+    dev = r.device
+    _check([r], dev)
+    if dev.type == "cpu":
+        return square_plain(r)
+    if dev.type != "cuda":
+        raise ValueError(f"no elle_pmm kernel for device {dev}")
+    out = torch.zeros_like(r)
+    changed = torch.zeros(1, dtype=torch.int32, device=dev)
+    (t,) = _launch([(r, out, [(r, None, r, None)])], dev, changed)
+    return out, changed[0] != 0, t
 
 
 def closure_round(cww, p0, p1):
@@ -257,6 +281,12 @@ def product_plain(a, b, x=None):
     2^24), threshold, pack."""
     prod = pack(unpack(a).float() @ unpack(b).float() > 0.5)
     return prod if x is None else x | prod
+
+
+def square_plain(r):
+    """`square` in plain PyTorch on r's device."""
+    out = product_plain(r, r, r)
+    return out, (out != r).any(), tpose_plain(r)
 
 
 def closure_round_plain(cww, p0, p1):

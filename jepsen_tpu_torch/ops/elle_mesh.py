@@ -55,7 +55,6 @@ from jepsen_tpu_torch.ops import elle_kernel
 from jepsen_tpu_torch.ops.elle_graph import _add
 
 _TILE = 128
-_BITS32 = np.arange(32, dtype=np.uint32)
 #: Rows of a plane the transpose unpacks at a time.
 _TPOSE_ROWS = 1024
 
@@ -84,22 +83,25 @@ def plane_nbytes(n: int, packed: bool = True) -> int:
 
 def pack_bits(dense) -> np.ndarray:
     """bool [..., n] -> uint32 [..., ceil32(n)] (bit b of word w is
-    column w*32+b)."""
+    column w*32+b): little-endian bit order within little-endian bytes,
+    viewed as words."""
     dense = np.asarray(dense, bool)
     n = dense.shape[-1]
-    w = math.ceil(n / 32)
-    if n % 32:
-        pad = np.zeros(dense.shape[:-1] + (w * 32 - n,), bool)
-        dense = np.concatenate([dense, pad], axis=-1)
-    bits = dense.reshape(dense.shape[:-1] + (w, 32)).astype(np.uint32)
-    return (bits << _BITS32).sum(axis=-1, dtype=np.uint32)
+    out = np.zeros(dense.shape[:-1] + (4 * math.ceil(n / 32),), np.uint8)
+    out[..., :math.ceil(n / 8)] = np.packbits(dense, axis=-1,
+                                              bitorder="little")
+    return out.view("<u4").astype(np.uint32, copy=False)
 
 
 def unpack_bits(packed, n: int) -> np.ndarray:
-    """uint32 [..., W] -> bool [..., n]."""
-    packed = np.asarray(packed, np.uint32)
-    bits = (packed[..., None] >> _BITS32) & np.uint32(1)
-    return bits.reshape(packed.shape[:-1] + (-1,))[..., :n].astype(bool)
+    """uint32 (or int32) [..., W] -> bool [..., n], the inverse of
+    `pack_bits`."""
+    packed = np.asarray(packed)
+    if packed.dtype != np.int32:
+        packed = packed.astype(np.uint32, copy=False)
+    raw = np.ascontiguousarray(packed, packed.dtype.newbyteorder("<"))
+    return np.unpackbits(raw.view(np.uint8), axis=-1, count=n,
+                         bitorder="little").view(bool)
 
 
 def pack_planes(stack, n_pad: Optional[int] = None,

@@ -98,3 +98,54 @@ def test_host_step_matches_reference(cls):
             assert m.msg == rm.msg
             break
         assert repr(m).split("(", 1)[1] == repr(rm).split("(", 1)[1]
+
+
+HOST_MODEL_STEPS = {
+    "noop": [("write", 1), ("anything", None), ("read", 7)],
+    "unordered-queue": [("enqueue", 3), ("enqueue", "a"), ("enqueue", 3),
+                        ("dequeue", 3), ("dequeue", "a"), ("dequeue", 3),
+                        ("dequeue", 3)],
+    "unordered-queue-bad-f": [("enqueue", 1), ("peek", None)],
+    "fifo-queue": [("enqueue", 1), ("enqueue", 2), ("dequeue", 1),
+                   ("dequeue", 2), ("dequeue", 2)],
+    "fifo-queue-wrong-head": [("enqueue", 1), ("enqueue", 2),
+                              ("dequeue", 2)],
+    "multi-register": [("txn", [["w", "x", 1], ["w", "y", 2]]),
+                       ("txn", [["r", "x", 1], ["r", "y", None]]),
+                       ("txn", [["write", "x", 3], ["read", "x", 3]]),
+                       ("txn", None), ("txn", [["r", "y", 5]])],
+    "multi-register-bad-mop": [("txn", [["append", "x", 1]])],
+}
+
+
+@pytest.mark.parametrize("case", sorted(HOST_MODEL_STEPS))
+def test_host_models_step_as_the_reference(case):
+    # the four models without a device spec: each step's model (by its
+    # dataclass fields) or its inconsistency message equals the reference's
+    import dataclasses
+
+    from jepsen_tpu.history import Op as RefOp
+    from jepsen_tpu_torch.history import Op
+    name = next(n for n in models.MODELS if case.startswith(n))
+    m, rm = models.model(name), ref_models.model(name)
+    assert m.device_spec() is None and rm.device_spec() is None
+    assert type(m).__name__ == type(rm).__name__
+    for f, v in HOST_MODEL_STEPS[case]:
+        m, rm = m.step(Op(f=f, value=v)), rm.step(RefOp(f=f, value=v))
+        assert models.is_inconsistent(m) == ref_models.is_inconsistent(rm)
+        if models.is_inconsistent(m):
+            assert m.msg == rm.msg
+            break
+        assert dataclasses.astuple(m) == dataclasses.astuple(rm)
+
+
+def test_model_registry_and_factories_match_reference():
+    assert sorted(models.MODELS) == sorted(ref_models.MODELS)
+    for name in models.MODELS:
+        assert type(models.model(name)).__name__ == \
+            ref_models.MODELS[name].__name__
+    for f in ("cas_register", "register", "mutex", "noop",
+              "unordered_queue", "fifo_queue"):
+        assert type(getattr(models, f)()).__name__ == \
+            type(getattr(ref_models, f)()).__name__
+    assert models.cas_register(3) == models.CASRegister(3)
