@@ -8,7 +8,8 @@ any failure exits non-zero:
   device     - the card, and nvidia-smi's name and power limit;
   build      - one nvcc per source (csrc/wgl_deep.cu, csrc/wgl_regs.cu,
                csrc/wgl_crash.cu, csrc/wgl_frontier.cu, csrc/elle_pmm.cu,
-               csrc/fold.cu, csrc/cycle.cu), started together, for sm_90a
+               csrc/fold.cu, csrc/cycle.cu, csrc/lattice_masks.cu), started
+               together, for sm_90a
                (timed); ptxas registers and
                spill bytes of each kernel instantiation; a spill in the
                deep kernel's warp arm fails; then the native history
@@ -227,7 +228,32 @@ any failure exits non-zero:
                cycle_labels against their plain versions on 14 graphs
                and on the six 10,000-txn checks' DSGs (n_pad 10,112),
                and cycle_labels timed on the bench graph's closure and
-               the clean 10,000-txn DSG's.
+               the clean 10,000-txn DSG's;
+  lattice    - the full-lattice checker on [elle-check]'s simulated
+               list-append store at 1,000 txns (LatticeChecker().check,
+               the dense tier) and 10,000 (check_planes on planes
+               inferred once, the packed tier), clean and with a planted
+               G1c, G-single, G2-item, G1a and read-your-writes block:
+               at 1,000 txns the reference's verdict fields and witness
+               steps (LATTICE_EXPECT, read off the JAX package on the
+               CPU), at 10,000 the same classes and the dense tier's
+               (algorithm="device") anomalies equal to the packed
+               tier's; stage seconds (inference and planes, pack,
+               rounds, transposes, masks, witness) and rounds; then the
+               causal, long-fork and monotonic adapters once each on a
+               planted history (oracle-agrees); elle_tile_bits',
+               elle_pmm's and lattice_masks' launches over the checks
+               counted;
+  lattice-kernel
+             - lattice_masks against masks_plain bit for bit on the six
+               10,000-txn stacks' planes and transposes and on random
+               planes at n_pad 128 and 10,112 (all zero, all one, three
+               densities), timed both ways on the clean stack beside its
+               plain version and its byte bound; the clean stack's
+               closure round by round on the card beside each round's
+               bound, its first and last rounds against
+               lattice_round_plain bit for bit and timed beside it and
+               the library's 9 bf16 products.
 
 Kernel times come two ways, each a field of the JSON kernel line: "ms",
 from an idle card's launch to its end (CUDA events around one call,
@@ -493,10 +519,12 @@ def phase_build():
     every instantiation; a warp-arm spill of the deep kernel fails."""
     from jepsen_tpu_torch.ops import (crash_kernel, cuda_build, cycle,
                                       deep_kernel, elle_kernel, fold,
-                                      frontier_kernel, regs_kernel)
+                                      frontier_kernel, lattice_kernel,
+                                      regs_kernel)
     t = time.perf_counter()
     libs = cuda_build.build("wgl_deep", "wgl_regs", "wgl_crash",
-                            "wgl_frontier", "elle_pmm", "fold", "cycle")
+                            "wgl_frontier", "elle_pmm", "fold", "cycle",
+                            "lattice_masks")
     deep_kernel._load()
     cuda_build.load("wgl_regs", regs_kernel._declare)
     cuda_build.load("wgl_crash", crash_kernel._declare)
@@ -504,6 +532,7 @@ def phase_build():
     cuda_build.load("elle_pmm", elle_kernel._declare)
     cuda_build.load("fold", fold._declare)
     cuda_build.load("cycle", cycle._declare)
+    cuda_build.load("lattice_masks", lattice_kernel._declare)
     dt = time.perf_counter() - t
     kernels, entries = {}, []
     for lib in libs.values():
@@ -514,7 +543,8 @@ def phase_build():
     if not all(any(k.startswith(n) for k in kernels)
                for n in ("wgl_regs_kernel", "wgl_regs_keys", "wgl_warp",
                          "wgl_crash", "wgl_frontier", "elle_pmm",
-                         "elle_tile_bits", "fold_member", "cycle_labels")):
+                         "elle_tile_bits", "fold_member", "cycle_labels",
+                         "lattice_masks")):
         raise SystemExit("[build] ptxas reported no kernel of a source: "
                          + " | ".join(entries))
     log(f"[build] {', '.join(p.name for p in libs.values())} in {dt:.2f} s "
@@ -3151,7 +3181,8 @@ def elle_plant_block(emit, kind):
     is idle (so the block's txns meet the rest only through po and rt,
     which order them after everything before and before everything
     after): the planted histories of the JAX package's tests/test_elle.py
-    (:38-143)."""
+    (:38-143), and a session's read that misses its own append (the
+    lattice's read-your-writes, tests/test_lattice.py:66-73)."""
     a, b = ELLE_PLANT_KEY, ELLE_PLANT_KEY + 1
     if kind == "G1c":           # wr a then ww b against it
         t0 = [["append", a, 1], ["append", b, 2]]
@@ -3180,6 +3211,14 @@ def elle_plant_block(emit, kind):
         emit(0, "fail", t0)
         emit(1, "invoke", [["r", a, None]])
         emit(1, "ok", [["r", a, [9]]])
+    elif kind == "read-your-writes":    # a session reads past its append
+        t0 = [["append", a, 1]]
+        emit(0, "invoke", t0)
+        emit(0, "ok", t0)
+        emit(0, "invoke", [["r", a, None]])
+        emit(0, "ok", [["r", a, []]])
+        emit(1, "invoke", [["r", a, None]])
+        emit(1, "ok", [["r", a, [1]]])
     else:
         raise ValueError(f"no planted block {kind!r}")
 
@@ -4452,6 +4491,351 @@ def phase_cycle(clock_hz):
                 n_pad=n_pad, closures=closures, at_dsg=at_dsg)
 
 
+# ---------------------------------------------------------------------------
+# The full consistency lattice (lattice/: planes, the three tiers, the
+# checker and the workload adapters; the packed tier on elle_pmm and the
+# kernel lattice_masks)
+# ---------------------------------------------------------------------------
+
+LATTICE_SIZES = (1000, 10_000)          # auto: the dense tier, the packed
+LATTICE_MESH_AT = 4096                  # LatticeChecker()'s mesh_threshold
+LATTICE_PLANTS = ELLE_PLANTS + ("read-your-writes",)
+LATTICE_KERNEL_NPADS = (128, 10_112)    # random planes of [lattice-kernel]
+SESSION_FAMILIES = ("so_ww", "so_wr", "so_rw", "so_rr")
+#: The reference's verdict on list_append_history(1000, 10100, plant) on
+#: the CPU (the JAX package's LatticeChecker, its dense tier): (valid?,
+#: anomaly-types, weakest-violated, not, each class's witness steps).
+LATTICE_EXPECT = {
+    None: (True, [], None, [], {}),
+    "G1c": (False, ["G1c"], "read-committed",
+            ["read-committed", "snapshot-isolation", "serializable"],
+            {"G1c": [[501, 500, 501]]}),
+    "G-single": (False, ["G-single"], "snapshot-isolation",
+                 ["snapshot-isolation", "serializable"],
+                 {"G-single": [[501, 500, 501]]}),
+    "G2-item": (False, ["G2-item"], "serializable", ["serializable"],
+                {"G2-item": [[500, 501, 500]]}),
+    "G1a": (False, ["G1a"], "read-committed",
+            ["read-committed", "snapshot-isolation", "serializable"],
+            {"G1a": [None]}),
+    "read-your-writes": (False, ["read-your-writes"], "read-your-writes",
+                         ["read-your-writes", "PRAM", "causal",
+                          "parallel-snapshot-isolation",
+                          "snapshot-isolation", "serializable"],
+                         {"read-your-writes": [[500, 501, 500]]}),
+}
+
+
+def lattice_history(n, plant):
+    """The [lattice] phase's history: the simulated list-append store of
+    [elle-check] at n txns, seeded 9100 + n, with a planted block."""
+    return list_append_history(n, 9100 + n, plant)
+
+
+def lattice_got(v):
+    """(valid?, anomaly-types, weakest-violated, not, witness steps) of a
+    lattice verdict, LATTICE_EXPECT's shape."""
+    return (v["valid?"], v["anomaly-types"], v["weakest-violated"], v["not"],
+            {k: [w.get("steps") for w in ws]
+             for k, ws in v["anomalies"].items()})
+
+
+def adapter_cases():
+    """(name, checker factory, op dicts) of one planted history a
+    workload adapter: a causal register's stale read, a long fork, a
+    monotonic ts/value inversion (tests/test_lattice.py:437-474)."""
+    def pair(p, f, v, inv=None):
+        return [{"process": p, "type": "invoke", "f": f, "value": inv},
+                {"process": p, "type": "ok", "f": f, "value": v}]
+    causal = [d for f, v in (("read-init", 0), ("write", 1), ("read", 1),
+                             ("write", 2), ("read", 1))
+              for d in pair(0, f, v, v if f == "write" else None)]
+    fork = (pair(0, "write", [["w", 0, 1]], [["w", 0, 1]])
+            + pair(1, "write", [["w", 1, 1]], [["w", 1, 1]])
+            + pair(2, "read", [["r", 0, 1], ["r", 1, None]],
+                   [["r", 0, 1], ["r", 1, None]])
+            + pair(3, "read", [["r", 1, 1], ["r", 0, None]],
+                   [["r", 1, 1], ["r", 0, None]]))
+    mono = pair(0, "read", [[1, 100, 0], [3, 150, 1], [2, 200, 0]])
+    from jepsen_tpu_torch.workloads import causal as causal_wl
+    from jepsen_tpu_torch.workloads import long_fork, monotonic
+    return [("causal", causal_wl.check, causal),
+            ("long-fork", lambda: long_fork.checker(2), fork),
+            ("monotonic", monotonic.checker, mono)]
+
+
+def phase_lattice():
+    """The full-lattice checker on the card over list-append histories of
+    LATTICE_SIZES txns, clean and each of LATTICE_PLANTS: at 1,000 txns
+    LatticeChecker().check (the dense tier) gives the reference's verdict
+    (LATTICE_EXPECT); at 10,000, on planes inferred once
+    (infer, planes.from_inference), LatticeChecker().check_planes (the packed
+    tier) gives the same classes, and the dense tier's
+    (algorithm="device") anomalies equal the packed tier's; then each
+    workload adapter once on a planted history (oracle-agrees).  Returns
+    (the kernels' launches over the checks, the 10,000-txn packed
+    stacks, their rounds)."""
+    from jepsen_tpu_torch.elle import infer
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.lattice import checker as lattice_checker
+    from jepsen_tpu_torch.lattice import planes as lattice_planes
+    from jepsen_tpu_torch.ops import elle_kernel, lattice_kernel
+    t0 = time.perf_counter()
+    hists = {(n, plant): History(lattice_history(n, plant))
+             for n in LATTICE_SIZES for plant in (None,) + LATTICE_PLANTS}
+    made_s = time.perf_counter() - t0
+    lattice_checker.LatticeChecker(algorithm="mesh").check(
+        None, History(lattice_history(40, "G1c")))               # warm-up
+    lattice_checker.LatticeChecker(algorithm="device").check(
+        None, History(lattice_history(40, "G1c")))
+    for k in elle_kernel.LAUNCHES:
+        elle_kernel.LAUNCHES[k] = 0
+    lattice_kernel.LAUNCHES["lattice_masks"] = 0
+    verdicts, walls, planes_of = {}, {}, {}
+    for (n, plant), h in hists.items():
+        t = time.perf_counter()
+        if n <= 1000:
+            verdicts[(n, plant)] = lattice_checker.LatticeChecker().check(
+                None, h)
+        else:
+            inf = infer.infer(h)
+            infer_s = time.perf_counter() - t
+            lp = lattice_planes.from_inference(inf)
+            planes_s = time.perf_counter() - t - infer_s
+            v = lattice_checker.LatticeChecker().check_planes(
+                lp, inf, infer_s=infer_s)
+            v["stages"] = dict(infer_s=v["stages"].pop("infer_s"),
+                               planes_s=planes_s, **v["stages"])
+            verdicts[(n, plant)] = v
+            planes_of[(n, plant)] = (lp, inf)
+        walls[(n, plant)] = time.perf_counter() - t
+    launches = dict(elle_kernel.LAUNCHES, **lattice_kernel.LAUNCHES)
+    bad, packed, rounds = [], {}, {}
+    for (n, plant), v in verdicts.items():
+        want = LATTICE_EXPECT[plant]
+        got = lattice_got(v)
+        engine = "lattice-mesh" if n >= LATTICE_MESH_AT else "lattice-device"
+        ok = v["engine"] == engine and (
+            got == want if n <= 1000 else got[:4] == want[:4])
+        extra = ""
+        if (n, plant) in planes_of:
+            lp, inf = planes_of.pop((n, plant))
+            t = time.perf_counter()
+            d = lattice_checker.LatticeChecker(
+                algorithm="device").check_planes(lp, inf)
+            dense_s = time.perf_counter() - t
+            same = d["anomalies"] == v["anomalies"]
+            ok = ok and same
+            packed[plant] = lp.packed_stacked()
+            rounds[plant] = v["rounds"]
+            extra = (f"; the dense tier's verdict (algorithm='device') "
+                     f"{dense_s:.3f} s, anomalies "
+                     f"{'equal' if same else 'DIFFER'}, stages "
+                     f"{elle_stages(d['stages'])}")
+            del lp, inf
+        log(f"[lattice] n={n} {plant or 'clean'}: {got[0]} {got[1]} weakest "
+            f"{got[2]}, engine {v['engine']}, rounds {v.get('rounds')}, "
+            f"n_pad {v.get('n_pad')}; wall {walls[(n, plant)]:.3f} s; stages "
+            f"{elle_stages(v['stages'])}; session edges "
+            f"{sum(v['lattice']['edge-counts'][p] for p in SESSION_FAMILIES)}"
+            f"{extra}{'' if ok else ' - WRONG'}")
+        if not ok:
+            bad.append((n, plant, got))
+    for name, make, dicts in adapter_cases():
+        t = time.perf_counter()
+        v = make().check({}, History(dicts), {})
+        wall = time.perf_counter() - t
+        ok = v["oracle-agrees"] is True and v["valid?"] is False
+        log(f"[lattice] adapter {name}: valid? {v['valid?']}, "
+            f"{v['anomaly-types']}, weakest {v['weakest-violated']}, engine "
+            f"{v['engine']}, oracle-agrees {v['oracle-agrees']}; "
+            f"{wall:.3f} s{'' if ok else ' - WRONG'}")
+        if not ok:
+            bad.append(("adapter", name))
+    log(f"[lattice] launches over the checks {launches}; histories made in "
+        f"{made_s:.1f} s; phase {time.perf_counter() - t0:.1f} s")
+    if bad or not all(launches.values()):
+        raise SystemExit(f"[lattice] wrong verdicts {bad}, or a kernel was "
+                         f"not launched ({launches})")
+    return launches, packed, rounds
+
+
+def lattice_round_timing(state, n_pad, clock_hz, full=True):
+    """One lattice round on the card (two elle_tile_bits + elle_pmm pairs)
+    timed both ways beside its bound (pmm_bound over its 9 products, its
+    7 planes read and 7 written); with `full`, also held against its
+    plain version bit for bit (planes, flag, transposes) and timed
+    beside it and the library's products (9 bf16 torch.matmul,
+    thresholded), both on the card."""
+    from jepsen_tpu_torch.ops import elle_kernel as ek
+    from jepsen_tpu_torch.ops import lattice_kernel as lk
+    cww, p0a, p1a, p0s, p1s, cpred, cm = state
+    ms = launch_ms(lambda: lk.lattice_round(*state), 3)
+    dms = device_ms(lambda: lk.lattice_round(*state), 3)
+    bound, by, parts = pmm_bound(
+        [cww, p0a, p0a | p1a, p1a, p0s, p0s | p1s, p1s, cpred, cm], 14,
+        n_pad, clock_hz)
+    out = {"ms": ms, "device_ms": dms, "bound_ms": bound, "bound_by": by,
+           "parts": parts}
+    if not full:
+        return out
+    got = lk.lattice_round(*state)
+    want = lk.lattice_round_plain(*state)
+    err = int(not all(torch.equal(g, w) for g, w in zip(got[:7], want[:7]))
+              or bool(got[7]) != bool(want[7])
+              or not all(torch.equal(g, w) for g, w in zip(got[8], want[8])))
+    del got, want
+    plain = launch_ms(lambda: lk.lattice_round_plain(*state), 1)
+    d = [ek.unpack(x).to(torch.bfloat16) for x in state]
+    qa = (d[1] + d[2]).clamp(max=1)
+    qs = (d[3] + d[4]).clamp(max=1)
+    terms = [(d[0], d[0]), (d[1], d[1]), (qa, d[2]), (d[2], qa),
+             (d[3], d[3]), (qs, d[4]), (d[4], qs), (d[5], d[5]),
+             (d[6], d[6])]
+    library = launch_ms(lambda: [torch.matmul(a, b) > 0.5 for a, b in terms],
+                        2)
+    return dict(out, err=err, plain_ms=plain, library_ms=library)
+
+
+def lattice_closure_timing(planes, clock_hz):
+    """Every round of a packed stack's closure (engine.closures' loop)
+    timed on the card and bounded, summed; the first and the last round
+    also against the plain version and the library (lattice_round_timing
+    with full)."""
+    from jepsen_tpu_torch.ops import elle_kernel as ek
+    from jepsen_tpu_torch.ops import elle_mesh
+    from jepsen_tpu_torch.ops import lattice_kernel as lk
+    ww, wr, rw = planes[0], planes[1], planes[2]
+    n_pad = ww.shape[0]
+    eye = elle_mesh._eye(n_pad, ww.device)
+    base_a = ww | wr
+    base_s = base_a | planes[3] | planes[4] | planes[5] | planes[6]
+    state = (ww.clone(), base_a | eye, rw.clone(), base_s | eye,
+             rw.clone(), base_a | rw | planes[7], ek.product(wr, rw) | eye)
+    rounds = []
+    steps = max(1, math.ceil(math.log2(max(n_pad - 1, 2))))
+    while len(rounds) < steps:
+        rounds.append((state, lattice_round_timing(state, n_pad, clock_hz,
+                                                   full=False)))
+        *nxt, changed, _ = lk.lattice_round(*state)
+        if not bool(changed):
+            break
+        state = tuple(nxt)
+    first = dict(rounds[0][1], **lattice_round_timing(rounds[0][0], n_pad,
+                                                      clock_hz))
+    last = dict(rounds[-1][1], **lattice_round_timing(rounds[-1][0], n_pad,
+                                                      clock_hz))
+    tot = {k: sum(r[k] for _, r in rounds)
+           for k in ("ms", "device_ms", "bound_ms")}
+    return {"first": first, "last": last, "closure": dict(
+        tot, rounds=len(rounds),
+        bound_by="operations" if all(r["bound_by"] == "operations"
+                                     for _, r in rounds) else "mixed")}
+
+
+def lattice_masks_case(planes, tposes):
+    """(err, kernel out): 1 if lattice_masks differs from masks_plain on
+    the same tensors, else 0."""
+    from jepsen_tpu_torch.ops import lattice_kernel as lk
+    got = lk.masks(planes, tposes)
+    want = lk.masks_plain(planes, tposes)
+    return int(not torch.equal(got, want)), got
+
+
+def lattice_mask_cases(n_pad, gen, dev):
+    """(name, planes8, tposes7) of random packed planes at n_pad: all zero
+    (every class empty), all one, and random words at densities 1/n_pad,
+    0.01 and 0.5, so that each class is found where its inputs allow."""
+    w = n_pad // 32
+    out = [("zero", [torch.zeros((n_pad, w), dtype=torch.int32, device=dev)
+                     for _ in range(15)]),
+           ("one", [torch.full((n_pad, w), -1, dtype=torch.int32, device=dev)
+                    for _ in range(15)])]
+    for dens in (1.0 / n_pad, 0.01, 0.5):
+        out.append((f"dens-{dens:.4g}",
+                    [random_packed(n_pad, n_pad, dens, gen, dev)
+                     for _ in range(15)]))
+    return [(name, pl[:8], pl[8:]) for name, pl in out]
+
+
+def phase_lattice_kernel(packed, rounds, clock_hz):
+    """lattice_masks against masks_plain on the card, bit for bit: the
+    10,000-txn checks' planes and transposes (each stack of [lattice]),
+    and random planes at LATTICE_KERNEL_NPADS; timed both ways on the
+    clean stack beside its plain version and its byte bound (15 planes
+    read once, 96 bytes written).  Then the clean stack's closure round
+    by round on the card beside each round's bound, its first and last
+    rounds against lattice_round_plain bit for bit (planes, flag,
+    transposes) and timed beside it and the library's products."""
+    from jepsen_tpu_torch.lattice import engine
+    from jepsen_tpu_torch.ops import elle_mesh
+    from jepsen_tpu_torch.ops import lattice_kernel as lk
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    err, timing, closure = 0, None, None
+    for plant, pk in packed.items():
+        planes = elle_mesh._to_device(pk, dev)
+        tposes, r = engine.closures(planes)
+        e, got = lattice_masks_case(list(planes), tposes)
+        torch.cuda.synchronize()
+        err |= e
+        n_pad = planes.shape[1]
+        log(f"[lattice-kernel] {plant or 'clean'} (n_pad {n_pad}, {r} rounds"
+            f"): lattice_masks {'equal' if not e else 'DIFFERS'} to "
+            f"masks_plain, picks {got.tolist()}")
+        if plant is None:
+            pl, tp = list(planes), list(tposes)
+            ms = launch_ms(lambda: lk.masks(pl, tp), 10)
+            dms = device_ms(lambda: lk.masks(pl, tp), 20)
+            plain = launch_ms(lambda: lk.masks_plain(pl, tp), 2)
+            nbytes = 15 * n_pad * n_pad // 8 + 12 * 8
+            bound = 1e3 * nbytes / HBM_BYTES_PER_S
+            timing = {"ms": ms, "device_ms": dms, "plain_ms": plain,
+                      "bound_ms": bound, "bound_by": "bytes",
+                      "library_ms": None, "bytes": nbytes, "n_pad": n_pad}
+            del pl, tp
+            closure = lattice_closure_timing(planes, clock_hz)
+            err |= closure["first"]["err"] | closure["last"]["err"]
+        del planes, tposes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2101)
+    cases = 0
+    for n_pad in LATTICE_KERNEL_NPADS:
+        for name, pl, tp in lattice_mask_cases(n_pad, gen, dev):
+            e, _ = lattice_masks_case(pl, tp)
+            torch.cuda.synchronize()
+            err |= e
+            cases += 1
+            if e:
+                log(f"[lattice-kernel] MISMATCH n_pad {n_pad} {name}")
+    log(f"[lattice-kernel] lattice_masks against masks_plain on {cases} "
+        f"random plane sets at n_pad {LATTICE_KERNEL_NPADS} (all zero, all "
+        f"one, densities 1/n_pad, 0.01, 0.5): "
+        f"{'equal bit for bit' if not err else 'DIFFER'}")
+    log(f"[lattice-kernel] lattice_masks at n_pad {timing['n_pad']} (the "
+        f"clean 10,000-txn check's planes, {timing['bytes']} bytes): "
+        + timing_line(timing))
+    for which in ("first", "last"):
+        f = closure[which]
+        log(f"[lattice-kernel] the {which} lattice round of the clean "
+            f"10,000-txn closure (2 elle_tile_bits + 2 elle_pmm): "
+            f"{'equal' if not f['err'] else 'DIFFERS'} to "
+            f"lattice_round_plain; " + timing_line(f)
+            + f"; bound parts {f['parts']}")
+    c = closure["closure"]
+    log(f"[lattice-kernel] the clean 10,000-txn closure's {c['rounds']} "
+        f"rounds, summed: {c['ms']:.4f} ms launch to end, "
+        f"{c['device_ms']:.4f} ms on the device; bound {c['bound_ms']:.4f} "
+        f"ms ({c['bound_by']}), reached "
+        f"{100 * c['bound_ms'] / c['device_ms']:.2f}% on the device")
+    log(f"[lattice-kernel] rounds of the 10,000-txn checks {rounds}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if err:
+        raise SystemExit("[lattice-kernel] a kernel differs from its plain "
+                         "version")
+    return dict(timing, err=err, closure=closure)
+
+
 def main() -> int:
     smi, clock_hz = phase_device()
     built = phase_build()
@@ -4481,6 +4865,9 @@ def main() -> int:
     elle_launches = phase_elle_check()
     fold = phase_fold()
     cyc = phase_cycle(clock_hz)
+    lat_launches, lat_packed, lat_rounds = phase_lattice()
+    lat = phase_lattice_kernel(lat_packed, lat_rounds, clock_hz)
+    del lat_packed
     kernels = [{"name": f"wgl_deep_{arm}", "route": "cuda",
                 "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",
                 "replaces": "jepsen_tpu/ops/wgl_deep.py:358",
@@ -4554,10 +4941,12 @@ def main() -> int:
                     "source": "jepsen_tpu_torch/csrc/elle_pmm.cu",
                     "replaces": "jepsen_tpu/ops/elle_mesh.py:261",
                     "launches": elle_launches["elle_pmm"]
-                    + cyc["launches"]["elle_pmm"],
+                    + cyc["launches"]["elle_pmm"]
+                    + lat_launches["elle_pmm"],
                     "launches_by_path": {
                         "elle-check": elle_launches["elle_pmm"],
-                        "cycle": cyc["launches"]["elle_pmm"]},
+                        "cycle": cyc["launches"]["elle_pmm"],
+                        "lattice": lat_launches["elle_pmm"]},
                     "cycle_closures": cyc["closures"],
                     "max_abs_err": elle["err"],
                     **{k: elle["last"][k] for k in figures},
@@ -4567,10 +4956,12 @@ def main() -> int:
                     "source": "jepsen_tpu_torch/csrc/elle_pmm.cu",
                     "replaces": "jepsen_tpu/ops/elle_mesh.py:261",
                     "launches": elle_launches["elle_tile_bits"]
-                    + cyc["launches"]["elle_tile_bits"],
+                    + cyc["launches"]["elle_tile_bits"]
+                    + lat_launches["elle_tile_bits"],
                     "launches_by_path": {
                         "elle-check": elle_launches["elle_tile_bits"],
-                        "cycle": cyc["launches"]["elle_tile_bits"]},
+                        "cycle": cyc["launches"]["elle_tile_bits"],
+                        "lattice": lat_launches["elle_tile_bits"]},
                     "max_abs_err": elle["tile_bits"]["err"],
                     **{k: elle["tile_bits"][k] for k in figures}})
     kernels.append({"name": "fold_member", "route": "cuda",
@@ -4588,6 +4979,19 @@ def main() -> int:
                     **{k: cyc[k] for k in figures},
                     "at_dsg": {k: cyc["at_dsg"][k]
                                for k in figures + ("n_pad",)}})
+    kernels.append({"name": "lattice_masks", "route": "cuda",
+                    "source": "jepsen_tpu_torch/csrc/lattice_masks.cu",
+                    "replaces": "jepsen_tpu/lattice/engine.py:352",
+                    "launches": lat_launches["lattice_masks"],
+                    "max_abs_err": lat["err"],
+                    **{k: lat[k] for k in figures},
+                    "lattice_closure": {
+                        "rounds": lat["closure"]["closure"]["rounds"],
+                        **{w: {k: lat["closure"][w][k] for k in figures}
+                           for w in ("first", "last")},
+                        "summed": {k: lat["closure"]["closure"][k]
+                                   for k in ("ms", "device_ms", "bound_ms",
+                                             "bound_by")}}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

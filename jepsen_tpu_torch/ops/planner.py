@@ -993,3 +993,44 @@ def plan_elle(n_max: int, batch: int = 1, *, algorithm: str = "auto",
         raise ValueError(f"unknown algorithm {algorithm!r}")
     return {"engine": engine, "why": why, "batch": int(batch),
             "n_max": int(n_max)}
+
+
+# -- lattice routing ----------------------------------------------------------
+
+#: The lattice tiers' engine names and what each runs.
+LATTICE_WHY = {
+    "lattice-mesh": "bit-packed planes, seven closures in rounds on "
+                    "elle_pmm with early exit, class masks on "
+                    "lattice_masks",
+    "lattice-device": "dense lattice closures on the card (torch.matmul)",
+    "lattice-host": "host lattice oracle (numpy)",
+}
+
+
+def plan_lattice(n_max: int, batch: int = 1, *, algorithm: str = "auto",
+                 mesh_threshold: int = 4096) -> dict:
+    """The full-lattice tier for a history of n_max transactions (the
+    reference's `plan_lattice`, one tier and no chain, as `plan_elle`):
+    `auto` takes the packed tier at n_max >= mesh_threshold and the
+    dense tier below it; "mesh", "device" and "host" are strict.
+    Returns the start of the dispatch record: engine, why, batch,
+    n_max."""
+    if algorithm == "host":
+        engine = "lattice-host"
+        why = "host oracle requested (algorithm='host')"
+    elif algorithm == "mesh":
+        engine = "lattice-mesh"
+        why = "packed tier requested (algorithm='mesh')"
+    elif algorithm == "device":
+        engine = "lattice-device"
+        why = "dense tier requested (algorithm='device')"
+    elif algorithm == "auto":
+        engine = ("lattice-mesh" if n_max >= mesh_threshold
+                  else "lattice-device")
+        rel = ">=" if n_max >= mesh_threshold else "<"
+        why = (f"n_max={n_max} {rel} mesh_threshold={mesh_threshold}: "
+               f"{LATTICE_WHY[engine]}")
+    else:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    return {"engine": engine, "why": why, "batch": int(batch),
+            "n_max": int(n_max)}
