@@ -8,11 +8,12 @@ any failure exits non-zero:
   device     - the card, and nvidia-smi's name and power limit;
   build      - one nvcc per source (csrc/wgl_deep.cu, csrc/wgl_regs.cu,
                csrc/wgl_crash.cu, csrc/wgl_frontier.cu, csrc/elle_pmm.cu,
-               csrc/fold.cu, csrc/cycle.cu, csrc/lattice_masks.cu), started
-               together, for sm_90a
+               csrc/fold.cu, csrc/cycle.cu, csrc/lattice_masks.cu,
+               csrc/wgl_cand.cu), started together, for sm_90a
                (timed); ptxas registers and
                spill bytes of each kernel instantiation; a spill in the
-               deep kernel's warp arm fails; then the native history
+               deep kernel's warp arm, the candidate-table kernels or the
+               crash kernel's two-word instances fails; then the native history
                scanner (native/histscan.c) with the host C compiler
                (timed, the compiler named);
   columns    - printed by each phase that builds full-size histories:
@@ -253,19 +254,54 @@ any failure exits non-zero:
                closure round by round on the card beside each round's
                bound, its first and last rounds against
                lattice_round_plain bit for bit and timed beside it and
-               the library's 9 bf16 products.
+               the library's 9 bf16 products;
+  cand-kernel
+             - both candidate-table kernels (wgl_cand_bits, wgl_cand_dense)
+               against their plain version on CPU copies of the same
+               plan tables, transfer rows bit for bit, and each case's
+               launch timed both ways: the dense form on
+               decomposed wide registers at R = 1..6 (33..64 states) and
+               a counter mod 12 (undecomposed, 12 states), the bits form
+               on registers at R = 7, 8, 10 and a counter mod 3 (the
+               nibble form), each at J = Sn and J = 1;
+  wide-main  - the candidate-table route on the main path: the crash-free
+               twin of the JAX package's wide-state history (bench.py:
+               1717-1725: a 40-value CAS register, 20,000 calls, 16
+               processes, max_open 6; 42 states) through Linearizable,
+               valid on wgl_cand_dense, its planted stale read invalid at
+               the CPU oracle's op; 512 wide keys through check_many in
+               one J = 1 launch, verdicts equal to the CPU oracle's on a
+               sample; a counter mod 3 through Linearizable (the bits
+               form's nibbles), valid and planted; an envelope history at
+               max_open 8 as a PreparedHistory (the bits form at R = 8);
+               the kernels' launches over these calls counted; then the
+               keys' launch, rebuilt by check_many's host half, against
+               its plain version bit for bit; the wide history's and the
+               envelope's launches timed beside their plain versions and
+               bounds; the envelope's tables timed in both forms;
+  wide-crash - the JAX package's wide-state crash regime (bench.py:
+               1717-1740: 1% crashed with values 0..30, a stale read
+               planted at 90% with 0..30 forbidden) through
+               wgl_seg.check: refuted by the relaxed tier at two-word
+               state masks (W = 2) with the planted read as its exact
+               witness; the W = 2 launches counted; the relaxed launch
+               and the death row against their plain version (PyTorch on
+               the card) and timed.
 
 Kernel times come two ways, each a field of the JSON kernel line: "ms",
 from an idle card's launch to its end (CUDA events around one call,
 the host's enqueue included; `launch_ms`), and "device_ms", launches
 enqueued back to back behind a device sleep (`device_ms`).
 
-The last line is {"ok": true, "device": {...}}.  Exits non-zero with
+A "[time]" line gives each phase's wall seconds.  The last line is
+{"ok": true, "device": {...}}.  Exits non-zero with
 no result line when torch.cuda.is_available() is false or the package
 is missing."""
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -412,6 +448,79 @@ def key_dicts(seed, n_calls=40, conc=5, vmax=4, max_open=0, burst=0,
     return [dict(d, index=j) for j, d in enumerate(ops)]
 
 
+def counter_step(n):
+    """The torch transition of a counter mod n: inc moves state s to
+    (s + 1) mod n, a different target from each state, so the model has
+    no diagonal + rank-1 decomposition; read v is legal iff v == s (the
+    Mod3 counter of the JAX package's tests/test_wgl_seg.py:421-487 at
+    n = 3)."""
+    def step(state, f, a, b, a_ok):
+        s = state[:, 0]
+        is_inc = f == 0
+        legal = is_inc | ((f == 1) & (a == s))
+        nxt = torch.where(is_inc, (s + 1) % n, s)
+        return torch.where(legal, nxt, s)[:, None].to(torch.int32), legal
+    return step
+
+
+def mod_counter(n):
+    """A port model of the counter mod n (`counter_step`)."""
+    from jepsen_tpu_torch import models
+
+    @dataclasses.dataclass(frozen=True)
+    class ModCounter(models.Model):
+        value: int = 0
+
+        def step(self, o):
+            if o.f == "inc":
+                return ModCounter((self.value + 1) % n)
+            if o.f == "read":
+                if o.value == self.value:
+                    return self
+                return models.inconsistent(f"read {o.value!r}")
+            return models.inconsistent(f"unknown f {o.f!r}")
+
+        def device_spec(self):
+            return models.DeviceSpec(
+                1, {"inc": 0, "read": 1},
+                lambda m: np.array([m.value], np.int32), counter_step(n),
+                decode=lambda s: ModCounter(int(s[0])))
+
+    return ModCounter()
+
+
+def counter_dicts(seed, n, n_calls=40, conc=3, max_open=0, buggy=0.0):
+    """One counter-mod-n history as op dicts, made with numpy from
+    `seed`: processes increment and read a sequential counter, each read
+    seeing the value at its invoke (every call takes effect at its
+    invoke), with at most `max_open` calls open; `buggy` of the reads
+    see a random value instead."""
+    rng = np.random.default_rng(seed)
+    ops, value, open_ops = [], 0, {}
+    i = 0
+    while i < n_calls:
+        p = int(rng.integers(conc))
+        if p in open_ops:
+            ops.append(open_ops.pop(p))
+            continue
+        if max_open and len(open_ops) >= max_open:
+            ops.append(open_ops.pop(
+                sorted(open_ops)[int(rng.integers(len(open_ops)))]))
+            continue
+        i += 1
+        if rng.random() < 0.5:
+            ops.append(op(p, "invoke", "inc", None))
+            value = (value + 1) % n
+            open_ops[p] = op(p, "ok", "inc", None)
+        else:
+            seen = int(rng.integers(n)) if buggy and rng.random() < buggy \
+                else value
+            ops.append(op(p, "invoke", "read", None))
+            open_ops[p] = op(p, "ok", "read", seen)
+    ops.extend(open_ops.values())
+    return [dict(d, index=j) for j, d in enumerate(ops)]
+
+
 def plant_stale_read(h, frac, vmax, forbidden=()):
     """Rewrite one ok-read at `frac` depth to a legal value w that no
     linearization can produce: w is neither the register value at the
@@ -517,15 +626,16 @@ def phase_device():
 def phase_build():
     """Both kernels' nvcc at once, timed; ptxas registers and spills of
     every instantiation; a warp-arm spill of the deep kernel fails."""
-    from jepsen_tpu_torch.ops import (crash_kernel, cuda_build, cycle,
-                                      deep_kernel, elle_kernel, fold,
+    from jepsen_tpu_torch.ops import (cand_kernel, crash_kernel, cuda_build,
+                                      cycle, deep_kernel, elle_kernel, fold,
                                       frontier_kernel, lattice_kernel,
                                       regs_kernel)
     t = time.perf_counter()
     libs = cuda_build.build("wgl_deep", "wgl_regs", "wgl_crash",
                             "wgl_frontier", "elle_pmm", "fold", "cycle",
-                            "lattice_masks")
+                            "lattice_masks", "wgl_cand")
     deep_kernel._load()
+    cuda_build.load("wgl_cand", cand_kernel._declare)
     cuda_build.load("wgl_regs", regs_kernel._declare)
     cuda_build.load("wgl_crash", crash_kernel._declare)
     cuda_build.load("wgl_frontier", frontier_kernel._declare)
@@ -544,17 +654,23 @@ def phase_build():
                for n in ("wgl_regs_kernel", "wgl_regs_keys", "wgl_warp",
                          "wgl_crash", "wgl_frontier", "elle_pmm",
                          "elle_tile_bits", "fold_member", "cycle_labels",
-                         "lattice_masks")):
+                         "lattice_masks", "wgl_cand_kernel")):
         raise SystemExit("[build] ptxas reported no kernel of a source: "
                          + " | ".join(entries))
     log(f"[build] {', '.join(p.name for p in libs.values())} in {dt:.2f} s "
         f"(one nvcc per source, in parallel); ptxas: " + " | ".join(
             f"{k}: {v['regs']} registers, spill {v['spill']} bytes"
             for k, v in kernels.items()))
-    spilled = [k for k, v in kernels.items()
-               if k.startswith("wgl_warp") and v["spill"]]
+    # the deep kernel's warp arm, the candidate-table kernels and the
+    # crash kernel's two-word instances keep their planes in registers
+    spilled = [k for k, v in kernels.items() if v["spill"] and (
+        k.startswith(("wgl_warp", "wgl_cand_kernel"))
+        or (k.startswith("wgl_crash_kernel") and k.endswith(",2>")))]
     if spilled:
         raise SystemExit(f"[build] the register plane spills: {spilled}")
+    if not any(k.startswith("wgl_crash_kernel") and k.endswith(",2>")
+               for k in kernels):
+        raise SystemExit("[build] ptxas reported no two-word crash kernel")
     fk = frontier_kernel
     shapes = ((64, 4, 1), (1024, 8, 1), (4096, 16, 1), (1024, 32, 1),
               (8192, 32, 1), (65536, 32, 1), (1024, 64, 2), (512, 128, 4),
@@ -689,12 +805,14 @@ KERNEL_CASES = [(3, 6), (5, 30), (8, 9), (10, 30), (10, 6),
 
 
 def phase_kernel(clock_hz):
-    """Each case on the card and in the plain version; returns the
-    largest disagreement per arm."""
+    """Each case on the card and in the plain version (worker processes,
+    running while the card's launches run); returns the largest
+    disagreement per arm."""
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops import deep_kernel, wgl_cpu, wgl_deep
     seen = set()
     err = {"warp": 0, "block": 0}
+    cases = []
     for R, vmax in KERNEL_CASES:
         for bad in (False, True):
             h = make_history(600, R + 4, seed=1000 + 10 * R + vmax,
@@ -705,18 +823,26 @@ def phase_kernel(clock_hz):
             t = tables_for(h)
             if t[3] != R:
                 raise SystemExit(f"[kernel] built R={t[3]}, wanted {R}")
+            cases.append((R, bad, h, t))
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(4, mp_context=ctx) as pool:
+        # the longest plain walks (the deepest cases) first
+        futs = {}
+        for _, _, _, t in sorted(cases, key=lambda c: -c[0]):
+            L2 = t[1] * deep_kernel.EB
+            futs[id(t)] = pool.submit(
+                plain_job, t[0][:L2 * (1 + 3 * deep_kernel.I)], t[2], L2,
+                t[3], walk_inputs(t, "cpu")[1]["SnP"], t[5])
+        for R, bad, h, t in cases:
             snp = wgl_deep._snp(t[4])
             arm = deep_kernel.arm_of(R)
             plane = deep_kernel.launch_plan(arm, R, snp)["plane"]
             seen.add((arm, snp))
             seen.add(plane)
             card, words, ms = timed_walk(t)
-            work_plain = torch.zeros(1, dtype=torch.int64)
-            t1 = time.perf_counter()
-            plain = run_walk(t, "cpu", work=work_plain)
-            plain_s = time.perf_counter() - t1
+            plain, plain_words, plain_s = futs[id(t)].result()
             err[arm] = max(err[arm], abs_err(card, plain))
-            ok = (card == plain and words == int(work_plain.item())
+            ok = (card == plain and words == plain_words
                   and card[0] == (0 if bad else 1))
             oracle = ""
             if R == 3:
@@ -730,6 +856,7 @@ def phase_kernel(clock_hz):
                 f"words={words} kernel_ms={ms:.3f} bound_ms={b:.4f} "
                 f"plain_s={plain_s:.3f} {'OK' if ok else 'MISMATCH'}")
             if not ok:
+                pool.shutdown(wait=False, cancel_futures=True)
                 raise SystemExit("[kernel] kernel and plain version "
                                  "disagree")
     want = {(a, s) for a in ("warp", "block") for s in (8, 16, 32)}
@@ -1714,7 +1841,7 @@ def relaxed_inputs(h):
     cbuf, offs, nrows = rw.wire
     return dict(cbuf=cbuf, offs=offs, nrows=nrows, aux=rw.aux, UP=rw.UP,
                 ctab=rw.ctab, R=rw.R, Sn=rw.Sn, K=len(offs),
-                nC=len(rw.ctab) // rw.Sn)
+                nC=len(rw.ctab) // (rw.Sn * (1 if rw.Sn <= 32 else 2)))
 
 
 def crash_run(inp, device, kind, ks=None, seed=None, reps=0):
@@ -1759,22 +1886,25 @@ def crash_args(inp, kind, ks, dev):
             for n in names]
 
 
-def plain_crash_job(inp, kind, ks=None, seed=None):
-    """The plain version (`crash_kernel.walk_plain`) on CPU copies, in a
-    worker process: (output, work, the operations the walk needs,
-    seconds)."""
+def plain_crash_job(inp, kind, ks=None, seed=None, dev="cpu"):
+    """The plain version (`crash_kernel.walk_plain`) on copies of the
+    inputs on `dev`: on CPU copies in a worker process (one thread), or
+    in PyTorch on the card.  Returns (output, work, the operations the
+    walk needs, seconds)."""
     from jepsen_tpu_torch.ops import crash_kernel
-    torch.set_num_threads(1)
+    d = torch.device(dev)
+    if d.type == "cpu":
+        torch.set_num_threads(1)
     t = time.perf_counter()
-    args = crash_args(inp, kind, ks, torch.device("cpu"))
-    work, need = (torch.zeros(args[1].numel(), dtype=torch.int64)
+    args = crash_args(inp, kind, ks, d)
+    work, need = (torch.zeros(args[1].numel(), dtype=torch.int64, device=d)
                   for _ in range(2))
     out = crash_kernel.walk_plain(
         *args, R=inp["R"], Sn=inp["Sn"], UP=inp["UP"], nc=inp.get("nc", 0),
         rn=inp.get("rn", 0), seed=seed if kind == "death" else None,
         work=work, need=need)
-    return (out.numpy(), work.numpy(), need.numpy(),
-            time.perf_counter() - t)
+    out, work, need = (x.cpu().numpy() for x in (out, work, need))
+    return out, work, need, time.perf_counter() - t
 
 
 def crash_wire_bytes(inp, out_bytes):
@@ -2103,7 +2233,9 @@ def phase_crash_pipeline(seg_hs, main):
         raise SystemExit(f"[crash-pipeline] histories {bad} disagree")
     log(f"[crash-pipeline] crash kernel launches on the crash main path: "
         f"{launches}")
-    if min(launches.values()) <= 0:
+    # the two-word relaxed instances run on [wide-crash]'s path
+    if min(v for k, v in launches.items()
+           if k != "wgl_regs_relaxed_w2") <= 0:
         raise SystemExit("[crash-pipeline] the main path left a crash "
                          "kernel unlaunched")
     return launches
@@ -4836,38 +4968,559 @@ def phase_lattice_kernel(packed, rounds, clock_hz):
     return dict(timing, err=err, closure=closure)
 
 
+# ---------------------------------------------------------------------------
+# The candidate-table route (wgl_cand_bits, wgl_cand_dense) and the relaxed
+# tier's two-word lift (wgl_regs_relaxed at W = 2)
+# ---------------------------------------------------------------------------
+
+WIDE_N_OPS = 20_000                 # calls of the wide histories
+WIDE_VMAX = 40                      # values 0..40: 42 states with None
+WIDE_KEYS = 512                     # wide keys of [wide-main]'s check_many
+CAND_TARGET = 64                    # returns a segment in [cand-kernel]
+COUNTER_N_OPS = 4000                # calls of [wide-main]'s mod-3 counter
+
+
+def wide_dicts(seed, vmax, n_calls=60, conc=4, max_open=0, burst=0,
+               buggy=0.0, crash_rate=0.0):
+    """A CAS register key whose history first writes every value
+    0..vmax (so vmax + 2 states with the initial None), then runs
+    `key_dicts`' random workload."""
+    head = []
+    for v in range(vmax + 1):
+        head += [op(0, "invoke", "write", v), op(0, "ok", "write", v)]
+    body = key_dicts(seed, n_calls=n_calls, conc=conc, vmax=vmax,
+                     max_open=max_open, burst=burst, buggy=buggy,
+                     crash_rate=crash_rate)
+    return [dict(d, index=j) for j, d in enumerate(head + body)]
+
+
+def cand_arrays(ret_slot, cand_slot, cand_uop, legal, next_state, dec, *,
+                R, Sn, J, form):
+    """Candidate tables in `planner.plan`'s layout ([K, L], [K, L, C])
+    as the kernel of `form` takes them: host arrays and the shapes."""
+    from jepsen_tpu_torch.ops import cand_kernel
+    t = dict(ret=np.ascontiguousarray(ret_slot.T),
+             cslot=np.ascontiguousarray(cand_slot.transpose(1, 0, 2)),
+             cuop=np.ascontiguousarray(cand_uop.transpose(1, 0, 2)),
+             R=R, Sn=Sn, J=J, form=form, decomposed=dec[0] is not None,
+             K=ret_slot.shape[0])
+    if form == "bits":
+        t["a1"], t["a2"], t["t0"] = cand_kernel.bits_tables(
+            t["cuop"], legal, next_state, *dec)
+    else:
+        t["tab"], t["nxt"] = cand_kernel.dense_tables(legal, next_state,
+                                                      *dec)
+    return t
+
+
+def cand_tables(model, history, J, target=None, form=None):
+    """The plan route's candidate tables of `history` (a History or a
+    PreparedHistory) as check() builds them, for lanes entering every
+    state (J = "Sn") or state 0 (J = 1), for the form `cand_gate` picks
+    unless `form` names one (see cand_arrays)."""
+    from jepsen_tpu_torch.ops import planner, wgl_seg
+    from jepsen_tpu_torch.ops.prep import PreparedHistory, prepare
+    prep = history if isinstance(history, PreparedHistory) \
+        else prepare(history)
+    pl = planner.plan(prep, model.device_spec(), model,
+                      target_returns_per_segment=target
+                      or wgl_seg.TARGET_RETURNS)
+    R, Sn = int(pl.max_open), int(pl.states.shape[0])
+    dec = (pl.diag_w, pl.const_w, pl.const_t0)
+    return cand_arrays(pl.ret_slot, pl.cand_slot, pl.cand_uop, pl.legal,
+                       pl.next_state, dec, R=R, Sn=Sn,
+                       J=Sn if J == "Sn" else 1,
+                       form=form or planner.cand_gate(R, Sn,
+                                                      dec[0] is not None))
+
+
+def cand_key_tables(model, histories):
+    """The tables of check_many's one J = 1 candidate-table launch over
+    `histories` (lane keys whose alphabet the key kernel refuses), built
+    by check_many's own host half."""
+    from jepsen_tpu_torch.ops import planner, wgl_seg
+    spec = model.device_spec()
+    keys = wgl_seg._sort_keys(spec, histories, 10, "cuda")
+    states, legal, next_state, dec = wgl_seg._model_tables(
+        spec, model, keys.rows, 64)
+    R = max(int(fk.max_open) for _, fk, _ in keys.lanes)
+    Sn = int(states.shape[0])
+    return cand_arrays(*wgl_seg._cand_key_tables(keys, R), legal,
+                       next_state, dec, R=R, Sn=Sn, J=1,
+                       form=planner.cand_gate(R, Sn, dec[0] is not None))
+
+
+def cand_names(t):
+    """The names of t's kernel arguments, in order."""
+    return (("ret", "cslot", "a1", "a2", "t0") if t["form"] == "bits"
+            else ("ret", "cslot", "cuop", "tab", "nxt"))
+
+
+def cand_call(t, dev):
+    """A function launching t's kernel (its wrapper) on `dev`, on the
+    tensors of t there."""
+    from jepsen_tpu_torch.ops import cand_kernel
+    d = torch.device(dev)
+    args = [torch.from_numpy(t[n]).to(d) for n in cand_names(t)]
+    kw = dict(R=t["R"], Sn=t["Sn"], J=t["J"])
+    if t["form"] == "bits":
+        return lambda: cand_kernel.cand_bits(*args, decomposed=t[
+            "decomposed"], **kw)
+    return lambda: cand_kernel.cand_dense(*args, **kw)
+
+
+def cand_plain_job(t):
+    """The plain version on CPU copies, in a worker process: (T, the
+    integer operations the walk needs, seconds)."""
+    from jepsen_tpu_torch.ops import cand_kernel
+    torch.set_num_threads(1)
+    tt = time.perf_counter()
+    ret, cslot = torch.from_numpy(t["ret"]), torch.from_numpy(t["cslot"])
+    if t["form"] == "bits":
+        params = cand_kernel._bits_params(
+            *(torch.from_numpy(t[n]) for n in ("a1", "a2", "t0")),
+            t["decomposed"], t["Sn"])
+    else:
+        params = cand_kernel._dense_params(
+            *(torch.from_numpy(t[n]) for n in ("cuop", "tab", "nxt")),
+            t["Sn"])
+    need = torch.zeros(t["K"], dtype=torch.int64)
+    T = cand_kernel.walk_plain(ret, cslot, params, R=t["R"], Sn=t["Sn"],
+                               J=t["J"], need=need)
+    return T.numpy(), int(need.sum()), time.perf_counter() - tt
+
+
+def cand_bytes(t):
+    """Bytes the kernel must move: its tables read once, T written once."""
+    return (sum(t[n].nbytes for n in cand_names(t))
+            + t["K"] * t["J"] * t["Sn"])
+
+
+def cand_kernel_cases():
+    """(name, model, history, J) of [cand-kernel]: the dense form on
+    decomposed wide registers at R = 1..6 (Sn 33..64) and an undecomposed
+    counter mod 12; the bits form on decomposed registers at R = 7, 8, 10
+    (Sn <= 32) and on the counter mod 3 (nibbles); each at J = Sn and
+    J = 1.  Histories of a few hundred calls, cut every CAND_TARGET
+    returns."""
+    from jepsen_tpu_torch import convert
+    from jepsen_tpu_torch.models import CASRegister
+    reg = CASRegister()
+    hs = []
+    for R, vmax in zip(range(1, 7), (31, 38, 44, 50, 56, 62)):
+        hs.append((f"dense-dec R={R} vmax={vmax}", reg, wide_dicts(
+            900 + R, vmax, n_calls=300, conc=R, max_open=R, burst=R,
+            buggy=0.01 if R % 2 else 0.0)))
+    for R, n in ((3, 12), (5, 12)):
+        hs.append((f"dense-table R={R} mod {n}", mod_counter(n),
+                   counter_dicts(910 + R, n, n_calls=300, conc=R,
+                                 max_open=R, buggy=0.01 * (R == 5))))
+    for R, vmax in ((7, 30), (8, 9), (10, 6)):
+        hs.append((f"bits-dec R={R} vmax={vmax}", reg, key_dicts(
+            920 + R, n_calls=300, conc=R, vmax=vmax, max_open=R, burst=R,
+            buggy=0.01 if R == 8 else 0.0)))
+    for R in (2, 4, 6):
+        hs.append((f"bits-nibble R={R} mod 3", mod_counter(3),
+                   counter_dicts(930 + R, 3, n_calls=300, conc=R, max_open=R,
+                                 buggy=0.01 * (R == 4))))
+    return [(f"{name} J={J}", m, convert.history_from_dicts(d), J)
+            for name, m, d in hs for J in ("Sn", 1)]
+
+
+def phase_cand_kernel():
+    """Both candidate-table kernels against their plain version (CPU
+    copies of the same inputs, worker processes): transfer rows T bit
+    for bit on every case of `cand_kernel_cases`."""
+    from jepsen_tpu_torch.ops import cand_kernel
+    t0 = time.perf_counter()
+    cases = [(n, cand_tables(m, h, J, CAND_TARGET))
+             for n, m, h, J in cand_kernel_cases()]
+    ctx = multiprocessing.get_context("spawn")
+    err = {"bits": 0, "dense": 0}
+    seen = set()
+    with ProcessPoolExecutor(4, mp_context=ctx) as pool:
+        futs = [pool.submit(cand_plain_job, t) for _, t in cases]
+        for (name, t), f in zip(cases, futs):
+            fn = cand_call(t, DEV)
+            T, bad = fn()
+            T = T.cpu().numpy()
+            ms, dms = launch_ms(fn, 3), device_ms(fn, 5)
+            pT, need, _ = f.result()
+            e = int(np.abs(T.astype(np.int64) - pT.astype(np.int64)).max())
+            err[t["form"]] = max(err[t["form"]], e)
+            seen.add((t["form"], t["decomposed"], t["Sn"] > 32,
+                      t["J"] == 1))
+            ok = e == 0 and int(bad.cpu()[0]) == 0
+            log(f"[cand-kernel] {name}: wgl_cand_{t['form']} K={t['K']} "
+                f"L={t['ret'].shape[0]} C={t['cslot'].shape[2]} "
+                f"R={t['R']} Sn={t['Sn']} J={t['J']}: "
+                f"{int(T.sum())} transfer bits, {need} operations; kernel "
+                f"{ms:.4f} ms launch to end (mean of 3), {dms:.4f} ms on "
+                f"the device; {'equal' if ok else 'DIFFERENT'}")
+            if not ok:
+                raise SystemExit(f"[cand-kernel] {name}: kernel and plain "
+                                 f"version disagree")
+    want = {("dense", True, True, False), ("dense", True, True, True),
+            ("dense", False, False, False), ("dense", False, False, True),
+            ("bits", True, False, False), ("bits", True, False, True),
+            ("bits", False, False, False), ("bits", False, False, True)}
+    if not want <= seen:
+        raise SystemExit(f"[cand-kernel] cases miss {sorted(want - seen)}")
+    log(f"[cand-kernel] {len(cases)} cases equal in "
+        f"{time.perf_counter() - t0:.1f} s (launch counts: "
+        f"{dict(cand_kernel.LAUNCHES)})")
+    return err
+
+
+def cand_timing(t, clock_hz, plain):
+    """t's launch timed (launch to end, mean of 5; on the device, 10 back
+    to back) beside its plain version (`plain`: cand_plain_job's result)
+    and its bound: the larger of the operations the walk needs over
+    every INT32 lane and its bytes over device memory."""
+    fn = cand_call(t, DEV)
+    T, bad = fn()
+    pT, need, psecs = plain
+    e = int(np.abs(T.cpu().numpy().astype(np.int64)
+                   - pT.astype(np.int64)).max())
+    if e or int(bad.cpu()[0]):
+        raise SystemExit("[wide-main] a main-path launch and its plain "
+                         "version disagree")
+    ms = launch_ms(fn, 5)
+    dms = device_ms(fn, 10)
+    nbytes = cand_bytes(t)
+    t_ops = 1e3 * need / (N_SM * INT32_LANES_PER_SM * clock_hz)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return dict(ms=ms, device_ms=dms, plain_ms=1e3 * psecs,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                err=e, ops=need, bytes=nbytes)
+
+
+def timing_words(tag, r):
+    return (f"{tag}: kernel {r['ms']:.4f} ms launch to end (mean of 5), "
+            f"{r['device_ms']:.4f} ms on the device, plain (CPU, one "
+            f"thread) {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
+            f"by {r['bound_by']} ({r['ops']} operations, {r['bytes']} "
+            f"bytes; {r['bound_ms'] / r['device_ms']:.4f} of the device "
+            f"time); equal")
+
+
+def phase_wide_main(clock_hz):
+    """The candidate-table route on the main path: the crash-free twin of
+    the JAX package's wide-state bench history (a 40-value CAS register,
+    WIDE_N_OPS calls, 16 processes, max_open 6: 42 states) through
+    Linearizable, valid on wgl_cand_dense, and its planted twin invalid
+    at the CPU oracle's op; WIDE_KEYS wide keys through check_many in one
+    J = 1 launch, verdicts equal to the CPU oracle's on a sample; a
+    counter mod 3 (undecomposed, 3 states) through Linearizable on
+    wgl_cand_bits' nibble form, valid and planted; and an envelope
+    history at max_open 8 as a PreparedHistory through wgl_seg.check on
+    wgl_cand_bits.  The launch counts are read over these calls.  Then
+    the keys' launch, rebuilt by check_many's host half, held bit for bit
+    against its plain version; the wide history's and the envelope's
+    launches timed against their plain versions (started in worker
+    processes before the checks); and the envelope's tables timed in both
+    forms."""
+    from jepsen_tpu_torch import convert
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import cand_kernel, wgl_cpu, wgl_seg
+    from jepsen_tpu_torch.ops.prep import prepare
+    t00 = time.perf_counter()
+    model = CASRegister()
+    h = make_history(WIDE_N_OPS, 16, seed=67, vmax=WIDE_VMAX, max_open=6)
+    hp = copy_history(h)
+    planted = plant_stale_read(hp, 0.9, WIDE_VMAX)
+    keys = [convert.history_from_dicts(key_dicts(
+        5000 + k, n_calls=40, conc=5, vmax=WIDE_VMAX,
+        buggy=0.05 if k % 97 == 3 else 0.0)) for k in range(WIDE_KEYS)]
+    cm = mod_counter(3)
+    ch = convert.history_from_dicts(counter_dicts(
+        940, 3, n_calls=COUNTER_N_OPS, conc=5, max_open=5))
+    chp = convert.history_from_dicts(counter_dicts(
+        940, 3, n_calls=COUNTER_N_OPS, conc=5, max_open=5, buggy=0.01))
+    env = make_history(WIDE_N_OPS, 16, seed=53, max_open=8)
+    env_prep = prepare(env)
+    # the main path's launches, for their plain versions (worker
+    # processes, running while the checks run): the wide history's
+    # (dense, J = Sn) and the envelope's (bits, J = Sn, R = 8)
+    td = cand_tables(model, h, "Sn")
+    tb = cand_tables(model, env_prep, "Sn")
+    ctx = multiprocessing.get_context("spawn")
+    pool = ProcessPoolExecutor(3, mp_context=ctx)
+    fd, fb = (pool.submit(cand_plain_job, x) for x in (td, tb))
+    attach_columns("the wide histories", [h, hp])
+    # the run holds millions of earlier phases' ops: collect them now, so
+    # a full collection does not land inside the first timed check
+    t = time.perf_counter()
+    gc.collect()
+    log(f"[wide-main] gc.collect() before the checks: "
+        f"{time.perf_counter() - t:.3f} s")
+    out = {}
+    for k in cand_kernel.LAUNCHES:
+        cand_kernel.LAUNCHES[k] = 0
+    t = time.perf_counter()
+    r = Linearizable(model).check(None, h)
+    out["valid"] = (r, time.perf_counter() - t)
+    t = time.perf_counter()
+    rp = Linearizable(model).check(None, hp)
+    out["planted"] = (rp, time.perf_counter() - t)
+    st: dict = {}
+    t = time.perf_counter()
+    rk = wgl_seg.check_many(model, keys, stats=st)
+    out["keys"] = (rk, time.perf_counter() - t)
+    t = time.perf_counter()
+    rc = Linearizable(cm).check(None, ch)
+    rcp = Linearizable(cm).check(None, chp)
+    out["counter"] = ((rc, rcp), time.perf_counter() - t)
+    t = time.perf_counter()
+    re_ = wgl_seg.check(model, env_prep)
+    out["prepared"] = (re_, time.perf_counter() - t)
+    launches = dict(cand_kernel.LAUNCHES)
+    # the verdicts against the CPU oracle
+    t = time.perf_counter()
+    o = wgl_cpu.check(model, hp)
+    d = r["dispatch"]
+    ok = (r["valid?"] is True and r["engine"] == "wgl_seg"
+          and d.get("kernel") == "wgl_cand_dense" and r["states"] >= 33)
+    log(f"[wide-main] {WIDE_N_OPS} calls, 16 processes, vmax {WIDE_VMAX}, "
+        f"max_open 6 via Linearizable: valid?={r['valid?']} "
+        f"engine={r['engine']} kernel={d.get('kernel')} "
+        f"states={r.get('states')} R={r.get('max_open')} "
+        f"segments={r.get('segments')} in {out['valid'][1]:.3f} s "
+        f"(plan {r['time_plan_s']:.3f} s, kernel and composition "
+        f"{r['time_kernel_s']:.4f} s) {'OK' if ok else 'WRONG'}")
+    ok_p = (rp["valid?"] is False and rp.get("op_index") == planted
+            == o.get("op_index") and o["valid?"] is False
+            and rp["dispatch"].get("kernel") == "wgl_cand_dense")
+    log(f"[wide-main] planted stale read via Linearizable: "
+        f"valid?={rp['valid?']} op_index={rp.get('op_index')} "
+        f"planted={planted} CPU oracle's={o.get('op_index')} "
+        f"({time.perf_counter() - t:.2f} s) "
+        f"dead_segment={rp.get('dead_segment')} in "
+        f"{out['planted'][1]:.3f} s {'OK' if ok_p else 'WRONG'}")
+    sample = [i for i, x in enumerate(rk) if x["valid?"] is False]
+    sample += list(range(0, WIDE_KEYS, 16))
+    want = {i: wgl_cpu.check(model, keys[i])["valid?"] for i in sample}
+    ok_k = (all(rk[i]["valid?"] == v for i, v in want.items())
+            and st.get("launches") == 1
+            and all(x["engine"] == "wgl_seg_batch" for x in rk)
+            and rk[0]["dispatch"].get("kernel") == "wgl_cand_dense")
+    log(f"[wide-main] {WIDE_KEYS} wide keys (40 calls, vmax {WIDE_VMAX}) "
+        f"via check_many: {sum(x['valid?'] is False for x in rk)} invalid, "
+        f"engine {rk[0]['engine']}, kernel "
+        f"{rk[0]['dispatch'].get('kernel')}, {st.get('launches')} launch, "
+        f"kernel {st.get('kernel_ms', 0.0):.4f} ms on the device; "
+        f"{len(want)} keys against the CPU oracle "
+        f"(the invalid ones and every 16th) in {out['keys'][1]:.3f} s "
+        f"{'OK' if ok_k else 'WRONG'}")
+    oc = wgl_cpu.check(cm, chp)
+    ok_c = (rc["valid?"] is True and rcp["valid?"] is False
+            and rcp.get("op_index") == oc.get("op_index")
+            and rc["dispatch"].get("kernel") == "wgl_cand_bits"
+            and rc["dispatch"].get("form") == "bits")
+    log(f"[wide-main] counter mod 3 ({COUNTER_N_OPS} calls, 5 processes) "
+        f"via Linearizable: valid?={rc['valid?']} kernel="
+        f"{rc['dispatch'].get('kernel')} states={rc.get('states')} "
+        f"R={rc.get('max_open')}; planted twin valid?={rcp['valid?']} "
+        f"op_index={rcp.get('op_index')} CPU oracle's="
+        f"{oc.get('op_index')}; both in {out['counter'][1]:.3f} s "
+        f"{'OK' if ok_c else 'WRONG'}")
+    ok_e = (re_["valid?"] is True
+            and re_["dispatch"].get("kernel") == "wgl_cand_bits")
+    log(f"[wide-main] envelope history at max_open 8 ({WIDE_N_OPS} calls) "
+        f"as a PreparedHistory via wgl_seg.check: valid?={re_['valid?']} "
+        f"kernel={re_['dispatch'].get('kernel')} R={re_.get('max_open')} "
+        f"states={re_.get('states')} segments={re_.get('segments')} in "
+        f"{out['prepared'][1]:.3f} s {'OK' if ok_e else 'WRONG'}")
+    log(f"[wide-main] launches on this path: {launches}")
+    if not (ok and ok_p and ok_k and ok_c and ok_e):
+        pool.shutdown(wait=False, cancel_futures=True)
+        raise SystemExit("[wide-main] a verdict is wrong")
+    if not (launches["wgl_cand_dense"] >= 3 and launches["wgl_cand_bits"]
+            >= 3):
+        pool.shutdown(wait=False, cancel_futures=True)
+        raise SystemExit(f"[wide-main] the candidate-table kernels were not "
+                         f"launched on the main path: {launches}")
+    # the keys' J = 1 launch rebuilt by check_many's host half, against
+    # its plain version bit for bit
+    tk = cand_key_tables(model, keys)
+    fk = pool.submit(cand_plain_job, tk)
+    with pool:
+        Tk, bad = cand_call(tk, DEV)()
+        pTk, _, ksecs = fk.result()
+        if int(bad.cpu()[0]) or not np.array_equal(Tk.cpu().numpy(), pTk):
+            raise SystemExit("[wide-main] the keys' launch and its plain "
+                             "version disagree")
+        log(f"[wide-main] the {WIDE_KEYS} keys' wgl_cand_{tk['form']} "
+            f"launch (K={tk['K']} L={tk['ret'].shape[0]} "
+            f"C={tk['cslot'].shape[2]} R={tk['R']} Sn={tk['Sn']} J=1) "
+            f"rebuilt by check_many's host half: equal to its plain "
+            f"version bit for bit (plain {1e3 * ksecs:.1f} ms)")
+        timing = {"dense": cand_timing(td, clock_hz, fd.result()),
+                  "bits": cand_timing(tb, clock_hz, fb.result())}
+    log("[wide-main] " + timing_words(
+        f"wgl_cand_dense launch of the wide history (K={td['K']} "
+        f"L={td['ret'].shape[0]} C={td['cslot'].shape[2]} R={td['R']} "
+        f"Sn={td['Sn']} J={td['J']})", timing["dense"]))
+    log("[wide-main] " + timing_words(
+        f"wgl_cand_bits launch of the envelope history (K={tb['K']} "
+        f"L={tb['ret'].shape[0]} C={tb['cslot'].shape[2]} R={tb['R']} "
+        f"Sn={tb['Sn']} J={tb['J']})", timing["bits"]))
+    # the envelope's tables in the dense form too: the same transfer rows,
+    # each form timed on them in turn
+    tbd = cand_tables(model, env_prep, "Sn", form="dense")
+    fn_b, fn_d = cand_call(tb, DEV), cand_call(tbd, DEV)
+    if not torch.equal(fn_b()[0], fn_d()[0]):
+        raise SystemExit("[wide-main] the two forms disagree on the "
+                         "envelope's tables")
+    pair = [(device_ms(fn_b, 10), device_ms(fn_d, 10)) for _ in range(2)]
+    log(f"[wide-main] the envelope's tables in both forms, equal; on the "
+        f"device, bits then dense, twice: "
+        + ", ".join(f"{b:.4f} / {d:.4f} ms" for b, d in pair))
+    log(f"[wide-main] phase in {time.perf_counter() - t00:.1f} s")
+    return launches, timing
+
+
+def phase_wide_crash(clock_hz):
+    """The JAX package's wide-state crash regime (bench.py:1717-1740: a
+    40-value CAS register, WIDE_N_OPS calls, 16 processes, 1% crashed
+    with values 0..30, max_open 6, a stale read planted at 90% depth with
+    values 0..30 forbidden) through wgl_seg.check (localize off, as the
+    bench): refuted by the relaxed tier at W = 2 with the planted read as
+    its exact witness, the W = 2 launches counted; then the relaxed
+    launch and the dead segment's death row against their plain version
+    and timed."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import crash_kernel, regs_kernel, wgl_seg
+    t00 = time.perf_counter()
+    h = make_history(WIDE_N_OPS, 16, seed=67, vmax=WIDE_VMAX,
+                     crash_rate=0.01, max_open=6, crash_vmax=30)
+    planted = plant_stale_read(h, 0.9, WIDE_VMAX, forbidden=set(range(31)))
+    if planted is None:
+        raise SystemExit("[wide-crash] no plantable stale read")
+    attach_columns("the wide crash history", [h])
+    model = CASRegister()
+    crash_kernel.LAUNCHES["wgl_regs_relaxed_w2"] = 0
+    st: dict = {}
+    t = time.perf_counter()
+    r = wgl_seg.check(model, h, max_open_bits=12, localize=False, stats=st)
+    wall = time.perf_counter() - t
+    launches = crash_kernel.LAUNCHES["wgl_regs_relaxed_w2"]
+    ok = (r["valid?"] is False and r.get("refutation") == "crash-relaxed"
+          and r.get("witness") == "relaxed-exact"
+          and r.get("op_index") == planted and r.get("states", 0) > 32
+          and launches >= 2)
+    log(f"[wide-crash] {WIDE_N_OPS} calls, {r.get('crashed')} crashed, "
+        f"vmax {WIDE_VMAX}: valid?={r['valid?']} "
+        f"refutation={r.get('refutation')} witness={r.get('witness')} "
+        f"op_index={r.get('op_index')} planted={planted} "
+        f"states={r.get('states')} R={r.get('max_open')} "
+        f"dead_segment={r.get('dead_segment')} in {wall:.3f} s; "
+        f"stages: {stage_line(st)}; W = 2 launches {launches} "
+        f"{'OK' if ok else 'WRONG'}")
+    if not ok:
+        raise SystemExit("[wide-crash] the relaxed tier at W = 2 did not "
+                         "refute the planted read exactly")
+    # the plain version runs in PyTorch on the card here: on a CPU thread
+    # the walk of this history takes minutes
+    ri = relaxed_inputs(h)
+    Tr, wr, _, (ms_r, dms_r) = crash_run(ri, DEV, "relaxed", reps=5)
+    vd = regs_kernel.compose(torch.from_numpy(Tr).to(DEV),
+                             [ri["K"]]).cpu()[0].tolist()
+    dead = vd[1]
+    seed = (vd[2] & 0xFFFFFFFF) | (vd[3] & 0xFFFFFFFF) << 32
+    dr, dw, _, (ms_d, dms_d) = crash_run(ri, DEV, "death", [dead], seed,
+                                         reps=5)
+    pdr, pdw, pdn, pd_s = plain_crash_job(ri, "death", [dead], seed, DEV)
+    pd_ms = 1e3 * pd_s
+    pTr, pwr, pnr, rsecs = plain_crash_job(ri, "relaxed", dev=DEV)
+    if not (np.array_equal(Tr, pTr) and np.array_equal(wr, pwr)
+            and int(dr[0]) == int(pdr[0]) and np.array_equal(dw, pdw)):
+        raise SystemExit("[wide-crash] the W = 2 relaxed kernel and its "
+                         "plain version disagree")
+    rbytes = crash_wire_bytes(ri, Tr.nbytes)
+    br = seg_bound_ms(int(pnr.sum()), rbytes, clock_hz)
+    dbytes = crash_wire_bytes(dict(ri, offs=ri["offs"][[dead]]), 4)
+    bd = seg_bound_ms(int(pdn.sum()), dbytes, clock_hz)
+    by = ("operations" if int(pnr.sum()) / (N_SM * INT32_LANES_PER_SM
+                                             * clock_hz)
+          >= rbytes / HBM_BYTES_PER_S else "bytes")
+    res = dict(ms=ms_r, device_ms=dms_r, plain_ms=1e3 * rsecs, bound_ms=br,
+               bound_by=by, err=int(np.abs(Tr.astype(np.int64)
+                                           - pTr.astype(np.int64)).max()),
+               death=dict(ms=ms_d, device_ms=dms_d, plain_ms=pd_ms,
+                          bound_ms=bd))
+    log(f"[wide-crash] W = 2 relaxed launch: K={ri['K']} segments, "
+        f"rows={int(ri['nrows'].sum())}, R={ri['R']}, Sn={ri['Sn']}, "
+        f"{ri['nC']} crash prefixes: dead segment {dead}, kernel "
+        f"{ms_r:.3f} ms launch to end (mean of 5), {dms_r:.3f} ms on the "
+        f"device, plain (PyTorch on the card) {1e3 * rsecs:.1f} ms, bound "
+        f"{br:.4f} ms from the {int(pnr.sum())} integer operations it "
+        f"needs ({br / dms_r:.4f} of the device time), work="
+        f"{int(wr.sum())}; equal")
+    log(f"[wide-crash] W = 2 death row of the dead segment: row "
+        f"{int(dr[0])}, kernel {ms_d:.3f} ms launch to end (mean of 5), "
+        f"{dms_d:.3f} ms on the device, plain (on the card) {pd_ms:.1f} "
+        f"ms, bound {bd:.5f} ms from the {int(pdn.sum())} integer "
+        f"operations it needs; equal")
+    log(f"[wide-crash] phase in {time.perf_counter() - t00:.1f} s")
+    return launches, res
+
+
+#: Wall seconds of each phase of this run, in order (`timed`).
+PHASE_S: dict = {}
+
+
+def timed(fn, *args):
+    """fn(*args), its wall seconds kept in PHASE_S under fn's name."""
+    t = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[fn.__name__.removeprefix("phase_")] = \
+            time.perf_counter() - t
+
+
 def main() -> int:
-    smi, clock_hz = phase_device()
-    built = phase_build()
-    err = phase_kernel(clock_hz)
-    seg_err = phase_seg_kernel(clock_hz)
-    batches, verdicts, launches = phase_main()
-    grid_err = phase_grid(batches, verdicts)
-    one = phase_timing(batches, clock_hz)
-    seg_hs, seg_launches = phase_seg_main()
-    phase_scan(seg_hs, batches[12])
-    seg = phase_seg_grid(seg_hs, clock_hz)
-    crash_err = phase_crash_kernel(clock_hz)
-    crash_main = phase_crash_main(seg_hs)
-    crash_launches = phase_crash_pipeline(seg_hs, crash_main)
-    crash = phase_crash_timing(crash_main, clock_hz)
-    compose_err = phase_compose(seg, crash)
-    many_hs, many_launches = phase_many_main()
-    phase_many_crash()
-    keys = phase_many_kernel(many_hs, built, clock_hz)
-    phase_many_independent(many_hs)
-    serial_err = phase_serial_kernel(clock_hz)
-    serial_launches, serial, serial_first = phase_serial_main(clock_hz)
-    phase_serial_crash(clock_hz)
-    elle_stacks = elle_bench_stacks()
-    elle = phase_elle_kernel(built, elle_stacks, clock_hz)
-    phase_elle_main(elle_stacks)
-    elle_launches = phase_elle_check()
-    fold = phase_fold()
-    cyc = phase_cycle(clock_hz)
-    lat_launches, lat_packed, lat_rounds = phase_lattice()
-    lat = phase_lattice_kernel(lat_packed, lat_rounds, clock_hz)
+    t_run = time.perf_counter()
+    smi, clock_hz = timed(phase_device)
+    built = timed(phase_build)
+    err = timed(phase_kernel, clock_hz)
+    seg_err = timed(phase_seg_kernel, clock_hz)
+    batches, verdicts, launches = timed(phase_main)
+    grid_err = timed(phase_grid, batches, verdicts)
+    one = timed(phase_timing, batches, clock_hz)
+    seg_hs, seg_launches = timed(phase_seg_main)
+    timed(phase_scan, seg_hs, batches[12])
+    seg = timed(phase_seg_grid, seg_hs, clock_hz)
+    crash_err = timed(phase_crash_kernel, clock_hz)
+    crash_main = timed(phase_crash_main, seg_hs)
+    crash_launches = timed(phase_crash_pipeline, seg_hs, crash_main)
+    crash = timed(phase_crash_timing, crash_main, clock_hz)
+    compose_err = timed(phase_compose, seg, crash)
+    many_hs, many_launches = timed(phase_many_main)
+    timed(phase_many_crash)
+    keys = timed(phase_many_kernel, many_hs, built, clock_hz)
+    timed(phase_many_independent, many_hs)
+    serial_err = timed(phase_serial_kernel, clock_hz)
+    serial_launches, serial, serial_first = timed(phase_serial_main, clock_hz)
+    timed(phase_serial_crash, clock_hz)
+    elle_stacks = timed(elle_bench_stacks)
+    elle = timed(phase_elle_kernel, built, elle_stacks, clock_hz)
+    timed(phase_elle_main, elle_stacks)
+    elle_launches = timed(phase_elle_check)
+    fold = timed(phase_fold)
+    cyc = timed(phase_cycle, clock_hz)
+    lat_launches, lat_packed, lat_rounds = timed(phase_lattice)
+    lat = timed(phase_lattice_kernel, lat_packed, lat_rounds, clock_hz)
     del lat_packed
+    cand_err = timed(phase_cand_kernel)
+    cand_launches, cand = timed(phase_wide_main, clock_hz)
+    w2_launches, w2 = timed(phase_wide_crash, clock_hz)
+    log("[time] seconds a phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_S.items())
+        + f"; {time.perf_counter() - t_run:.1f} s since the start of main")
     kernels = [{"name": f"wgl_deep_{arm}", "route": "cuda",
                 "source": "jepsen_tpu_torch/csrc/wgl_deep.cu",
                 "replaces": "jepsen_tpu/ops/wgl_deep.py:358",
@@ -4992,6 +5645,25 @@ def main() -> int:
                         "summed": {k: lat["closure"]["closure"][k]
                                    for k in ("ms", "device_ms", "bound_ms",
                                              "bound_by")}}})
+    for form in ("bits", "dense"):
+        kernels.append({"name": f"wgl_cand_{form}", "route": "cuda",
+                        "source": "jepsen_tpu_torch/csrc/wgl_cand.cu",
+                        "replaces": ("jepsen_tpu/ops/wgl_seg.py:105"
+                                     if form == "bits" else
+                                     "jepsen_tpu/ops/wgl_seg.py:787"),
+                        "launches": cand_launches[f"wgl_cand_{form}"],
+                        "max_abs_err": max(cand_err[form],
+                                           cand[form]["err"]),
+                        **{k: cand[form][k] for k in figures
+                           if k != "library_ms"},
+                        "library_ms": None})
+    kernels.append({"name": "wgl_regs_relaxed_w2", "route": "cuda",
+                    "source": "jepsen_tpu_torch/csrc/wgl_crash.cu",
+                    "replaces": "jepsen_tpu/ops/wgl_seg.py:565",
+                    "launches": w2_launches, "max_abs_err": w2["err"],
+                    **{k: w2[k] for k in figures if k != "library_ms"},
+                    "library_ms": None, "plain_on": "cuda",
+                    "death_row": w2["death"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

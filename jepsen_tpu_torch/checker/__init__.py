@@ -132,9 +132,11 @@ def concurrency_limit(limit: int, checker: Checker) -> Checker:
 
 class Linearizable(Checker):
     """algorithm: 'device' (or 'auto', the same here) checks on
-    `device`, the card by default: `wgl_seg.check` first, and a history
-    it refuses (`Unsupported`: overlap past max_open_bits or 16, states
-    past max_states, crashed calls no crash tier settles) through the
+    `device`, the card by default: `wgl_seg.check` first (its results,
+    the candidate-table route's included, carry their dispatch record),
+    and a history it refuses (`Unsupported`: overlap past max_open_bits
+    or 16, or past 10 beyond the deep kernel's states, states past
+    max_states, crashed calls no crash tier settles) through the
     serial frontier engine `wgl.check`, as the reference's
     `_device_check` does.  'cpu' runs the exact CPU oracle because the
     caller asks for it.  A model without a device spec raises

@@ -40,6 +40,16 @@
 // ballot finds that no lane of it changed (a lane that did not change is
 // at its fixpoint and stays there).
 //
+// Two-word state masks (W = 2, the relaxed tier's lift to 33..64 states,
+// jepsen_tpu/ops/wgl_seg.py:565-612 with sn_words=2): every per-state mask
+// (aux a1[UP][W] ++ a2[UP][W] ++ t0[UP], ctab[nC][Sn][W], the death row's
+// 64-bit seed) holds state s in word s / 32, and a thread keeps two state
+// rows, s and s + 32, so a lane of 64 rows stays one warp: the rank-1 OR
+// and the closure stay shuffles (a source row's thread s % 32, its row s /
+// 32), a row stages 32 event rows a chunk (its closure masks take 512
+// bytes a row).  With W = 1 every shape and name below is the one-row
+// case.
+//
 // Layout.  One thread per (lane j, state row s), as wgl_regs.cu: a
 // lane's SnP rows sit on SnP consecutive threads of one warp (4, 2 or 1
 // lanes a warp at SnP 8, 16 or 32), and each thread keeps its row's WD
@@ -121,7 +131,6 @@ namespace {
 
 constexpr int MAXR = 8;          // deepest R = rn + nc the kernel walks
 constexpr int I = 2;             // invoke columns per event row
-constexpr int CHUNK = 64;        // event rows staged per step
 constexpr int MAXT = 128;        // threads a CTA at most
 // CTAs an SM must hold at once (the crash variant: at most 64 registers
 // a thread; the relaxed variant and the death row take what they need)
@@ -133,6 +142,11 @@ constexpr int CLOSE5_OPS = 4;    // per state row and receiving word, b >= 5
 constexpr int PRUNE_OPS = 2;     // per word (receiving word at b >= 5)
 constexpr int CLOSURE_OPS = 2;   // per (source, target) pair and word
 
+// Event rows staged per step: 64, or 32 with two-word state masks (the
+// row's closure masks then take 512 bytes).
+template <int W>
+__host__ __device__ constexpr int chunk() { return W == 1 ? 64 : 32; }
+
 // Bit i of intra(b) is set iff mask index i lacks bit b (b < 5).
 __host__ __device__ constexpr uint32_t intra(int b) {
     return b == 0 ? 0x55555555u : b == 1 ? 0x33333333u
@@ -142,23 +156,24 @@ __host__ __device__ constexpr uint32_t intra(int b) {
 // The rank-1 term's sources of a uop, from its const mask a2: none,
 // one state (its index), or many; a slot's kind of sources.
 constexpr int SRC_NONE = -1;
-constexpr int SRC_MANY = 32;
+constexpr int SRC_MANY = 255;
 constexpr int SRC_KIND_NONE = 0;
 constexpr int SRC_KIND_ONE = 1;
 constexpr int SRC_KIND_MANY = 2;
 
-template <int SNP, bool CLOSE>
+template <int SNP, bool CLOSE, int W>
 struct Stage {
-    int32_t ret[CHUNK];
-    int32_t slot[CHUNK][I];
-    int32_t t0[CHUNK][I];
-    int32_t src[CHUNK][I];
-    uint32_t a1[CHUNK][I];
-    uint32_t a2[CHUNK][I];
-    // the row's ctab masks (0 past Sn), and bit s: source s may jump to
-    // another live state
-    uint32_t cmask[CLOSE ? CHUNK : 1][SNP];
-    uint32_t csrc[CLOSE ? CHUNK : 1];
+    int32_t ret[chunk<W>()];
+    int32_t slot[chunk<W>()][I];
+    int32_t t0[chunk<W>()][I];
+    int32_t src[chunk<W>()][I];
+    uint32_t a1[chunk<W>()][I][W];
+    uint32_t a2[chunk<W>()][I][W];
+    // the row's ctab masks (0 past Sn; word w of source q's mask holds
+    // targets 32 w ..), and whether some source may jump to another
+    // live state
+    uint32_t cmask[CLOSE ? chunk<W>() : 1][SNP * W][W];
+    uint32_t csrc[CLOSE ? chunk<W>() : 1];
 };
 
 // OR of v over the SNP consecutive threads of this thread's lane.
@@ -175,108 +190,124 @@ __device__ __forceinline__ uint32_t ones_if(uint32_t x) {
     return uint32_t(int32_t(x << (31 - B)) >> 31);
 }
 
-// One pass of slot B over this thread's state row, in place, OR-ing the
-// bits it adds into `grew`.  Bit B of dbits / cbits / tbits: the row is
-// in the slot's a1, in its a2, is its target state t0; kind, src: the
-// slot's rank-1 sources (the segment's, so the branch is uniform): none,
-// one row (a shuffle from warp thread src), or many (an OR over the
+// One pass of slot B over this thread's W state rows (row h is state s +
+// SNP h), in place, OR-ing the bits it adds into `grew`.  Bit B of
+// dbits / cbits / tbits [h]: row h is in the slot's a1, in its a2, is its
+// target state t0; kind, src: the slot's rank-1 sources (the segment's,
+// so the branch is uniform): none, one row (bits 0-4: the warp thread
+// that holds it, bit 5: which of its rows), or many (an OR over the
 // lane of the words of the rows in a2).
-template <int WD, int SNP, int B>
-__device__ __forceinline__ void pass(uint32_t (&fr)[WD], uint32_t &grew,
-                                     uint32_t dbits, uint32_t cbits,
-                                     uint32_t tbits, int kind, int src) {
-    const uint32_t dm = ones_if<B>(dbits), tm = ones_if<B>(tbits);
+template <int WD, int SNP, int W, int B>
+__device__ __forceinline__ void pass(uint32_t (&fr)[W][WD], uint32_t &grew,
+                                     const uint32_t (&dbits)[W],
+                                     const uint32_t (&cbits)[W],
+                                     const uint32_t (&tbits)[W], int kind,
+                                     int src) {
     // word w holds configs lacking the slot (all of them at b < 5, none
     // at b >= 5 if bit b - 5 of w is set) and sends them to word w | H
     constexpr int H = B < 5 ? 0 : 1 << (B - 5);
-    auto src_word = [&](int w) {
-        if constexpr (B < 5) return fr[w] & intra(B);
-        else return fr[w];
+    auto src_word = [&](int h, int w) {
+        if constexpr (B < 5) return fr[h][w] & intra(B);
+        else return fr[h][w];
     };
-    auto add = [&](int w, uint32_t moved) {
+    auto add = [&](int h, int w, uint32_t moved) {
         if constexpr (B < 5) moved <<= 1 << B;
-        grew |= moved & ~fr[w];
-        fr[w] |= moved;
+        grew |= moved & ~fr[h][w];
+        fr[h][w] |= moved;
     };
     if constexpr (B >= 5 && H >= WD) {
         return;
-    } else if (kind == SRC_KIND_MANY) {
-        const uint32_t cm = ones_if<B>(cbits);
-#pragma unroll
-        for (int w = 0; w < WD; ++w) {
-            if (w & H) continue;
-            const uint32_t x = src_word(w);
-            add(w | H, (x & dm) | (or_lane<SNP>(x & cm) & tm));
-        }
-    } else if (kind == SRC_KIND_ONE) {
-#pragma unroll
-        for (int w = 0; w < WD; ++w) {
-            if (w & H) continue;
-            const uint32_t x = src_word(w);
-            add(w | H, (x & dm) | (__shfl_sync(FULL, x, src) & tm));
-        }
     } else {
 #pragma unroll
         for (int w = 0; w < WD; ++w) {
             if (w & H) continue;
-            add(w | H, src_word(w) & dm);
+            uint32_t x[W];
+#pragma unroll
+            for (int h = 0; h < W; ++h) x[h] = src_word(h, w);
+            uint32_t r1 = 0u;            // the rank-1 term's OR
+            if (kind == SRC_KIND_MANY) {
+                uint32_t v = 0u;
+#pragma unroll
+                for (int h = 0; h < W; ++h) v |= x[h] & ones_if<B>(cbits[h]);
+                r1 = or_lane<SNP>(v);
+            } else if (kind == SRC_KIND_ONE) {
+                const uint32_t pick = W > 1 && (src & 32) ? x[W - 1] : x[0];
+                r1 = __shfl_sync(FULL, pick, src & 31);
+            }
+#pragma unroll
+            for (int h = 0; h < W; ++h)
+                add(h, w | H, (x[h] & ones_if<B>(dbits[h]))
+                                  | (r1 & ones_if<B>(tbits[h])));
         }
     }
 }
 
 // Prune the configs lacking slot B and clear its bit.
-template <int WD, int B>
-__device__ __forceinline__ void retire(uint32_t (&fr)[WD]) {
-    if constexpr (B < 5) {
+template <int WD, int W, int B>
+__device__ __forceinline__ void retire(uint32_t (&fr)[W][WD]) {
 #pragma unroll
-        for (int w = 0; w < WD; ++w)
-            fr[w] = (fr[w] & ~intra(B)) >> (1 << B);
-    } else if constexpr ((1 << (B - 5)) < WD) {
-        constexpr int H = 1 << (B - 5);
+    for (int h = 0; h < W; ++h) {
+        if constexpr (B < 5) {
 #pragma unroll
-        for (int w = 0; w < WD; ++w) {
-            if (w & H) continue;
-            fr[w] = fr[w | H];
-            fr[w | H] = 0u;
+            for (int w = 0; w < WD; ++w)
+                fr[h][w] = (fr[h][w] & ~intra(B)) >> (1 << B);
+        } else if constexpr ((1 << (B - 5)) < WD) {
+            constexpr int H = 1 << (B - 5);
+#pragma unroll
+            for (int w = 0; w < WD; ++w) {
+                if (w & H) continue;
+                fr[h][w] = fr[h][w | H];
+                fr[h][w | H] = 0u;
+            }
         }
     }
 }
 
-// Close the lane's states under the row's jumps, in place: row t takes
-// every row s with s -> t allowed (bit s of col).  The SNP shuffles of a
-// word are independent of each other, so they issue back to back.
-// Reading rows before the closure gives the closed set, since the jumps
-// are transitive.
-template <int WD, int SNP>
-__device__ __forceinline__ void close_states(uint32_t (&fr)[WD],
-                                             uint32_t col, int lane0) {
-    uint32_t acc[WD];
+// Close the lane's states under the row's jumps, in place: row h takes
+// every row q with q -> (s + SNP h) allowed (bit q % 32 of col[h][q /
+// 32]).  The shuffles are independent of each other, so they issue back
+// to back.  Reading rows before the closure gives the closed set, since
+// the jumps are transitive.
+template <int WD, int SNP, int W>
+__device__ __forceinline__ void close_states(uint32_t (&fr)[W][WD],
+                                             const uint32_t (&col)[W][W],
+                                             int lane0) {
+    uint32_t acc[W][WD];
 #pragma unroll
-    for (int w = 0; w < WD; ++w) acc[w] = fr[w];
+    for (int h = 0; h < W; ++h)
 #pragma unroll
-    for (int q = 0; q < SNP; ++q) {
-        const uint32_t sel = 0u - ((col >> q) & 1u);
+        for (int w = 0; w < WD; ++w) acc[h][w] = fr[h][w];
 #pragma unroll
-        for (int w = 0; w < WD; ++w)
-            acc[w] |= __shfl_sync(FULL, fr[w], lane0 + q) & sel;
+    for (int q = 0; q < SNP * W; ++q) {
+#pragma unroll
+        for (int w = 0; w < WD; ++w) {
+            const uint32_t v = __shfl_sync(FULL, fr[q / SNP][w],
+                                           lane0 + q % SNP);
+#pragma unroll
+            for (int h = 0; h < W; ++h)
+                acc[h][w] |= v & (0u - ((col[h][q / 32] >> (q % 32)) & 1u));
+        }
     }
 #pragma unroll
-    for (int w = 0; w < WD; ++w) fr[w] = acc[w];
+    for (int h = 0; h < W; ++h)
+#pragma unroll
+        for (int w = 0; w < WD; ++w) fr[h][w] = acc[h][w];
 }
 
 }  // namespace
 
-template <int WD, int SNP, bool CLOSE>
+template <int WD, int SNP, bool CLOSE, int W>
 __global__ void __launch_bounds__(MAXT, CLOSE ? 1 : MIN_CTAS)
 wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                  const int64_t *__restrict__ offs,
                  const int32_t *__restrict__ nrows,
                  const uint32_t *__restrict__ aux, int UP,
                  const uint32_t *__restrict__ ctab, int nC, int R, int Sn,
-                 int nc, int rn, int J, int LPC, int death, uint32_t seed,
-                 void *__restrict__ out, long long *__restrict__ work,
-                 int32_t *__restrict__ bad) {
-    __shared__ Stage<SNP, CLOSE> stage[2];
+                 int nc, int rn, int J, int LPC, int death,
+                 unsigned long long seed, void *__restrict__ out,
+                 long long *__restrict__ work, int32_t *__restrict__ bad) {
+    constexpr int CHUNK = chunk<W>();
+    __shared__ Stage<SNP, CLOSE, W> stage[2];
     constexpr int CELLS = CHUNK * I;
     constexpr int CPT = CELLS / 32;     // staged cells a thread, at most
     constexpr int RPT = CHUNK / 32;     // staged rows a thread, at most
@@ -285,7 +316,7 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
     const int lane = tid & 31;
     const int jl = tid / SNP;           // the lane inside this CTA
     const int j = blockIdx.y * LPC + jl;
-    const int s = tid % SNP;            // this thread's state row
+    const int s = tid % SNP;            // this thread's first state row
     const uint32_t gmask =
         SNP == 32 ? FULL : ((1u << (SNP & 31)) - 1u) << (lane & ~(SNP - 1));
     const bool real = jl < LPC && j < J;
@@ -300,7 +331,11 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
     const uint8_t *isl_b = ret_b + L;
     const uint8_t *iu_b = ret_b + 3LL * L;
     const uint8_t *cr_b = ret_b + 7LL * L;
-    const uint32_t live = Sn >= 32 ? FULL : (1u << Sn) - 1u;
+    uint32_t live[W];                   // word w: the live states 32 w ..
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+        live[w] = Sn >= 32 * (w + 1) ? FULL
+                  : Sn <= 32 * w ? 0u : (1u << (Sn - 32 * w)) - 1u;
     int refused = 0;                    // this thread staged a bad cell
 
     // the next chunk's wire bytes, loaded before a walk, stored after it:
@@ -333,7 +368,7 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
             }
         }
     };
-    auto store = [&](Stage<SNP, CLOSE> &st, int base) {
+    auto store = [&](Stage<SNP, CLOSE, W> &st, int base) {
         const int n = min(CHUNK, L - base);
 #pragma unroll
         for (int q = 0; q < RPT; ++q) {
@@ -353,13 +388,19 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                 }
                 uint32_t jumps = 0u;
 #pragma unroll
-                for (int q2 = 0; q2 < SNP; ++q2) {
-                    const uint32_t m =
-                        q2 < Sn ? ctab[(long long)cr * Sn + q2] : 0u;
-                    st.cmask[r][q2] = m;
-                    jumps |= (m & live & ~(1u << q2)) ? 1u << q2 : 0u;
+                for (int q2 = 0; q2 < SNP * W; ++q2) {
+#pragma unroll
+                    for (int w = 0; w < W; ++w) {
+                        const uint32_t m =
+                            q2 < Sn ? ctab[((long long)cr * Sn + q2) * W + w]
+                                    : 0u;
+                        st.cmask[r][q2][w] = m;
+                        const uint32_t self =
+                            q2 / 32 == w ? 1u << (q2 % 32) : 0u;
+                        jumps |= m & live[w] & ~self;
+                    }
                 }
-                st.csrc[r] = jumps;
+                st.csrc[r] = jumps != 0u;
             }
         }
 #pragma unroll
@@ -374,35 +415,49 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
             }
             st.slot[x / I][x % I] = sl;
             if (sl >= 0) {
-                const uint32_t a2 = aux[UP + u];
-                st.a1[x / I][x % I] = aux[u];
-                st.a2[x / I][x % I] = a2;
-                st.t0[x / I][x % I] = int(aux[2 * UP + u]);
-                st.src[x / I][x % I] = a2 == 0u ? SRC_NONE
-                    : (a2 & (a2 - 1u)) ? SRC_MANY : __ffs(a2) - 1;
+                int n2 = 0, one = SRC_NONE;
+#pragma unroll
+                for (int w = 0; w < W; ++w) {
+                    const uint32_t a2 = aux[(long long)W * UP + u * W + w];
+                    st.a1[x / I][x % I][w] = aux[u * W + w];
+                    st.a2[x / I][x % I][w] = a2;
+                    n2 += __popc(a2);
+                    if (a2 && one == SRC_NONE) one = 32 * w + __ffs(a2) - 1;
+                }
+                st.t0[x / I][x % I] = int(aux[2LL * W * UP + u]);
+                st.src[x / I][x % I] = n2 == 0 ? SRC_NONE
+                                       : n2 > 1 ? SRC_MANY : one;
             }
         }
     };
 
-    uint32_t fr[WD];
+    uint32_t fr[W][WD];
     {
-        int w0 = -1;                    // the word of the entry config
-        uint32_t v = 0u;
-        if (real && death) {
-            w0 = 0;
-            v = s < Sn ? (seed >> s) & 1u : 0u;
-        } else if (real && s == j % Sn) {
-            const int m0 = (j / Sn) << rn;
-            w0 = m0 >> 5;
-            v = 1u << (m0 & 31);
-        }
 #pragma unroll
-        for (int w = 0; w < WD; ++w) fr[w] = w == w0 ? v : 0u;
+        for (int h = 0; h < W; ++h) {
+            const int st = s + SNP * h;     // this row's state
+            int w0 = -1;                    // the word of the entry config
+            uint32_t v = 0u;
+            if (real && death) {
+                w0 = 0;
+                v = st < Sn ? uint32_t((seed >> st) & 1ull) : 0u;
+            } else if (real && st == j % Sn) {
+                const int m0 = (j / Sn) << rn;
+                w0 = m0 >> 5;
+                v = 1u << (m0 & 31);
+            }
+#pragma unroll
+            for (int w = 0; w < WD; ++w) fr[h][w] = w == w0 ? v : 0u;
+        }
     }
-    // bit b of dbits / cbits / tbits: this row is in slot b's a1, in its
+    // bit b of dbits / cbits / tbits [h]: row h is in slot b's a1, in its
     // a2, is its t0; 2-bit field b of kinds: slot b's rank-1 sources
-    // (none, one, many), 5-bit field b of srcs: the warp thread of the one
-    uint32_t dbits = 0u, cbits = 0u, tbits = 0u, kinds = 0u;
+    // (none, one, many), 6-bit field b of srcs: the warp thread (bits 0-4)
+    // and row (bit 5) of the one
+    uint32_t dbits[W], cbits[W], tbits[W];
+#pragma unroll
+    for (int h = 0; h < W; ++h) dbits[h] = cbits[h] = tbits[h] = 0u;
+    uint32_t kinds = 0u;
     unsigned long long srcs = 0ull;
     const int lane0 = lane & ~(SNP - 1);    // the lane's first thread
     uint32_t open = 0u;                 // bit b: slot b is open
@@ -421,34 +476,56 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
         const int n = min(CHUNK, L - base);
         const bool more = base + CHUNK < L;
         if (more) fetch(base + CHUNK);
-        const Stage<SNP, CLOSE> &st = stage[c & 1];
+        const Stage<SNP, CLOSE, W> &st = stage[c & 1];
         for (int r = 0; r < n; ++r) {
 #pragma unroll
             for (int i = 0; i < I; ++i) {
                 const int sl = st.slot[r][i];
                 if (sl < 0) continue;
                 const uint32_t bit = 1u << sl, keep = ~bit;
-                dbits = (dbits & keep) | (((st.a1[r][i] >> s) & 1u) << sl);
-                cbits = (cbits & keep) | (((st.a2[r][i] >> s) & 1u) << sl);
-                tbits = (tbits & keep) | (uint32_t(st.t0[r][i] == s) << sl);
+#pragma unroll
+                for (int h = 0; h < W; ++h) {
+                    const int sh = s + SNP * h;
+                    dbits[h] = (dbits[h] & keep)
+                        | (((st.a1[r][i][sh / 32] >> (sh % 32)) & 1u) << sl);
+                    cbits[h] = (cbits[h] & keep)
+                        | (((st.a2[r][i][sh / 32] >> (sh % 32)) & 1u) << sl);
+                    tbits[h] = (tbits[h] & keep)
+                        | (uint32_t(st.t0[r][i] == sh) << sl);
+                }
                 const int sv = st.src[r][i];
                 const uint32_t kind = sv == SRC_NONE ? SRC_KIND_NONE
                     : sv == SRC_MANY ? SRC_KIND_MANY : SRC_KIND_ONE;
                 kinds = (kinds & ~(3u << 2 * sl)) | (kind << 2 * sl);
-                srcs = (srcs & ~(31ull << 5 * sl))
-                       | ((unsigned long long)((lane0 + sv) & 31) << 5 * sl);
+                const unsigned long long at = kind == SRC_KIND_ONE
+                    ? (unsigned long long)(((lane0 + sv % SNP) & 31)
+                                           | (sv / SNP) << 5)
+                    : 0ull;
+                srcs = (srcs & ~(63ull << 6 * sl)) | (at << 6 * sl);
                 open |= bit;
             }
-            uint32_t col = 0u, csrc = 0u;
+            uint32_t col[W][W], csrc = 0u;
             if constexpr (CLOSE) {
-                // bit q of col: the jump q -> s is allowed
+                // bit q % 32 of col[h][q / 32]: the jump q -> s + SNP h is
+                // allowed
                 csrc = st.csrc[r];
                 if (csrc) {
 #pragma unroll
-                    for (int q = 0; q < SNP; ++q)
-                        col |= ((st.cmask[r][q] >> s) & 1u) << q;
-                    col = s < Sn ? col : 0u;
-                    close_states<WD, SNP>(fr, col, lane0);
+                    for (int h = 0; h < W; ++h) {
+                        const int sh = s + SNP * h;
+#pragma unroll
+                        for (int w = 0; w < W; ++w) col[h][w] = 0u;
+#pragma unroll
+                        for (int q = 0; q < SNP * W; ++q)
+                            col[h][q / 32] |=
+                                ((st.cmask[r][q][sh / 32] >> (sh % 32)) & 1u)
+                                << (q % 32);
+                        if (sh >= Sn) {
+#pragma unroll
+                            for (int w = 0; w < W; ++w) col[h][w] = 0u;
+                        }
+                    }
+                    close_states<WD, SNP, W>(fr, col, lane0);
                 }
                 ++n_close;
             }
@@ -459,9 +536,9 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                     uint32_t grew = 0u;
 #define WGL_PASS(B)                                                       \
     if (open & (1u << B))                                                 \
-        pass<WD, SNP, B>(fr, grew, dbits, cbits, tbits,                   \
-                         int((kinds >> 2 * B) & 3u),                      \
-                         int((srcs >> 5 * B) & 31u));
+        pass<WD, SNP, W, B>(fr, grew, dbits, cbits, tbits,                \
+                            int((kinds >> 2 * B) & 3u),                   \
+                            int((srcs >> 6 * B) & 63u));
                     WGL_PASS(0)
                     WGL_PASS(1)
                     WGL_PASS(2)
@@ -478,7 +555,7 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
                     const uint32_t changed = __ballot_sync(FULL, grew != 0u);
                     if constexpr (CLOSE) {
                         if (csrc && changed)
-                            close_states<WD, SNP>(fr, col, lane0);
+                            close_states<WD, SNP, W>(fr, col, lane0);
                     }
                     if (run) {
                         n_pass += lo;
@@ -492,14 +569,14 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
             const int rs = st.ret[r];
             if (rs >= 0) {
                 switch (rs) {
-                case 0: retire<WD, 0>(fr); break;
-                case 1: retire<WD, 1>(fr); break;
-                case 2: retire<WD, 2>(fr); break;
-                case 3: retire<WD, 3>(fr); break;
-                case 4: retire<WD, 4>(fr); break;
-                case 5: retire<WD, 5>(fr); break;
-                case 6: retire<WD, 6>(fr); break;
-                default: retire<WD, 7>(fr); break;
+                case 0: retire<WD, W, 0>(fr); break;
+                case 1: retire<WD, W, 1>(fr); break;
+                case 2: retire<WD, W, 2>(fr); break;
+                case 3: retire<WD, W, 3>(fr); break;
+                case 4: retire<WD, W, 4>(fr); break;
+                case 5: retire<WD, W, 5>(fr); break;
+                case 6: retire<WD, W, 6>(fr); break;
+                default: retire<WD, W, 7>(fr); break;
                 }
                 open &= ~(1u << rs);
                 n_prune += rs < 5;
@@ -508,7 +585,9 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
             if (death) {
                 uint32_t any = 0u;
 #pragma unroll
-                for (int w = 0; w < WD; ++w) any |= fr[w];
+                for (int h = 0; h < W; ++h)
+#pragma unroll
+                    for (int w = 0; w < WD; ++w) any |= fr[h][w];
                 if (!__any_sync(FULL, any != 0u)) {
                     dead = base + r;    // one warp walks: uniform
                     break;
@@ -525,14 +604,20 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
     }
     if (death) {
         if (tid == 0) static_cast<int32_t *>(out)[k] = dead;
-    } else if (real && s < Sn) {
+    } else if (real) {
         uint8_t *o = static_cast<uint8_t *>(out) + ((long long)k * J + j) * J;
-        for (int cm = 0; cm < (1 << nc); ++cm) {
-            const int m = cm << rn;
-            uint32_t word = 0u;
 #pragma unroll
-            for (int w = 0; w < WD; ++w) word = w == (m >> 5) ? fr[w] : word;
-            o[cm * Sn + s] = uint8_t((word >> (m & 31)) & 1u);
+        for (int h = 0; h < W; ++h) {
+            const int sh = s + SNP * h;
+            if (sh >= Sn) continue;
+            for (int cm = 0; cm < (1 << nc); ++cm) {
+                const int m = cm << rn;
+                uint32_t word = 0u;
+#pragma unroll
+                for (int w = 0; w < WD; ++w)
+                    word = w == (m >> 5) ? fr[h][w] : word;
+                o[cm * Sn + sh] = uint8_t((word >> (m & 31)) & 1u);
+            }
         }
     }
     if (work) {
@@ -554,13 +639,14 @@ wgl_crash_kernel(const uint8_t *__restrict__ cbuf, long long nbytes,
 
 namespace {
 
-template <int WD, int SNP, bool CLOSE>
+template <int WD, int SNP, bool CLOSE, int W>
 void launch_one(dim3 grid, int threads, cudaStream_t stream,
                 const void *cbuf, long long nbytes, const void *offs,
                 const void *nrows, const void *aux, int UP, const void *ctab,
                 int nC, int R, int Sn, int nc, int rn, int J, int LPC,
-                int death, unsigned seed, void *out, void *work, void *bad) {
-    wgl_crash_kernel<WD, SNP, CLOSE><<<grid, threads, 0, stream>>>(
+                int death, unsigned long long seed, void *out, void *work,
+                void *bad) {
+    wgl_crash_kernel<WD, SNP, CLOSE, W><<<grid, threads, 0, stream>>>(
         (const uint8_t *)cbuf, nbytes, (const int64_t *)offs,
         (const int32_t *)nrows, (const uint32_t *)aux, UP,
         (const uint32_t *)ctab, nC, R, Sn, nc, rn, J, LPC, death, seed, out,
@@ -569,48 +655,55 @@ void launch_one(dim3 grid, int threads, cudaStream_t stream,
 
 }  // namespace
 
-// Every instance the source builds: (WD, SnP, closure).
+// Every instance the source builds: (WD, threads a lane, closure, state
+// rows a thread); the two-row instances are the relaxed tier's two-word
+// lift (33..64 states, the closure only, R <= 6).
 #define WGL_CRASH_INSTANCES(X)                                              \
-    X(1, 8, false) X(1, 16, false) X(1, 32, false) X(2, 8, false)           \
-    X(2, 16, false) X(2, 32, false) X(4, 8, false) X(4, 16, false)          \
-    X(4, 32, false) X(8, 8, false) X(8, 16, false) X(8, 32, false)          \
-    X(1, 8, true) X(1, 16, true) X(1, 32, true) X(2, 8, true)               \
-    X(2, 16, true) X(2, 32, true)
+    X(1, 8, false, 1) X(1, 16, false, 1) X(1, 32, false, 1)                 \
+    X(2, 8, false, 1) X(2, 16, false, 1) X(2, 32, false, 1)                 \
+    X(4, 8, false, 1) X(4, 16, false, 1) X(4, 32, false, 1)                 \
+    X(8, 8, false, 1) X(8, 16, false, 1) X(8, 32, false, 1)                 \
+    X(1, 8, true, 1) X(1, 16, true, 1) X(1, 32, true, 1) X(2, 8, true, 1)   \
+    X(2, 16, true, 1) X(2, 32, true, 1) X(1, 32, true, 2) X(2, 32, true, 2)
 
 // One launch over K segments on `stream`, each segment's J lanes split
 // over the fewest CTAs of at most MAXT threads, the lanes spread evenly
 // (grid y); returns the cudaError_t of the launch (0 on success).  `work`, when given, must hold K zeros.
 // ctab == NULL walks without the state closure (the crash variant, nc >=
-// 0); with ctab (nC rows of Sn masks) nc must be 0 and R <= 6, and
-// `death` != 0 seeds one lane with `seed` and writes int32 death rows
-// instead of u8 transfer rows.  SnP is the state-row bucket (8, 16 or
-// 32), Sn <= SnP the live states.
+// 0); with ctab (nC rows of Sn masks of W words) nc must be 0 and R <= 6,
+// and `death` != 0 seeds one lane with `seed` and writes int32 death rows
+// instead of u8 transfer rows.  SnP is the state-row bucket (8, 16 or 32
+// with one-word masks; 64 with two-word masks, two rows a thread), Sn <=
+// SnP the live states.  aux is a1[UP][W] ++ a2[UP][W] ++ t0[UP].
 extern "C" int wgl_crash_launch(const void *cbuf, long long nbytes,
                                 const void *offs, const void *nrows,
                                 const void *aux, int UP, const void *ctab,
                                 int nC, int K, int R, int SnP, int Sn, int nc,
-                                int rn, int death, unsigned seed,
+                                int rn, int death, unsigned long long seed,
                                 void *out, void *work, void *bad,
                                 void *stream) {
     if (K <= 0) return 0;
     const bool close = ctab != nullptr;
+    const int W = SnP == 64 ? 2 : 1;
+    const int tpl = SnP / W;                          // threads a lane
     const int J = death ? 1 : (Sn << nc);
     if (R < 1 || R > MAXR || Sn < 1 || Sn > SnP || nc < 0 || nc > 4 ||
         rn < 0 || rn + nc > R || J > 128 || UP < 1 ||
-        (SnP != 8 && SnP != 16 && SnP != 32) ||
-        (close && (nc != 0 || R > 6 || nC < 1)) || (death && !close))
+        (SnP != 8 && SnP != 16 && SnP != 32 && SnP != 64) ||
+        (close && (nc != 0 || R > 6 || nC < 1)) || (death && !close) ||
+        (W > 1 && !close))
         return (int)cudaErrorInvalidValue;
     const int wd = R <= 5 ? 1 : 1 << (R - 5);
-    const int split = (J * SnP + MAXT - 1) / MAXT;   // CTAs a segment
+    const int split = (J * tpl + MAXT - 1) / MAXT;   // CTAs a segment
     const int lpc = (J + split - 1) / split;         // lanes a CTA
-    const int threads = (lpc * SnP + 31) / 32 * 32;
+    const int threads = (lpc * tpl + 31) / 32 * 32;
     const dim3 grid(K, (J + lpc - 1) / lpc);
     cudaStream_t s = (cudaStream_t)stream;
-#define WGL_CRASH_CASE(WD, SNP, CL)                                          \
-    if (wd == WD && SnP == SNP && close == CL)                               \
-        launch_one<WD, SNP, CL>(grid, threads, s, cbuf, nbytes, offs, nrows, \
-                                aux, UP, ctab, nC, R, Sn, nc, rn, J, lpc,    \
-                                death, seed, out, work, bad);
+#define WGL_CRASH_CASE(WD, SNP, CL, WW)                                      \
+    if (wd == WD && tpl == SNP && close == CL && W == WW)                    \
+        launch_one<WD, SNP, CL, WW>(grid, threads, s, cbuf, nbytes, offs,    \
+                                    nrows, aux, UP, ctab, nC, R, Sn, nc, rn, \
+                                    J, lpc, death, seed, out, work, bad);
     WGL_CRASH_INSTANCES(WGL_CRASH_CASE)
 #undef WGL_CRASH_CASE
     return (int)cudaGetLastError();

@@ -14,10 +14,13 @@ a segment's event rows (`jepsen_tpu_torch/csrc/wgl_crash.cu`):
   the 2^nc crashed-mask planes at zero normal bits: T[K, J, J] with
   J = Sn * 2^nc.
 - `relaxed_scan` (kernel `wgl_regs_relaxed`): nc = 0, J = Sn; each row
-  carries an index into a table of per-state masks (`ctab[nC, Sn]`,
+  carries an index into a table of per-state masks (`ctab[nC, Sn, W]`,
   reflexive and transitive closures built on the host), and the row's
   mask closes the plane's states before the first round and after
-  every round.
+  every round.  Past 32 states (up to 64) every state mask (the aux
+  table's, the closures', the death row's seed) takes W = 2 words, state
+  s in word s // 32 (the reference's `sn_words=2` lift, B2w); the
+  kernel then runs two state rows a thread.
 - `death_row` (the same kernel): one lane seeded with a set of states
   at mask 0 walks one segment with the closure and reports the first
   row at which its plane empties (-1 if it never does).
@@ -54,8 +57,11 @@ from jepsen_tpu_torch.ops import regs_kernel as rk
 from jepsen_tpu_torch.ops.deep_kernel import _FULL, _check
 from jepsen_tpu_torch.ops.wgl_deep import _snp as snp
 
-#: Kernel launches since import (or since a caller reset them to 0).
-LAUNCHES = {"wgl_regs_crash": 0, "wgl_regs_relaxed": 0}
+#: Kernel launches since import (or since a caller reset them to 0);
+#: "wgl_regs_relaxed_w2" counts the relaxed launches (walks and death
+#: rows) of two-word state masks again on their own.
+LAUNCHES = {"wgl_regs_crash": 0, "wgl_regs_relaxed": 0,
+            "wgl_regs_relaxed_w2": 0}
 
 #: Integer operations of a closure over the crash-prefix masks, per
 #: (source state, target state) pair and plane word: the select and
@@ -68,8 +74,19 @@ def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.wgl_crash_launch.argtypes = (
         [ptr, ctypes.c_longlong] + [ptr] * 3 + [i32] + [ptr, i32]
-        + [i32] * 7 + [ctypes.c_uint] + [ptr] * 4)
+        + [i32] * 7 + [ctypes.c_ulonglong] + [ptr] * 4)
     lib.wgl_crash_launch.restype = i32
+
+
+def sn_words(Sn: int) -> int:
+    """32-bit words of a state mask: 1 up to 32 states, 2 up to 64."""
+    return 1 if Sn <= 32 else 2
+
+
+def _snp_w(Sn: int) -> int:
+    """The kernel's state-row bucket: 8, 16, 32, or 64 (two rows a
+    thread) past 32 states."""
+    return 64 if Sn > 32 else snp(Sn)
 
 
 def _launch(name, cbuf, offs, nrows, aux, ctab, *, R, Sn, UP, nc, rn,
@@ -87,20 +104,22 @@ def _launch(name, cbuf, offs, nrows, aux, ctab, *, R, Sn, UP, nc, rn,
     _check(nrows, "nrows", torch.int32, dev)
     _check(aux, "aux", torch.int32, dev)
     K = offs.numel()
-    if nrows.numel() != K or aux.numel() != 3 * UP:
+    W = sn_words(Sn)
+    if nrows.numel() != K or aux.numel() != (2 * W + 1) * UP:
         raise ValueError("offs/nrows/aux sizes disagree")
     nC = 0
     if ctab is not None:
         _check(ctab, "ctab", torch.int32, dev)
-        nC = ctab.numel() // max(Sn, 1)
-        if nC < 1 or ctab.numel() != nC * Sn:
-            raise ValueError("ctab must hold [nC, Sn] masks")
+        nC = ctab.numel() // max(Sn * W, 1)
+        if nC < 1 or ctab.numel() != nC * Sn * W:
+            raise ValueError("ctab must hold [nC, Sn, W] masks")
     if work is not None:
         _check(work, "work", torch.int64, dev)
         if work.numel() != K:
             raise ValueError("work must hold one count per segment")
     J = 1 if seed is not None else Sn << nc
-    if not (1 <= R <= planner.CRASH_R_MAX and 1 <= Sn <= planner.REGS_SN_MAX
+    sn_max = planner.REGS_SN_MAX * (2 if ctab is not None else 1)
+    if not (1 <= R <= planner.CRASH_R_MAX and 1 <= Sn <= sn_max
             and 0 <= nc <= planner.MAX_CRASHED and 0 <= rn
             and rn + nc <= R and J <= planner.CRASH_J_MAX and UP >= 1
             and (ctab is None or (nc == 0 and R <= planner.REGS_R_MAX))
@@ -126,14 +145,16 @@ def _launch(name, cbuf, offs, nrows, aux, ctab, *, R, Sn, UP, nc, rn,
     err = lib.wgl_crash_launch(
         cbuf.data_ptr(), cbuf.numel(), offs.data_ptr(), nrows.data_ptr(),
         aux.data_ptr(), UP, None if ctab is None else ctab.data_ptr(), nC,
-        K, R, snp(Sn), Sn, nc, rn, int(seed is not None),
-        0 if seed is None else int(seed) & _FULL, out.data_ptr(),
+        K, R, _snp_w(Sn), Sn, nc, rn, int(seed is not None),
+        0 if seed is None else int(seed) & (1 << 64) - 1, out.data_ptr(),
         None if work is None else work.data_ptr(), bad.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err} (K={K} "
                            f"R={R} Sn={Sn} nc={nc} J={J})")
     LAUNCHES[name] += 1
+    if W > 1:
+        LAUNCHES["wgl_regs_relaxed_w2"] += 1
     return out, bad
 
 
@@ -156,9 +177,11 @@ def relaxed_scan(cbuf, offs, nrows, aux, ctab, *, R: int, Sn: int,
                  UP: int, work=None):
     """Transfer rows u8[K, Sn, Sn] under the relaxed crash semantics:
     each row of the wire (CROW_ROW_BYTES a row) names a row of ctab
-    (int32[nC * Sn]: bit t of ctab[c, s] allows the jump s -> t), whose
-    masks close the plane before the first round and after every round;
-    rounds to the fixpoint, at most R <= 6.  Returns (T, bad)."""
+    (int32[nC * Sn * W]: bit t % 32 of word t // 32 of ctab[c, s] allows
+    the jump s -> t, W = sn_words(Sn)), whose masks close the plane
+    before the first round and after every round; rounds to the
+    fixpoint, at most R <= 6.  aux is a1[UP, W] ++ a2[UP, W] ++ t0[UP].
+    Returns (T, bad)."""
     return _launch("wgl_regs_relaxed", cbuf, offs, nrows, aux, ctab, R=R,
                    Sn=Sn, UP=UP, nc=0, rn=0, seed=None, work=work)
 
@@ -167,7 +190,7 @@ def death_row(cbuf, offs, nrows, aux, ctab, seed: int, *, R: int, Sn: int,
               UP: int, work=None):
     """The first row (counting virtual rows) at which the relaxed walk
     of each segment empties, from the states of `seed` (bit s = state
-    s) at mask 0, or -1: int32[K], and bad int32[1]."""
+    s, up to 64 states) at mask 0, or -1: int32[K], and bad int32[1]."""
     return _launch("wgl_regs_relaxed", cbuf, offs, nrows, aux, ctab, R=R,
                    Sn=Sn, UP=UP, nc=0, rn=0, seed=seed, work=work)
 
@@ -175,6 +198,27 @@ def death_row(cbuf, offs, nrows, aux, ctab, seed: int, *, R: int, Sn: int,
 # ---------------------------------------------------------------------------
 # The plain version: the same walk in PyTorch, every segment at once
 # ---------------------------------------------------------------------------
+
+def _words64(x: torch.Tensor, W: int) -> torch.Tensor:
+    """int64 masks from W consecutive 32-bit words of x (low word
+    first); bit 63 lands in the sign, which the walk's shifts and ANDs
+    read as bit 63."""
+    v = x.to(torch.int64) & _FULL
+    if W == 1:
+        return v
+    v = v.reshape(-1, W)
+    return v[:, 0] | (v[:, 1] << 32)
+
+
+def uop_table(aux, UP: int, W: int = 1):
+    """(a1, a2, t0) int64[UP] each from the aux table a1[UP, W] ++
+    a2[UP, W] ++ t0[UP]: the diagonal and rank-1 masks (up to 64
+    states) and the rank-1 target of every uop."""
+    if W == 1:
+        return rk.uop_table(aux, UP)
+    return (_words64(aux[:UP * W], W), _words64(aux[UP * W:2 * UP * W], W),
+            aux[2 * UP * W:2 * UP * W + UP].to(torch.int64) & _FULL)
+
 
 def walk_plain(cbuf, offs, nrows, aux, ctab=None, *, R: int, Sn: int,
                UP: int, nc: int = 0, rn: int = 0, seed=None, work=None,
@@ -193,18 +237,19 @@ def walk_plain(cbuf, offs, nrows, aux, ctab=None, *, R: int, Sn: int,
     where the kernel would count a bad segment."""
     dev = cbuf.device
     K = offs.numel()
-    SnP, WD = snp(Sn), rk.plane_width(R)
+    SnP, WD = _snp_w(Sn), rk.plane_width(R)
+    W = sn_words(Sn)
     J = 1 if seed is not None else Sn << nc
     wire = rk.decode_wire(cbuf, offs, nrows, R=R, UP=UP,
                           crow=ctab is not None)
-    tab = rk.uop_table(aux, UP)
+    tab = uop_table(aux, UP, W)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     if ctab is not None:
-        nC = ctab.numel() // Sn
+        nC = ctab.numel() // (Sn * W)
         if bool(((wire.crow < 0) | (wire.crow >= nC)).any()):
             raise ValueError("a row names a crash prefix outside ctab")
         s_idx = torch.arange(SnP, device=dev)
-        cm = (ctab.to(torch.int64) & _FULL).reshape(nC, Sn)
+        cm = _words64(ctab, W).reshape(nC, Sn)
         # csel[c, s, t]: the jump s -> t is allowed under prefix c
         csel = torch.zeros((nC, SnP, SnP), dtype=torch.bool, device=dev)
         csel[:, :Sn, :] = ((cm[:, :, None] >> s_idx) & 1).bool()

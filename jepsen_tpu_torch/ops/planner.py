@@ -17,8 +17,9 @@ as the scan that carries crashed calls.
 
 Routing is the reference's: the register-delta segment kernel where
 `regs_gate` passes (R <= 6), the deep kernel where `deep_gate` passes
-(R 7..16), and every other shape raises `Unsupported` naming the
-ROADMAP item that will cover it.  Crashed calls (an :info completion,
+(R 7..16), the candidate-table kernels of `plan`'s tables where
+`cand_gate` names a form (R <= 10, Sn <= 64), and every other shape
+raises `Unsupported` naming the ROADMAP item that will cover it.  Crashed calls (an :info completion,
 or none) are found by `_split_crashed`; the scan carries up to
 MAX_CRASHED of them as permanent slots above the normal ones when asked
 (`_fast_scan(max_crashed=...)`), `crash_gate` says whether the segment
@@ -31,7 +32,7 @@ on the card, or the numpy oracle when asked), as the reference's
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -111,17 +112,19 @@ def regs_gate(R: int, Sn: int, U: int, decomposed: bool) -> Optional[str]:
     return _segment_gate(R, REGS_R_MAX, Sn, U, decomposed)
 
 
-def _segment_gate(R: int, r_max: int, Sn: int, U: int,
-                  decomposed: bool) -> Optional[str]:
+def _segment_gate(R: int, r_max: int, Sn: int, U: int, decomposed: bool,
+                  sn_max: int = REGS_SN_MAX) -> Optional[str]:
+    """The gate of the register-delta kernels; `sn_max` 64 is the
+    relaxed crash tier's two-word lift."""
     if not decomposed:
         return ("model transitions are not diagonal + rank-1 "
                 f"decomposable: {ITEM_SERIAL}")
     if not 0 < R <= r_max:
         return (f"overlap depth R={R} is outside the segment kernel's "
                 f"1..{r_max}")
-    if Sn > REGS_SN_MAX:
+    if Sn > sn_max:
         return (f"{Sn} model states exceed the segment kernel's "
-                f"{REGS_SN_MAX}: {ITEM_SERIAL}")
+                f"{sn_max}: {ITEM_SERIAL}")
     if U > 32767:
         return f"{U} distinct ops exceed the u16 wire: {ITEM_SERIAL}"
     return None
@@ -742,11 +745,27 @@ def _pad_len(x: int) -> int:
 
 
 def _pack_uop_tables(legal: np.ndarray, next_state: np.ndarray,
-                     diag_w, const_w, const_t0):
+                     diag_w, const_w, const_t0, sn_words: int = 1):
     """[U]-indexed transition tables: for a decomposable model the
     diagonal and rank-1 state bitmasks and the rank-1 target; otherwise
-    the legal bitmask and the nibble-packed next states."""
+    the legal bitmask and the nibble-packed next states.  With
+    sn_words = W > 1 (the relaxed crash tier's wide-state lift) the
+    decomposed bitmasks come back as [U, W] uint32, state s in word
+    s // 32, bit s % 32."""
     U, Sn = legal.shape
+    if sn_words > 1:
+        assert diag_w is not None
+        a1 = np.zeros((U, sn_words), np.uint32)
+        a2 = np.zeros((U, sn_words), np.uint32)
+        for sw in range(sn_words):
+            lo, hi = sw * 32, min((sw + 1) * 32, Sn)
+            pw = (1 << np.arange(hi - lo, dtype=np.uint64)) \
+                .astype(np.uint64)
+            a1[:, sw] = ((diag_w[:, lo:hi] > 0).astype(np.uint64)
+                         * pw).sum(1).astype(np.uint32)
+            a2[:, sw] = ((const_w[:, lo:hi] > 0).astype(np.uint64)
+                         * pw).sum(1).astype(np.uint32)
+        return a1, a2, const_t0.astype(np.int32)
     pow2 = (1 << np.arange(Sn, dtype=np.uint64)).astype(np.uint64)
     if diag_w is not None:
         aux1 = ((diag_w > 0).astype(np.uint64) * pow2).sum(1)
@@ -952,6 +971,223 @@ def _snapshot_deltas(fk: _FastKey, seg_ends, R: int, I: int):
     return (rho[key_end - 1] + 1, ret_key, rho, rs.astype(np.int64),
             ret_key[ent_ret], row, col, dslot.astype(np.int64),
             duop.astype(np.int64))
+
+
+# -- The candidate-table plan -------------------------------------------------
+
+#: Deepest overlap the candidate-table kernels walk (one thread a mask,
+#: 2^R of them in one CTA) and the most model states a mask's state set
+#: holds (one 64-bit word).
+CAND_R_MAX = 10
+CAND_SN_MAX = 64
+CAND_FORMS = ("bits", "dense")
+
+
+def cand_gate(R: int, Sn: int, decomposed: bool) -> str:
+    """The candidate-table kernel that takes this shape, "bits" or
+    "dense" (the reference's `_dispatch_kernel` split: the bits form for
+    a decomposed model with Sn <= 32 or an undecomposed one with Sn <=
+    8, the dense form for every wider shape), or why neither does."""
+    if not 0 < R <= CAND_R_MAX:
+        return (f"overlap depth R={R} is outside the candidate-table "
+                f"kernels' 1..{CAND_R_MAX}: {ITEM_SERIAL}")
+    if Sn > CAND_SN_MAX:
+        return (f"{Sn} model states exceed the candidate-table kernels' "
+                f"{CAND_SN_MAX}: {ITEM_SERIAL}")
+    if (decomposed and Sn <= 32) or (not decomposed and Sn <= 8):
+        return "bits"
+    return "dense"
+
+
+class SegPlan(NamedTuple):
+    """K segments, each a padded table of return events: L return
+    events per segment, C candidate slots per event, R = max_open mask
+    bits, Sn states, U distinct ops (the reference's `SegPlan`).
+    `seg_fk` holds one flat-array _FastKey per segment where the
+    register-delta kernel's gate passes, else None."""
+    ret_slot: np.ndarray    # int32 [K, L] (-1 = padding)
+    cand_slot: np.ndarray   # int32 [K, L, C]
+    cand_uop: np.ndarray    # int32 [K, L, C] (-1 = none)
+    legal: np.ndarray       # bool [U, Sn]
+    next_state: np.ndarray  # int32 [U, Sn]
+    states: np.ndarray      # int32 [Sn, S]
+    seg_end_call: np.ndarray  # int32 [K]: call id of each last return
+    n_calls: int
+    max_open: int
+    diag_w: Optional[np.ndarray] = None     # f32 [U, Sn]
+    const_w: Optional[np.ndarray] = None    # f32 [U, Sn]
+    const_t0: Optional[np.ndarray] = None   # int32 [U]
+    seg_fk: Optional[list] = None
+
+
+def _encode_calls(calls, spec, seen: Optional[dict] = None,
+                  rows: Optional[list] = None):
+    """Encode each call's op as (f, a, b, ok) and dedupe to U distinct
+    rows.  Returns (uops int32[U, 4], call -> uop int32[n]).  Shared
+    `seen` / `rows` intern across histories; a history that raises
+    Unsupported leaves them as they were."""
+    seen = {} if seen is None else seen
+    rows = [] if rows is None else rows
+    call_uop = np.zeros(len(calls), np.int32)
+    new_seen: dict = {}
+    new_rows: list = []
+    for c in calls:
+        fc, av, bv, okv = _encode_op(c.op, spec.f_codes)
+        if fc < 0:
+            raise Unsupported(f"model has no f-code for {c.op.f!r}")
+        if not (-2 ** 31 <= av < 2 ** 31 and -2 ** 31 <= bv < 2 ** 31):
+            raise Unsupported(
+                f"op value {c.op.value!r} exceeds the int32 device range")
+        key = (fc, av, bv, okv)
+        u = seen.get(key)
+        if u is None:
+            u = new_seen.get(key)
+        if u is None:
+            u = new_seen[key] = len(rows) + len(new_rows)
+            new_rows.append(key)
+        call_uop[c.id] = u
+    seen.update(new_seen)
+    rows.extend(new_rows)
+    return np.asarray(rows, np.int32).reshape(len(rows), 4), call_uop
+
+
+def _assign_slots(events):
+    """Free-list slot assignment over (pos, kind, call_id) events.
+    Returns (rets, n_slots, still_open), each ret (call_id, slot,
+    [(open_call_id, open_slot), ...]): the open set at that return,
+    target included, in invocation order."""
+    free: list = []
+    next_slot = 0
+    slot_of: dict = {}
+    open_calls: list = []
+    rets: list = []
+    for _, kind, cid in events:
+        if kind == 0:
+            s = free.pop() if free else next_slot
+            if s == next_slot:
+                next_slot += 1
+            slot_of[cid] = s
+            open_calls.append(cid)
+        else:
+            rets.append((cid, slot_of[cid],
+                         [(c2, slot_of[c2]) for c2 in open_calls]))
+            open_calls.remove(cid)
+            free.append(slot_of[cid])
+    return rets, next_slot, open_calls
+
+
+def plan(prep, spec, model, *, max_states: int = 64,
+         max_open_bits: int = 10, target_returns_per_segment: int = 256,
+         pad_segments_pow2: bool = True) -> SegPlan:
+    """The candidate tables of a crash-free PreparedHistory (the
+    reference's `plan`, table for table): segments cut at quiescent
+    returns, each return's open set as (slot, uop) candidates, the
+    enumerated states and the transition tables.  Raises Unsupported
+    for crashed calls, an overlap past max_open_bits, an op without an
+    encoding, or a state space past max_states."""
+    calls = prep.calls
+    if any(c.is_crashed for c in calls):
+        raise Unsupported("history has crashed (:info) calls")
+    if prep.max_open > max_open_bits:
+        raise Unsupported(
+            f"max {prep.max_open} simultaneously-open calls exceeds "
+            f"max_open_bits={max_open_bits}: {ITEM_SERIAL}")
+    uops, call_uop = _encode_calls(calls, spec)
+    init = np.asarray(spec.encode(model), np.int32)
+    states, legal, next_state = _enumerate_states(spec, init, uops,
+                                                  max_states)
+    cut_flags = []
+    ret_event_end = []
+    open_count = 0
+    for i, (_, kind, _) in enumerate(prep.events):
+        open_count += 1 if kind == 0 else -1
+        if kind == 1:
+            cut_flags.append(1 if open_count == 0 else 0)
+            ret_event_end.append(i + 1)
+    if open_count != 0:
+        raise Unsupported("history ends with open calls")
+    seg_ret_ends = _segment_ends(cut_flags, target_returns_per_segment)
+    seg_bounds = [0] + [ret_event_end[r - 1] for r in seg_ret_ends]
+    if len(seg_bounds) < 2:
+        seg_bounds = [0, len(prep.events)]
+    segments = list(zip(seg_bounds[:-1], seg_bounds[1:]))
+    K = len(segments)
+    seg_tables = []
+    L = C = 1
+    for lo, hi in segments:
+        rets, _, open_calls = _assign_slots(prep.events[lo:hi])
+        assert not open_calls, "cut was not quiescent"
+        seg_tables.append(rets)
+        L = max(L, len(rets))
+        C = max(C, max((len(cs) for _, _, cs in rets), default=1))
+    if pad_segments_pow2:
+        L = _pad_len(L)
+        C = _next_pow2(C)
+    diag_w, const_w, const_t0 = _decompose(legal, next_state)
+    # the reference's _regs_eligible: the nibble form (undecomposed, Sn
+    # <= 8) is in it, though this package's register kernel lacks it
+    Sn = states.shape[0]
+    want_fk = (prep.max_open <= REGS_R_MAX and uops.shape[0] <= 32767
+               and (Sn <= REGS_SN_MAX if diag_w is not None else Sn <= 8))
+    ret_slot = np.full((K, L), -1, np.int32)
+    cand_slot = np.zeros((K, L, C), np.int32)
+    cand_uop = np.full((K, L, C), -1, np.int32)
+    seg_end_call = np.zeros(K, np.int32)
+    seg_fk = [] if want_fk else None
+    for k, rets in enumerate(seg_tables):
+        rs_f, cnt_f, cs_f, cu_f = [], [], [], []
+        for r, (cid, slot, cands) in enumerate(rets):
+            ret_slot[k, r] = slot
+            for j, (c2, s2) in enumerate(cands):
+                cand_slot[k, r, j] = s2
+                cand_uop[k, r, j] = call_uop[c2]
+            if want_fk:
+                rs_f.append(slot)
+                cnt_f.append(len(cands))
+                cs_f += [s2 for _, s2 in cands]
+                cu_f += [int(call_uop[c2]) for c2, _ in cands]
+        seg_end_call[k] = rets[-1][0] if rets else -1
+        if want_fk:
+            seg_fk.append(_FastKey(
+                None, prep.max_open, len(rets),
+                arrays=(np.asarray(rs_f, np.int32),
+                        np.asarray(cnt_f, np.int32),
+                        np.asarray(cs_f, np.int32),
+                        np.asarray(cu_f, np.int32))))
+    return SegPlan(ret_slot, cand_slot, cand_uop, legal, next_state, states,
+                   seg_end_call, n_calls=len(calls), max_open=prep.max_open,
+                   diag_w=diag_w, const_w=const_w, const_t0=const_t0,
+                   seg_fk=seg_fk)
+
+
+def _pack_cand_tables(cand_uop: np.ndarray, legal: np.ndarray,
+                      next_state: np.ndarray, diag_w, const_w, const_t0):
+    """Per-candidate transition tables in the bits kernel's form (aux1,
+    aux2, t0, each shaped like cand_uop; the reference's
+    `_pack_cand_tables`, dtype for dtype).  Decomposed: aux1 / aux2 the
+    diagonal and rank-1 state bitmasks; undecomposed (Sn <= 8): aux1
+    the legal bitmask, aux2 the next states packed in nibbles.  A
+    candidate -1 has zero masks."""
+    U, Sn = legal.shape
+    ju = np.clip(cand_uop, 0, None)
+    live = cand_uop >= 0
+    pow2 = (1 << np.arange(Sn, dtype=np.uint64)).astype(np.uint64)
+    bm_dtype = (np.uint8 if Sn <= 8 else
+                np.uint16 if Sn <= 16 else np.uint32)
+    if diag_w is not None:
+        diag_u = ((diag_w > 0).astype(np.uint64) * pow2).sum(1)
+        const_u = ((const_w > 0).astype(np.uint64) * pow2).sum(1)
+        aux1 = (diag_u[ju] * live).astype(bm_dtype)
+        aux2 = (const_u[ju] * live).astype(bm_dtype)
+        t0 = const_t0[ju].astype(np.int8)
+    else:
+        legal_u = (legal.astype(np.uint64) * pow2).sum(1)
+        nib = (1 << (4 * np.arange(Sn, dtype=np.uint64))).astype(np.uint64)
+        next_u = (next_state.astype(np.uint64) * nib).sum(1)
+        aux1 = (legal_u[ju] * live).astype(bm_dtype)
+        aux2 = (next_u[ju] * live).astype(np.uint32)
+        t0 = np.zeros_like(cand_uop, dtype=np.int8)
+    return aux1, aux2, t0
 
 
 # -- Elle routing -------------------------------------------------------------

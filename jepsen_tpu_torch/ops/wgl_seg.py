@@ -4,10 +4,15 @@ histories, and `check_many()` for many short independent keys (the
 `jepsen.independent` workload: each key one lane of the segment
 kernel).
 
-Routing is the reference's (`jepsen_tpu/ops/wgl_seg.py::_check_fast`):
-a history over a decomposed model with Sn <= 32 runs the register-delta
-segment kernel at overlap depth R <= 6 (`engine: "wgl_seg"`) and the
-deep kernel at R 7..16 (`engine: "wgl_deep"`).  A history with crashed
+Routing is the reference's (`jepsen_tpu/ops/wgl_seg.py::_check_fast`,
+then `_check_impl`'s plan route): a history over a decomposed model
+with Sn <= 32 runs the register-delta segment kernel at overlap depth
+R <= 6 (`engine: "wgl_seg"`) and the deep kernel at R 7..16 (`engine:
+"wgl_deep"`); a crash-free one past both (up to 64 states, or a model
+without the decomposition, at R <= 10) runs the plan route
+(`_check_plan`: `planner.plan`'s candidate tables through the
+candidate-table kernels of `ops.cand_kernel`, `engine: "wgl_seg"`), as
+does a PreparedHistory.  A history with crashed
 calls (an :info completion, or none) goes through the reference's crash
 tiers (`_check_crashed`): inert crashed calls are dropped (tier 1); up
 to planner.MAX_CRASHED others ride as permanent slots, in the segment
@@ -43,8 +48,9 @@ import torch
 from jepsen_tpu_torch.backend import resolve_device
 from jepsen_tpu_torch.errors import Unencodable, Unsupported
 from jepsen_tpu_torch.history import History
-from jepsen_tpu_torch.ops import (crash_kernel, deep_kernel, planner,
-                                  regs_kernel, wgl, wgl_cpu, wgl_deep)
+from jepsen_tpu_torch.ops import (cand_kernel, crash_kernel, deep_kernel,
+                                  planner, regs_kernel, wgl, wgl_cpu,
+                                  wgl_deep)
 from jepsen_tpu_torch.ops.prep import PreparedHistory, prepare
 
 WHY = ("register-delta segment kernel: decomposable model with Sn <= 32 and "
@@ -55,6 +61,11 @@ WHY_CRASH = ("crash tier 2: {nc} crashed calls as permanent slots "
 WHY_INERT = "crash tier 1: {n} inert crashed calls dropped; "
 WHY_STRIPPED = ("crash tier 3: the history with its {n} crashed calls "
                 "stripped is valid, so it is; ")
+WHY_CAND = ("candidate-table kernel, {form} form ({why}): the plan route "
+            "(prepare, plan), one lane per (quiescent segment, entry "
+            "state) through wgl_cand_{form}, composed on the device")
+WHY_PREPARED = ("register-delta segment kernel over the plan's segments: "
+                "the plan's shape is in its reach")
 WHY_RELAXED = ("crash tier 4: refuted under relaxed crash semantics (the "
                "segment kernel with crash-prefix closures, then the death "
                "row of the dead segment)")
@@ -80,6 +91,11 @@ WHY_KEYS = ("register-delta key lanes: each crash-free key (or the "
 WHY_KEYS_DEEP = ("deep-overlap kernel: the keys at overlap depth 7..16 in "
                  "one wgl_deep.check_pipeline grid (the reference's "
                  "candidate-table lanes are ROADMAP P5)")
+WHY_KEYS_CAND = ("candidate-table key lanes: the crash-free keys (and "
+                 "crash-stripped twins) at overlap depth R <= 6, whose "
+                 "shared state space the key kernel refuses (past 32 "
+                 "states, or undecomposed), as one J = 1 launch of "
+                 "wgl_cand_{form}, each key one lane entering state 0")
 WHY_KEYS_HOST = ("decided on the host: the key has no client call, or "
                  "every client call of it crashed")
 WHY_FALLBACK = ("check_many's fallback (the serial frontier engine "
@@ -87,7 +103,8 @@ WHY_FALLBACK = ("check_many's fallback (the serial frontier engine "
                 "encoding): a key the "
                 "scan refuses, a PreparedHistory, a crash key every crash "
                 "tier leaves open, or every lane key when the lanes' state "
-                "space outgrows max_states or the segment kernel's gate")
+                "space outgrows max_states or both the key kernel's and "
+                "the candidate-table kernels' gates")
 
 
 class _SegGrid:
@@ -128,9 +145,20 @@ class _SegGrid:
 
 
 def _aux(tables) -> tuple[np.ndarray, int]:
+    """The kernels' aux table of `planner._pack_uop_tables`' output, its
+    uop rows padded to UP: a1[UP] ++ a2[UP] ++ t0[UP], or with W-word
+    masks ([U, W], the relaxed tier's lift) a1[UP, W] ++ a2[UP, W] ++
+    t0[UP]."""
     a1t, a2t, t0t = tables
     UP = wgl_deep._pad_u(a1t.shape[0])
-    return wgl_deep.pack_aux(a1t, a2t, t0t, UP).view(np.int32), UP
+    if a1t.ndim == 1:
+        return wgl_deep.pack_aux(a1t, a2t, t0t, UP).view(np.int32), UP
+    U, W = a1t.shape
+    aux = np.zeros((2 * W + 1) * UP, np.uint32)
+    aux[:U * W] = a1t.ravel()
+    aux[UP * W:UP * W + U * W] = a2t.ravel()
+    aux[2 * UP * W:2 * UP * W + U] = t0t.astype(np.uint32)
+    return aux.view(np.int32), UP
 
 
 def _launch(wire, seg_counts, UP: int, *, R: int, Sn: int, rounds: int,
@@ -176,12 +204,21 @@ def _localize_segment(spec, ops, fk, seg_ends, dead: int, mask_words,
     the whole history's witness.  Returns the oracle's result, or None
     when the model cannot decode states or the oracle disagrees (callers
     fall back to the whole-history oracle)."""
-    if spec.decode is None:
-        return None
     end_ret = int(seg_ends[dead]) - 1
     start_pos = (int(fk.positions[int(seg_ends[dead - 1]) - 1]) + 1
                  if dead > 0 else 0)
     end_pos = int(fk.positions[end_ret])
+    return _replay_segment(spec, ops, start_pos, end_pos, mask_words, states)
+
+
+def _replay_segment(spec, ops, start_pos: int, end_pos: int, mask_words,
+                    states) -> Optional[dict]:
+    """The union replay of ops[start_pos..end_pos] (a segment between
+    quiescent cuts) from the entry states set in mask_words (bit j of
+    word j // 32: state j), through the CPU oracle; None when the model
+    cannot decode states or the replay survives."""
+    if spec.decode is None:
+        return None
     # Quiescent cuts count ok-open calls only, so fail pairs may straddle
     # either boundary; an unpaired half inside the slice would read to
     # the oracle as a crashed call.  A failed call is never linearized,
@@ -241,11 +278,13 @@ def _mark_dead(result: dict, vd, localize: bool, model, spec, history,
 
 
 def _check_regs(model, spec, history, ops, fk, states, legal, next_state,
-                decomposition, *, R, Sn, localize, dev,
-                t0) -> dict[str, Any]:
+                decomposition, *, R, Sn, localize, dev, t0,
+                seg_ends=None) -> dict[str, Any]:
     """One history on the segment kernel at exact rounds (R), its crashed
-    calls (fk.nc) on permanent slots fk.rn.. of the crash variant."""
-    seg_ends = planner._segment_ends(fk.cuts, TARGET_RETURNS)
+    calls (fk.nc) on permanent slots fk.rn.. of the crash variant; cut
+    at its quiescent returns, or at `seg_ends` when given."""
+    if seg_ends is None:
+        seg_ends = planner._segment_ends(fk.cuts, TARGET_RETURNS)
     aux, UP = _aux(planner._pack_uop_tables(legal, next_state,
                                             *decomposition))
     grid = _SegGrid()
@@ -337,11 +376,14 @@ def _model_tables(spec, model, rows: list, max_states: int):
 
 
 def _check_scanned(model, spec, history, ops, fk, rows, *, max_states,
-                   localize, dev, t0) -> dict[str, Any]:
+                   max_open_bits, localize, dev, t0,
+                   plan_route: bool = True) -> dict[str, Any]:
     """One scanned history: the segment kernel where its gate passes
     (`regs_gate`, or `crash_gate` with the scan's crashed calls on
-    permanent slots), else the deep kernel at R (+ nc).  Raises
-    Unsupported outside both."""
+    permanent slots), else the deep kernel at R (+ nc), else (no crashed
+    calls) the plan route's candidate-table kernels (`_check_plan`; not
+    for crash tier 2, as in the reference).  Raises Unsupported outside
+    all of them."""
     record = {"engine": "wgl_seg", "why": WHY, "batch": 1,
               "device": str(dev)}
     if fk.n_calls == 0:
@@ -368,7 +410,18 @@ def _check_scanned(model, spec, history, ops, fk, rows, *, max_states,
     else:
         why = planner.deep_gate(R, Sn, U, decomposed)
         if why is not None:
-            raise Unsupported(why)
+            if nc or not plan_route:
+                raise Unsupported(why)
+            form = planner.cand_gate(R, Sn, decomposed)
+            if form not in planner.CAND_FORMS:
+                raise Unsupported(form)
+            return _check_plan(model, spec, history, ops, prepare(ops),
+                               max_states=max_states,
+                               max_open_bits=max_open_bits,
+                               localize=localize, dev=dev, t0=t0,
+                               why=f"Sn = {Sn}, R = {R}, "
+                               f"{'' if decomposed else 'un'}decomposed: "
+                               "past the segment and deep kernels")
         result = _check_deep(model, ops, fk, legal, next_state, *dec, R=R,
                              Sn=Sn, localize=localize, device=dev, t0=t0)
         record = dict(record, engine="wgl_deep", why=wgl_deep.WHY)
@@ -381,11 +434,131 @@ def _check_scanned(model, spec, history, ops, fk, rows, *, max_states,
     return result
 
 
+def _cand_scan(ret_slot, cand_slot, cand_uop, legal, next_state, dec, *,
+               R: int, Sn: int, J: int, dev):
+    """Transfer rows of candidate tables ([K, L] and [K, L, C], the
+    layout of `planner.plan`) on the candidate-table kernel `cand_gate`
+    picks, at J = Sn (a history's segments) or J = 1 (keys entering
+    state 0).  Returns (T u8[K, J, Sn] and bad int32[1] on `dev`, the
+    form).  Raises Unsupported where neither form takes the shape."""
+    form = planner.cand_gate(R, Sn, dec[0] is not None)
+    if form not in planner.CAND_FORMS:
+        raise Unsupported(form)
+    ret_t = np.ascontiguousarray(ret_slot.T, np.int32)
+    cslot_t = np.ascontiguousarray(cand_slot.transpose(1, 0, 2), np.int32)
+    cuop_t = np.ascontiguousarray(cand_uop.transpose(1, 0, 2), np.int32)
+
+    def put(*xs):
+        return [regs_kernel.to_device(x, dev) for x in xs]
+
+    if form == "bits":
+        T, bad = cand_kernel.cand_bits(
+            *put(ret_t, cslot_t, *cand_kernel.bits_tables(
+                cuop_t, legal, next_state, *dec)),
+            R=R, Sn=Sn, J=J, decomposed=dec[0] is not None)
+    else:
+        T, bad = cand_kernel.cand_dense(
+            *put(ret_t, cslot_t, cuop_t, *cand_kernel.dense_tables(
+                legal, next_state, *dec)), R=R, Sn=Sn, J=J)
+    return T, bad, form
+
+
+def _check_plan(model, spec, history, ops, prep, *, max_states,
+                max_open_bits, localize, dev, t0, why) -> dict[str, Any]:
+    """The plan route (the reference's `_check_impl` past its fast path):
+    `planner.plan`'s candidate tables, one lane per (segment, entry
+    state) through the candidate-table kernel `cand_gate` picks, the
+    transfer matrices composed by `wgl_compose` (the verdict and the dead
+    segment).  A PreparedHistory whose shape the register-delta kernel
+    takes runs that kernel over the plan's segments instead, as in the
+    reference.  An invalid history (not a PreparedHistory) with
+    `localize` gets its witness from a union replay of the dead segment
+    from the entry states the composition marks (`_replay_segment`), or,
+    where that cannot run, the CPU oracle under ORACLE_CAPS on the prefix
+    through the dead segment's last call."""
+    if not prep.calls:
+        return {"valid?": True, "op_count": 0, "backend": dev.type,
+                "engine": "wgl_seg",
+                "dispatch": {"engine": "wgl_seg", "why": WHY, "batch": 1,
+                             "device": str(dev)}}
+    pl = planner.plan(prep, spec, model, max_states=max_states,
+                      max_open_bits=max_open_bits,
+                      target_returns_per_segment=TARGET_RETURNS)
+    K = pl.ret_slot.shape[0]
+    Sn = int(pl.states.shape[0])
+    R = int(pl.max_open)
+    U = int(pl.legal.shape[0])
+    dec = (pl.diag_w, pl.const_w, pl.const_t0)
+    if pl.seg_fk is not None and \
+            planner.regs_gate(R, Sn, U, dec[0] is not None) is None:
+        # a PreparedHistory in the register kernel's reach: its
+        # segments' open lists as one scan, cut where the plan cut it
+        arrs = [planner._fk_arrays(f) for f in pl.seg_fk]
+        fk = planner._FastKey(None, R, pl.n_calls, arrays=tuple(
+            np.concatenate([a[i] for a in arrs]) for i in range(4)))
+        seg_ends = list(np.cumsum([len(a[0]) for a in arrs]))
+        res = _check_regs(model, spec, None, ops, fk, pl.states, pl.legal,
+                          pl.next_state, dec, R=R, Sn=Sn, localize=False,
+                          dev=dev, t0=t0, seg_ends=seg_ends)
+        res["op_count"] = pl.n_calls
+        res["dispatch"] = {"engine": "wgl_seg", "why": WHY_PREPARED,
+                           "batch": 1, "device": str(dev), "R": R}
+        return res
+    t_plan = time.monotonic() - t0
+    t1 = time.monotonic()
+    T, bad, form = _cand_scan(pl.ret_slot, pl.cand_slot, pl.cand_uop,
+                              pl.legal, pl.next_state, dec, R=R, Sn=Sn,
+                              J=Sn, dev=dev)
+    vd = regs_kernel.compose(T, [K])
+    host = torch.cat([bad, vd.reshape(-1)]).cpu().numpy()     # one copy
+    if host[0]:
+        raise RuntimeError(f"wgl_cand_{form} refused {int(host[0])} CTAs")
+    vd = host[1:]
+    dead = int(vd[1])
+    result: dict[str, Any] = {
+        "valid?": dead < 0,
+        "op_count": pl.n_calls,
+        "backend": dev.type,
+        "engine": "wgl_seg",
+        "segments": K,
+        "states": Sn,
+        "sharded": False,
+        "max_open": R,
+        "time_plan_s": t_plan,
+        "time_kernel_s": time.monotonic() - t1,
+        "dispatch": {"engine": "wgl_seg", "batch": 1, "device": str(dev),
+                     "R": R, "kernel": f"wgl_cand_{form}", "form": form,
+                     "why": WHY_CAND.format(form=form, why=why)},
+    }
+    if dead < 0:
+        return result
+    result["anomaly"] = "nonlinearizable"
+    result["dead_segment"] = dead
+    if not localize or ops is None:
+        return result
+    pos = {id(o): i for i, o in enumerate(ops)}
+
+    def end_pos(k):
+        return pos[id(prep.calls[int(pl.seg_end_call[k])].completion)]
+
+    oracle = _replay_segment(spec, ops, end_pos(dead - 1) + 1 if dead else 0,
+                             end_pos(dead), vd[2:6], pl.states)
+    if oracle is None:
+        oracle = wgl_cpu.check(model, History(ops[:end_pos(dead) + 1]),
+                               **ORACLE_CAPS)
+    if oracle.get("valid?") is False:
+        for key in ("op", "op_index", "final-paths", "configs"):
+            if key in oracle:
+                result[key] = oracle[key]
+    return result
+
+
 def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
           localize: bool = True, device=None, stats=None) -> dict[str, Any]:
     """Linearizability of one history: the segment kernel at R <= 6,
-    the deep kernel at 7..16, and the crash tiers for a history with
-    crashed calls.  Returns a knossos-shaped analysis map with a
+    the deep kernel at 7..16, the plan route's candidate-table kernels
+    past both (and for a PreparedHistory), and the crash tiers for a
+    history with crashed calls.  Returns a knossos-shaped analysis map with a
     `dispatch` record (engine, why, R).  Raises Unsupported for a
     history or model outside the port and BackendUnavailable when the
     device is missing.  `stats`, when given a dict, receives host
@@ -397,6 +570,11 @@ def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
         raise Unsupported(f"model {model!r} has no device spec: "
                           f"{planner.ITEM_CPU_AUTO}")
     t0 = time.monotonic()
+    if isinstance(history, PreparedHistory):
+        return _check_plan(model, spec, None, None, history,
+                           max_states=max_states,
+                           max_open_bits=max_open_bits, localize=False,
+                           dev=dev, t0=t0, why="a PreparedHistory")
     seen: dict = {}
     rows: list = []
     ops = history.ops if isinstance(history, History) else \
@@ -412,8 +590,8 @@ def check(model, history, *, max_states: int = 64, max_open_bits: int = 10,
                               max_open_bits=max_open_bits,
                               localize=localize, dev=dev, t0=t0, lap=lap)
     return _check_scanned(model, spec, history, ops, fk, rows,
-                          max_states=max_states, localize=localize, dev=dev,
-                          t0=t0)
+                          max_states=max_states, max_open_bits=max_open_bits,
+                          localize=localize, dev=dev, t0=t0)
 
 
 class _Crashes(NamedTuple):
@@ -505,7 +683,8 @@ def _check_crashed(model, spec, history, ops, *, max_states, max_open_bits,
     try:
         res = _check_scanned(model, spec, History(c.stripped), c.stripped,
                              c.fk, c.rows[:c.n_rows], max_states=max_states,
-                             localize=False, dev=dev, t0=time.monotonic())
+                             max_open_bits=max_open_bits, localize=False,
+                             dev=dev, t0=time.monotonic())
     except Unsupported:
         res = None
     lap("stripped")
@@ -537,18 +716,22 @@ def _tier2(model, spec, history, *, max_states, max_open_bits, localize,
         fk = planner._fast_scan(ops, spec, seen, rows, max_open_bits,
                                 max_crashed=planner.MAX_CRASHED)
         return _check_scanned(model, spec, history, ops, fk, rows,
-                              max_states=max_states, localize=localize,
-                              dev=dev, t0=t0)
+                              max_states=max_states,
+                              max_open_bits=max_open_bits,
+                              localize=localize, dev=dev, t0=t0,
+                              plan_route=False)
     except Unsupported:
         return None
 
 
 def _prefix_closures(eff, legal, next_state) -> np.ndarray:
-    """int32[nC * Sn] with nC = len(eff) + 1: row c holds, for each state
-    s, the mask of states t reachable from s by the first c effective
-    crashed ops (each any number of times, or not at all), a reflexive
-    and transitive closure (boolean matrix products)."""
+    """int32[nC * Sn * W] with nC = len(eff) + 1 and W = sn_words(Sn):
+    row c holds, for each state s, the mask of states t reachable from s
+    by the first c effective crashed ops (each any number of times, or
+    not at all), a reflexive and transitive closure (boolean matrix
+    products), state t in word t // 32."""
     Sn = legal.shape[1]
+    W = crash_kernel.sn_words(Sn)
     C = np.eye(Sn, dtype=bool)
     rows = [C]
     for _, u in eff:
@@ -562,9 +745,13 @@ def _prefix_closures(eff, legal, next_state) -> np.ndarray:
                 break
             C = C2
         rows.append(C)
-    pw = (1 << np.arange(Sn, dtype=np.uint64)).astype(np.uint64)
-    words = [(M.astype(np.uint64) * pw).sum(1) for M in rows]
-    return np.concatenate(words).astype(np.uint32).view(np.int32)
+    out = np.zeros((len(rows), Sn, W), np.uint32)
+    for w in range(W):
+        lo, hi = 32 * w, min(32 * (w + 1), Sn)
+        pw = (1 << np.arange(hi - lo, dtype=np.uint64)).astype(np.uint64)
+        for c, M in enumerate(rows):
+            out[c, :, w] = (M[:, lo:hi].astype(np.uint64) * pw).sum(1)
+    return out.ravel().view(np.int32)
 
 
 class _RelaxedWire(NamedTuple):
@@ -584,11 +771,13 @@ class _RelaxedWire(NamedTuple):
 
 def _relaxed_wire(c: _Crashes) -> Optional[_RelaxedWire]:
     """The relaxed tier's wire over the stripped history's scan, or None
-    where the tier does not apply (an unencodable crashed op, Sn > 32, a
-    stripped shape outside the segment kernel's nc = 0 gate)."""
+    where the tier does not apply (an unencodable crashed op, Sn > 64, a
+    stripped shape outside the segment kernel's nc = 0 gate, which past
+    32 states takes two-word masks of a decomposed model)."""
     Sn = c.states.shape[0]
-    if Sn > 32:
-        return None                  # the two-word lift: ROADMAP P5
+    if Sn > 2 * planner.REGS_SN_MAX:
+        return None                  # closure masks cap at two words
+    W = crash_kernel.sn_words(Sn)
     eff = [(ip, u) for (ip, _, _), ine, u in zip(c.crashed, c.inert,
                                                  c.crash_uop) if not ine]
     if any(u < 0 for _, u in eff) or len(eff) > 32767:
@@ -598,7 +787,9 @@ def _relaxed_wire(c: _Crashes) -> Optional[_RelaxedWire]:
         return None
     R = int(fk.max_open)
     dec = planner._decompose(c.legal, c.next_state)
-    if planner.regs_gate(R, Sn, len(c.rows), dec[0] is not None) is not None \
+    if planner._segment_gate(R, planner.REGS_R_MAX, Sn, len(c.rows),
+                             dec[0] is not None,
+                             sn_max=planner.REGS_SN_MAX * W) is not None \
             or not fk.n_rets or fk.cuts[-1] != 1:
         return None
     seg_ends = planner._segment_ends(fk.cuts, TARGET_RETURNS)
@@ -606,7 +797,8 @@ def _relaxed_wire(c: _Crashes) -> Optional[_RelaxedWire]:
     keep = np.nonzero(~c.drop)[0]
     orig_ret_pos = keep[np.asarray(fk.positions, np.int64)]
     crow = np.searchsorted(crash_pos, orig_ret_pos, side="left")
-    aux, UP = _aux(planner._pack_uop_tables(c.legal, c.next_state, *dec))
+    aux, UP = _aux(planner._pack_uop_tables(c.legal, c.next_state, *dec,
+                                            sn_words=W))
     wire = regs_kernel.pack_stream(fk, seg_ends, min(2, R), crow=crow)
     return _RelaxedWire(fk, seg_ends, orig_ret_pos, wire, aux, UP,
                         _prefix_closures(eff, c.legal, c.next_state), R, Sn)
@@ -615,7 +807,8 @@ def _relaxed_wire(c: _Crashes) -> Optional[_RelaxedWire]:
 def _relaxed_refute(model, history, ops, c: _Crashes, *, localize, dev,
                     lap) -> Optional[dict]:
     """Tier 4: a sound refutation under relaxed crash semantics (the
-    reference's `_relaxed_refute`, at Sn <= 32).  Every effect-bearing
+    reference's `_relaxed_refute`, up to 64 states: past 32 every state
+    mask takes two words).  Every effect-bearing
     crashed call becomes a jump between states available any number of
     times from its invoke on: a true linearization uses each crashed op
     at most once, after its invoke, so the relaxed config set holds the
@@ -646,9 +839,10 @@ def _relaxed_refute(model, history, ops, c: _Crashes, *, localize, dev,
     dead = int(vd[1])
     seg_lo = int(rw.seg_ends[dead - 1]) if dead > 0 else 0
     bound_pos = int(rw.orig_ret_pos[int(rw.seg_ends[dead]) - 1])
+    seed = (int(vd[2]) & 0xFFFFFFFF) | (int(vd[3]) & 0xFFFFFFFF) << 32
     drow, bad = crash_kernel.death_row(
         wire[0], wire[1][dead:dead + 1], wire[2][dead:dead + 1], wire[3],
-        wire[4], int(vd[2]) & 0xFFFFFFFF, R=R, Sn=Sn, UP=UP)
+        wire[4], seed, R=R, Sn=Sn, UP=UP)
     bad, drow = (int(x) for x in torch.cat([bad, drow]).cpu())
     if bad:
         raise RuntimeError("the relaxed kernel refused the dead segment")
@@ -988,13 +1182,14 @@ class _KeyLaunch(NamedTuple):
 
 
 def _key_launch(model, spec, keys: _KeySort, max_states: int,
-                lap) -> _KeyLaunch:
-    """The key launch over `keys.lanes` at the deepest lane key's R.
+                lap, tables=None) -> _KeyLaunch:
+    """The key launch over `keys.lanes` at the deepest lane key's R
+    (`tables`: the lanes' `_model_tables`, when the caller has them).
     Raises Unsupported when their state space outgrows `max_states` or
     the segment kernel's gate."""
     R = max(int(fk.max_open) for _, fk, _ in keys.lanes)
-    states, legal, next_state, dec = _model_tables(spec, model, keys.rows,
-                                                   max_states)
+    states, legal, next_state, dec = tables or _model_tables(
+        spec, model, keys.rows, max_states)
     why = planner.regs_gate(R, states.shape[0], len(keys.rows),
                             dec[0] is not None)
     if why is not None:
@@ -1057,6 +1252,72 @@ def _run_keys(launch: _KeyLaunch, *, dev: torch.device, lap,
     return alive, seconds
 
 
+def _cand_key_tables(keys: _KeySort, R: int):
+    """The lane keys' candidate tables in `planner.plan`'s layout: each
+    key one lane, its open sets padded to C = R candidates, the keys
+    padded to a multiple of 128 (ret_slot int32[Kp, L], cand_slot and
+    cand_uop int32[Kp, L, C])."""
+    n = len(keys.lanes)
+    Kp = max(128, -(-n // 128) * 128)
+    L = planner._pad_len(max(fk.n_rets for _, fk, _ in keys.lanes))
+    C = R
+    ret_slot = np.full((Kp, L), -1, np.int32)
+    cand_slot = np.zeros((Kp, L, C), np.int32)
+    cand_uop = np.full((Kp, L, C), -1, np.int32)
+    for kk, (_, fk, _) in enumerate(keys.lanes):
+        rs, counts, cs, cu = planner._fk_arrays(fk)
+        nr = len(rs)
+        ret_slot[kk, :nr] = rs
+        if len(cs):
+            ends = np.cumsum(counts)
+            r_idx = np.repeat(np.arange(nr), counts)
+            j_idx = np.arange(ends[-1]) - np.repeat(ends - counts, counts)
+            cand_slot[kk, r_idx, j_idx] = cs
+            cand_uop[kk, r_idx, j_idx] = cu
+    return ret_slot, cand_slot, cand_uop
+
+
+def _cand_keys(keys: _KeySort, tables, *, dev, lap, stats: dict):
+    """The lane keys the key launch refuses (Sn past 32, or a model
+    without the decomposition) as one J = 1 launch of the candidate-table
+    kernel `cand_gate` picks over their shared alphabet (the reference's
+    `check_many` candidate lanes, tables of `_cand_key_tables`).  Returns
+    (alive bool[n lanes], seconds from the launch to the end of the
+    verdicts' copy, the form), or None where neither form takes the
+    shape."""
+    states, legal, next_state, dec = tables
+    Sn = int(states.shape[0])
+    R = max(int(fk.max_open) for _, fk, _ in keys.lanes)
+    if planner.cand_gate(R, Sn, dec[0] is not None) not in \
+            planner.CAND_FORMS:
+        return None
+    n = len(keys.lanes)
+    ret_slot, cand_slot, cand_uop = _cand_key_tables(keys, R)
+    lap("pack")
+    ev = None
+    if dev.type == "cuda":
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.monotonic()
+    if ev is not None:
+        ev[0].record()
+    T, bad, form = _cand_scan(ret_slot, cand_slot, cand_uop, legal,
+                              next_state, dec, R=R, Sn=Sn, J=1, dev=dev)
+    if ev is not None:
+        ev[1].record()
+    alive = T[:, 0, :].any(-1).to(torch.int32)
+    stats["launches"] = stats.get("launches", 0) + 1
+    lap("launch")
+    host = torch.cat([bad, alive]).cpu().numpy()          # the one sync
+    seconds = time.monotonic() - t0
+    lap("sync")
+    if ev is not None:
+        stats["kernel_ms"] = (stats.get("kernel_ms", 0.0)
+                              + ev[0].elapsed_time(ev[1]))
+    if host[0]:
+        raise RuntimeError(f"wgl_cand_{form} refused {int(host[0])} CTAs")
+    return host[1:1 + n] != 0, seconds, form
+
+
 def _localize_key(result: dict, model, hist) -> None:
     """An invalid key's witness and artifacts from the capped CPU oracle
     (ORACLE_CAPS); when the cap is hit the verdict stands without
@@ -1081,7 +1342,11 @@ def check_many(model, histories, *, max_states: int = 64,
     (`regs_kernel.keys_scan`, `engine: "wgl_seg_batch_regs"`); these keys
     share one alphabet and one uop table, all run in one launch at exact
     rounds (the deepest such key's R), the longest first, and their
-    verdicts come back in one copy.  Keys at R
+    verdicts come back in one copy.  Where their shared state space is
+    past the key kernel's (more than 32 states, or a model without the
+    diagonal + rank-1 decomposition), they run instead as one J = 1
+    launch of a candidate-table kernel (`engine: "wgl_seg_batch"`, the
+    reference's candidate lanes).  Keys at R
     7..16 go together through one `wgl_deep.check_pipeline` grid, which
     scans them with an alphabet of their own.  A key with crashed calls rides as
     its crash-stripped twin: a twin proved valid is the key's verdict
@@ -1096,8 +1361,8 @@ def check_many(model, histories, *, max_states: int = 64,
     decides the keys the batched engines refuse (`engine: "fallback"`
     unless the result names its own): one the scan refuses, a
     PreparedHistory, one every crash tier leaves open, and every lane
-    key when the batch's state space outgrows `max_states` or the
-    segment kernel's gate.  The default is the serial frontier engine
+    key when the batch's state space outgrows `max_states` or both
+    lane kernels' gates.  The default is the serial frontier engine
     (`wgl.check` on `device`), and the CPU oracle where that raises
     ValueError.  A double invoke raises ValueError; a model without a
     device spec and `mesh` / `mesh_axis` (P8) raise Unsupported.
@@ -1127,19 +1392,35 @@ def check_many(model, histories, *, max_states: int = 64,
 
     R_lanes = max((int(fk.max_open) for _, fk, _ in lanes), default=0)
     invalid: list = []        # (i, History) to localize
-    launch = None
+    launch = tables = cand = None
     if lanes:
         try:
-            launch = _key_launch(model, spec, keys, max_states, lap)
+            tables = _model_tables(spec, model, keys.rows, max_states)
+            launch = _key_launch(model, spec, keys, max_states, lap,
+                                 tables=tables)
         except Unsupported:
             lap("tables")
-            fall.extend(i for i, _, _ in lanes)
-    if launch is not None:
-        alive, t_kernel = _run_keys(launch, dev=dev, lap=lap, stats=stats)
+    if lanes and launch is None and tables is not None:
+        cand = _cand_keys(keys, tables, dev=dev, lap=lap, stats=stats)
+    if lanes and launch is None and cand is None:
+        fall.extend(i for i, _, _ in lanes)
+    if launch is not None or cand is not None:
+        if launch is not None:
+            alive, t_kernel = _run_keys(launch, dev=dev, lap=lap,
+                                        stats=stats)
+            engine, record = "wgl_seg_batch_regs", None
+        else:
+            alive, t_kernel, form = cand
+            engine = "wgl_seg_batch"
+            record = {"engine": engine, "batch": n, "device": str(dev),
+                      "R": R_lanes, "kernel": f"wgl_cand_{form}",
+                      "form": form, "why": WHY_KEYS_CAND.format(form=form)}
         for (i, fk, hist), ok in zip(lanes, alive):
             res = {"valid?": bool(ok), "op_count": fk.n_calls,
-                   "backend": dev.type, "engine": "wgl_seg_batch_regs",
+                   "backend": dev.type, "engine": engine,
                    "time_kernel_s": t_kernel}
+            if record is not None:
+                res["dispatch"] = record
             results[i] = res
             if i in twins:
                 if ok:

@@ -187,12 +187,17 @@ def test_over_deep_history_raises_unsupported(depth):
 
 
 def test_too_many_states_raises_unsupported():
+    # 41 states: past the segment and deep kernels' 32, so the
+    # candidate-table route decides it; past max_states it is refused
     ops = []
     for v in range(40):
         ops += [invoke_op(0, "write", v), ok_op(0, "write", v)]
     h = History(ops).index()
-    with pytest.raises(Unsupported, match="exceed the deep kernel's 32"):
-        wgl_seg.check(models.CASRegister(), h, device="cpu")
+    r = wgl_seg.check(models.CASRegister(), h, device="cpu")
+    assert r["valid?"] is True and r["states"] == 41
+    assert r["dispatch"]["kernel"] == "wgl_cand_dense"
+    with pytest.raises(Unsupported, match="max_states=32"):
+        wgl_seg.check(models.CASRegister(), h, device="cpu", max_states=32)
 
 
 def test_model_without_device_spec_raises_unsupported():

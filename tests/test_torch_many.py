@@ -409,9 +409,12 @@ def test_a_wide_deep_key_leaves_the_lanes_alone(vmax, n_calls, max_states):
         assert got[k]["engine"] == "wgl_seg_batch_regs", name
         assert pick(got[k]) == pick(alone[k]) == pick(ref[k]), name
     deep = got[-1]
-    # on the deep grid, or a straggler of it (its states past the deep
-    # kernel's 32 or max_states) that the serial frontier engine decides
-    assert deep["engine"] in ("wgl_deep", "wgl")
+    # on the deep grid, or a straggler of it: past the deep kernel's 32
+    # states the candidate-table route of check() decides it, past
+    # max_states the serial frontier engine
+    assert deep["engine"] in ("wgl_deep", "wgl_seg", "wgl")
+    if deep["engine"] == "wgl_seg":
+        assert deep["dispatch"]["kernel"] == "wgl_cand_dense"
     if deep["engine"] == "wgl":
         assert "ROADMAP P5" in deep["dispatch"]["why"]
     oracle = wgl_cpu.check(models.CASRegister(), port_h[-1])
